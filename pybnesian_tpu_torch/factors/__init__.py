@@ -1,0 +1,25 @@
+from .base import (
+    Args,
+    Arguments,
+    Assignment,
+    Factor,
+    FactorType,
+    Kwargs,
+    UnknownFactorType,
+)
+from .discrete import DiscreteFactor, DiscreteFactorType
+from .lineargaussian import LinearGaussianCPD, LinearGaussianCPDType
+
+__all__ = [
+    "FactorType",
+    "Factor",
+    "UnknownFactorType",
+    "Args",
+    "Kwargs",
+    "Arguments",
+    "Assignment",
+    "LinearGaussianCPD",
+    "LinearGaussianCPDType",
+    "DiscreteFactor",
+    "DiscreteFactorType",
+]
