@@ -7,20 +7,34 @@ Phases, in order; each prints its findings, and a failing phase raises, so
 the script exits non-zero and prints no result:
 
 0. environment: torch, CUDA, nvcc and the card (name, power limit);
-1. build: nvcc compiles csrc/ckde_cv.cu for sm_90a;
-2. the kernel against its plain torch version on the card: small ragged
-   cases, the bench shape, and the main path's own inputs;
+1. build: nvcc compiles every source of csrc/ for sm_90a, all at once;
+2. the CV pairs kernel (``ckde_cv_pairs``) against its plain torch version
+   on the card: small ragged cases, the bench shape, and the main path's
+   own inputs;
 3. the port's ``flash_cv_selfcheck`` on the card;
-4. the main path: ``CVLikelihood.local_score_batch`` on bench.py's workload
+4. the CV path: ``CVLikelihood.local_score_batch`` on bench.py's workload
    (10,000 rows × 5 float32 columns, 15 CKDE families, 10 folds, normal
    reference bandwidth) — one warm call and 3 timed calls through the
    kernel, scores held against the port's float64 path — then a
-   semiparametric mix of linear-Gaussian and CKDE families.
+   semiparametric mix of linear-Gaussian and CKDE families;
+5. the KDE kernel (``kde_logl``) against its plain version: small ragged
+   cases (G 1 and 2, d 1 to 20, an all-invalid first train tile) and the
+   TPU kernel's own shape (10,240 × 10,240 rows, d 3), both timed;
+6. the exp-chain probe (``exp_chain``) against its plain version, its rate
+   (the card's float32 exp ceiling), and the two KDE kernels' exp rates as
+   shares of that ceiling;
+7. the fitted-model path at config3b's size: an 8-node SemiparametricBN
+   chain (CKDE at x0, x2, x4, x6; linear-Gaussian at the odd nodes) fitted
+   on 10,000 float32 rows, ``model.slogl`` on 10,000 more (warm, then 6
+   timed calls through the pairs kernel), ``model.logl`` against the
+   port's float64 path, every CKDE ``cpd.logl`` and a 3-variable KDE
+   through the KDE kernel, and ``model.sample``.
 
-The line before the last is a JSON object with the kernel's launch count
-on the main path, its error against the plain version and both times; the
-last line is ``{"ok": true, "device": {...}}``. Needs CUDA; imports neither
-JAX nor the JAX package.
+Each path (4, 6, 7) runs with every launch count set to 0 just before it
+and read just after. The line before the last is a JSON object with each
+kernel's launches on those paths, its error against its plain version and
+both times; the last line is ``{"ok": true, "device": {...}}``. Needs
+CUDA; imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -32,14 +46,27 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-KERNEL_SOURCE = "pybnesian_tpu_torch/csrc/ckde_cv.cu"
-KERNEL_REPLACES = "pybnesian_tpu/ops/pallas_kde.py:77"
+KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
+    "ckde_cv_pairs": ("pybnesian_tpu_torch/csrc/ckde_cv.cu",
+                      "pybnesian_tpu/ops/pallas_kde.py:77"),
+    "kde_logl": ("pybnesian_tpu_torch/csrc/ckde_cv.cu",
+                 "pybnesian_tpu/ops/pallas_kde.py:36"),
+    "exp_chain": ("pybnesian_tpu_torch/csrc/exp_chain.cu",
+                  "benchmarks/micro_exp_roofline.py:90"),
+}
 PAIR_TOL = 1e-3       # max abs difference per test row, kernel vs plain
 SCORE_RTOL = 1e-4     # float32 kernel route vs float64 plain route
+EXP_TOL = 1e-5        # max abs difference of the exp chain, kernel vs plain
+ROW_TOL = 1e-3        # per-row logl: float32 kernel routes vs float64 plain,
+                      # and the model's batched route vs its factors' routes
 TIMED_RUNS = 10
+MODEL_RUNS = 6
+# (G, ntr, nte, d) of the Pallas KDE kernel's measured shape (pallas_kde.py:11)
+KDE_TPU_SHAPE = (1, 10_240, 10_240, 3)
 
 
 def make_data(n=10_000, d=5, seed=0, dtype=np.float32):
@@ -68,6 +95,37 @@ def families(d, shift=1):
     return fams
 
 
+def config3b_data(n, seed, d=8):
+    """benchmarks/config3b_logl_evals.py's data (:34-49), as a dict of
+    float32 numpy columns."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    prev = rng.normal(0, 1, n)
+    cols["x0"] = prev
+    for i in range(1, d):
+        prev = np.sin(0.8 * prev) + 0.5 * prev + rng.normal(0, 0.6, n)
+        cols[f"x{i}"] = prev
+    return {k: v.astype(np.float32) for k, v in cols.items()}
+
+
+def counters():
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+    from pybnesian_tpu_torch.ops.exp_chain import exp_chain
+    from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
+
+    return {"ckde_cv_pairs": ckde_cv_pairs, "kde_logl": kde_logl,
+            "exp_chain": exp_chain}
+
+
+def reset_counts():
+    for wrapper in counters().values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in counters().items()}
+
+
 def say(phase, **fields):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
@@ -81,9 +139,9 @@ def run(cmd):
 def phase_environment(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs a GPU")
-    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _nvcc
+    from pybnesian_tpu_torch.ops.cuda_build import nvcc as find_nvcc
 
-    nvcc = _nvcc()
+    nvcc = find_nvcc()
     nvcc_version = run([nvcc, "--version"]).splitlines()[-1]
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
@@ -97,17 +155,23 @@ def phase_environment(torch):
 
 
 def phase_build():
-    from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
-        _load_library, build_kernel)
+    """One nvcc per source, all started together."""
+    from pybnesian_tpu_torch.ops import cuda_build
 
-    info = build_kernel()
-    _load_library()
-    regs = sorted({
-        line.split("Used", 1)[1].split(",")[0].strip()
-        for line in info["ptxas"].splitlines() if "Used" in line
-    })
-    say("1 build", built=info["built"], seconds=f"{info['seconds']:.2f}",
-        ptxas_used=repr(regs), library=os.path.basename(info["path"]))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
+        infos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
+    wall = time.perf_counter() - t0
+    for source, info in zip(cuda_build.SOURCES, infos):
+        cuda_build.load(source)
+        regs = sorted({
+            line.split("Used", 1)[1].split(",")[0].strip()
+            for line in info["ptxas"].splitlines() if "Used" in line
+        })
+        say("1 build", source=source, built=info["built"],
+            seconds=f"{info['seconds']:.2f}", ptxas_used=repr(regs),
+            library=os.path.basename(info["path"]))
+    say("1 build", sources=len(infos), wall_s=f"{wall:.2f}")
 
 
 def pair_inputs(torch, G, ntr, nte, dpad, seed, scale=3.0):
@@ -165,7 +229,7 @@ def compare_pairs(torch, args, label, timed=False):
     return err, ms, plain_ms
 
 
-def phase_kernel(torch, frame32, k):
+def phase_kernel(torch, main_args):
     # (a) small cases: ragged ntr and nte, evidence-free programs, a program
     # whose second 256-row train tile is all padding, dpad 1/2/4/8
     for dpad in (1, 2, 4, 8):
@@ -176,8 +240,7 @@ def phase_kernel(torch, frame32, k):
     compare_pairs(torch, pair_inputs(torch, 150, 9000, 1000, 4, seed=7),
                   "bench-shape", timed=True)
     # (c) the main path's own inputs: the whitened parts of its first batch
-    return compare_pairs(torch, main_path_pair_inputs(torch, frame32, k),
-                         "main-path-inputs", timed=True)
+    return compare_pairs(torch, main_args, "main-path-inputs", timed=True)
 
 
 def main_path_pair_inputs(torch, frame32, k):
@@ -239,14 +302,14 @@ def phase_main_path(torch, frame32, frame64, k):
     shifts = [1, 2, 3, 1]
     batches = [[(v, ps, ckde) for v, ps in families(d, s)] for s in shifts]
     results, elapsed, grew = [], [], []
-    ckde_cv_pairs.launches = 0
+    reset_counts()
     for batch in batches:
         before = ckde_cv_pairs.launches
         t0 = time.perf_counter()
         results.append(score.local_score_batch(model, batch))
         elapsed.append(time.perf_counter() - t0)
         grew.append(ckde_cv_pairs.launches - before)
-    launches = ckde_cv_pairs.launches
+    launches = read_counts()
     if not all(g > 0 for g in grew):
         raise AssertionError(f"kernel launches per call {grew}: a call "
                              "did not go through the kernel")
@@ -261,7 +324,8 @@ def phase_main_path(torch, frame32, frame64, k):
         folds=k, rows=frame32.num_rows, launches_per_call=grew,
         warm_s=f"{elapsed[0]:.4f}",
         timed_s=repr([round(t, 6) for t in timed]),
-        family_scores_per_s=f"{rate:.2f}", max_rel_vs_f64=f"{rel:.3e}")
+        family_scores_per_s=f"{rate:.2f}", max_rel_vs_f64=f"{rel:.3e}",
+        launches=launches)
 
     # semiparametric mix: linear-Gaussian and CKDE families in one batch
     lg = LinearGaussianCPDType()
@@ -282,6 +346,193 @@ def phase_main_path(torch, frame32, frame64, k):
     return launches
 
 
+def kde_inputs(torch, G, ntr, nte, d, seed, scale=2.0):
+    """Random KDE-kernel inputs on the card: ~10% invalid train rows."""
+    rng = np.random.default_rng(seed)
+    train = rng.normal(0, scale, (G, ntr, d)).astype(np.float32)
+    test = rng.normal(0, scale, (G, nte, d)).astype(np.float32)
+    valid = (rng.random((G, ntr)) > 0.1).astype(np.float32)
+    lognorm = rng.normal(-3.0, 0.5, G).astype(np.float32)
+    return [torch.as_tensor(a, device="cuda")
+            for a in (train, valid, test, lognorm)]
+
+
+def compare_kde(torch, args, label, timed=False):
+    from pybnesian_tpu_torch.ops.kde_kernel import (
+        kde_logl, kde_logl_reference)
+
+    got = kde_logl(*args)
+    want = kde_logl_reference(*args)
+    torch.cuda.synchronize()
+    if torch.isnan(got).any() or torch.isnan(want).any():
+        raise AssertionError(f"{label}: NaN in kernel or plain output")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    if not err <= PAIR_TOL:
+        raise AssertionError(f"{label}: max abs diff {err} > {PAIR_TOL}")
+    G, ntr, d = args[0].shape
+    fields = {"case": label,
+              "G_ntr_nte_d": f"{G}x{ntr}x{args[2].shape[1]}x{d}",
+              "max_abs_err": f"{err:.3e}"}
+    ms = plain_ms = None
+    if timed:
+        ms = cuda_median_ms(torch, lambda: kde_logl(*args))
+        plain_ms = cuda_median_ms(torch, lambda: kde_logl_reference(*args))
+        fields.update(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    say("5 kde kernel", **fields)
+    return err, ms, plain_ms
+
+
+def phase_kde_kernel(torch):
+    """Small ragged cases, then the TPU kernel's shape (pallas_kde.py:11)."""
+    errs = []
+    for G in (1, 2):
+        for d in (1, 2, 3, 8, 16, 20):
+            args = kde_inputs(torch, G, 600, 77, d, seed=10 * G + d)
+            args[1][0, :256] = 0.0  # an all-invalid first train tile
+            errs.append(compare_kde(torch, args, f"small-G{G}-d{d}")[0])
+    err, ms, plain_ms = compare_kde(
+        torch, kde_inputs(torch, *KDE_TPU_SHAPE, seed=1),
+        "tpu-docstring-shape", timed=True)
+    return max(errs + [err]), ms, plain_ms
+
+
+def pairs_exps(args):
+    """Exps of one ckde_cv_pairs launch: 2 per pair, 1 for evidence-free
+    (no_ev) programs."""
+    G, ntr, _ = args[0].shape
+    n_no_ev = int((args[5] > 0.5).sum())
+    return ntr * args[3].shape[1] * (2 * (G - n_no_ev) + n_no_ev)
+
+
+def phase_exp_chain(torch, timed_kernels):
+    """The probe against its plain version, then its rate as the exp
+    ceiling; the KDE kernels' exp rates (``timed_kernels``: name → (exps
+    per launch, ms per launch)) as shares of it."""
+    from pybnesian_tpu_torch.ops.exp_chain import (
+        CHAIN, REPEATS, SHAPE, exp_chain, exp_chain_reference)
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(-np.abs(rng.normal(size=SHAPE)).astype(np.float32),
+                        device="cuda")
+    got = exp_chain(x)
+    want = exp_chain_reference(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and err <= EXP_TOL):
+        raise AssertionError(f"exp chain: max abs diff {err} > {EXP_TOL}")
+    plain_ms = cuda_median_ms(torch, lambda: exp_chain_reference(x))
+    reset_counts()
+    ms = cuda_median_ms(torch, lambda: exp_chain(x))
+    launches = read_counts()
+    if launches["exp_chain"] == 0:
+        raise AssertionError("the probe did not launch its kernel")
+    exps = SHAPE[0] * SHAPE[1] * CHAIN * REPEATS
+    ceiling = exps / (ms * 1e-3)
+    say("6 exp chain", shape=f"{SHAPE[0]}x{SHAPE[1]}", chain=CHAIN,
+        repeats=REPEATS, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", gexp_per_s=f"{ceiling / 1e9:.2f}",
+        launches=launches)
+    for name, (n_exps, kms) in timed_kernels.items():
+        rate = n_exps / (kms * 1e-3)
+        say("6 exp-ceiling share", kernel=name, exps=n_exps,
+            kernel_ms=f"{kms:.4f}", gexp_per_s=f"{rate / 1e9:.2f}",
+            exp_ceiling_share=f"{rate / ceiling:.4f}")
+    return err, ms, plain_ms, launches
+
+
+def phase_model_path(torch):
+    """config3b's workload (benchmarks/config3b_logl_evals.py:34-49): an
+    8-node SemiparametricBN chain with CKDE at the even nodes, fitted on
+    10,000 float32 rows and evaluated on 10,000 more."""
+    from pybnesian_tpu_torch import (
+        KDE, CKDEType, DataFrame, SemiparametricBN, interop)
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+
+    d, n = 8, 10_000
+    train, test = config3b_data(n, 0), config3b_data(n, 1)
+    train32, test32 = DataFrame.wrap(train), DataFrame.wrap(test)
+    train64 = DataFrame.wrap({k: v.astype(np.float64)
+                              for k, v in train.items()})
+    test64 = DataFrame.wrap({k: v.astype(np.float64)
+                             for k, v in test.items()})
+    names = list(train)
+    ckde_nodes = names[0::2]
+    model = SemiparametricBN(
+        names, [(names[i], names[i + 1]) for i in range(d - 1)],
+        [(v, CKDEType()) for v in ckde_nodes],
+    )
+    model.fit(train32)
+    # the same fitted model in float64, the plain route's reference
+    state = interop.network_state(model)
+    for v in ckde_nodes:
+        state["cpds"][v]["dtype"] = "float64"
+    model64 = interop.fitted_network(**state)
+
+    reset_counts()
+    model.slogl(test32)  # warm
+    elapsed, grew, values = [], [], []
+    for _ in range(MODEL_RUNS):
+        before = ckde_cv_pairs.launches
+        t0 = time.perf_counter()
+        values.append(model.slogl(test32))
+        elapsed.append(time.perf_counter() - t0)
+        grew.append(ckde_cv_pairs.launches - before)
+    if not all(g > 0 for g in grew):
+        raise AssertionError(f"pairs-kernel launches per slogl {grew}")
+    rate = d * n / statistics.mean(elapsed)
+
+    logl = model.logl(test32)
+    logl64 = model64.logl(test64)
+    if not np.all(np.isfinite(logl)):
+        raise AssertionError("model.logl: non-finite rows")
+    err_model = float(np.max(np.abs(logl - logl64)))
+    if not err_model <= ROW_TOL:
+        raise AssertionError(f"model.logl vs float64: {err_model} > {ROW_TOL}")
+    slogl64 = model64.slogl(test64)
+    say("7 model path", network="SemiparametricBN", nodes=d,
+        ckde=len(ckde_nodes), train_rows=n, test_rows=n,
+        slogl_s=repr([round(t, 6) for t in elapsed]),
+        factor_row_evals_per_s=f"{rate:.2f}",
+        slogl=f"{values[-1]:.6f}", slogl_f64=f"{slogl64:.6f}",
+        logl_max_abs_vs_f64=f"{err_model:.3e}", pairs_launches=grew)
+
+    from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
+
+    before = kde_logl.launches
+    factors = sum(np.asarray(model.cpd(v).logl(test32)) for v in names)
+    if kde_logl.launches - before != len(ckde_nodes):
+        raise AssertionError("cpd.logl of the CKDE nodes launched the KDE "
+                             f"kernel {kde_logl.launches - before} times")
+    err_factors = float(np.max(np.abs(factors - logl)))
+    if not err_factors <= ROW_TOL:
+        raise AssertionError(
+            f"Σ cpd.logl vs model.logl: {err_factors} > {ROW_TOL}")
+    kde32, kde64 = KDE(["x0", "x1", "x2"]), KDE(["x0", "x1", "x2"])
+    kde32.fit(train32)
+    kde64.fit(train64)
+    before = kde_logl.launches
+    got = kde32.logl(test32)
+    if kde_logl.launches == before:
+        raise AssertionError("KDE.logl did not launch the KDE kernel")
+    err_kde = float(np.max(np.abs(got - kde64.logl(test64))))
+    if not (np.all(np.isfinite(got)) and err_kde <= ROW_TOL):
+        raise AssertionError(f"KDE.logl vs float64: {err_kde} > {ROW_TOL}")
+
+    t0 = time.perf_counter()
+    sample = model.sample(1000, seed=0)
+    sample_s = time.perf_counter() - t0
+    cols = sample.to_pandas()
+    if cols.shape != (1000, d) or not np.all(np.isfinite(cols.to_numpy())):
+        raise AssertionError("model.sample: wrong shape or non-finite")
+    launches = read_counts()
+    say("7 model path", factors_vs_model_max_abs=f"{err_factors:.3e}",
+        kde3_max_abs_vs_f64=f"{err_kde:.3e}", sample_rows=len(cols),
+        sample_s=f"{sample_s:.4f}", launches=launches)
+    return launches
+
+
 def main():
     import torch
 
@@ -294,14 +545,34 @@ def main():
     frame32 = DataFrame.wrap(data)
     frame64 = DataFrame.wrap(
         {c: v.astype(np.float64) for c, v in data.items()})
-    err, ms, plain_ms = phase_kernel(torch, frame32, k)
+    pairs_args = main_path_pair_inputs(torch, frame32, k)
+    pairs = phase_kernel(torch, pairs_args)
     phase_selfcheck()
-    launches = phase_main_path(torch, frame32, frame64, k)
-    print(json.dumps({"kernels": [{
-        "name": "ckde_cv_pairs", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    cv_launches = phase_main_path(torch, frame32, frame64, k)
+    kde = phase_kde_kernel(torch)
+    G, ntr, nte, _ = KDE_TPU_SHAPE
+    *probe, probe_launches = phase_exp_chain(torch, {
+        "ckde_cv_pairs": (pairs_exps(pairs_args), pairs[1]),
+        "kde_logl": (G * ntr * nte, kde[1]),
+    })
+    model_launches = phase_model_path(torch)
+    paths = {"cv": cv_launches, "probe": probe_launches,
+             "model": model_launches}
+    results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe}
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        by_path = {p: counts[name] for p, counts in paths.items()
+                   if counts[name]}
+        if not by_path:
+            raise AssertionError(f"{name}: launched on no path")
+        err, ms, plain_ms = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

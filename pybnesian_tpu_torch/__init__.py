@@ -20,7 +20,7 @@ from .factors import (
     UnknownFactorType,
 )
 from .factors.ckde import CKDE, CKDEType
-from .kde import NormalReferenceRule, ScottsBandwidth
+from .kde import KDE, NormalReferenceRule, ProductKDE, ScottsBandwidth
 from .learning.scores import CVLikelihood
 from .models import GaussianNetwork, KDENetwork, SemiparametricBN
 
@@ -37,6 +37,8 @@ __all__ = [
     "DiscreteFactorType",
     "CKDE",
     "CKDEType",
+    "KDE",
+    "ProductKDE",
     "NormalReferenceRule",
     "ScottsBandwidth",
     "KDENetwork",

@@ -38,13 +38,11 @@ def _fused_cv_scores(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
                      te_idx, te_mask, rule):
     """(F,) CV scores of one rule group: the kernel route for a float32
     batch on a GPU, the plain torch route otherwise."""
-    from ...ops.kde import ckde_cv_alldevice, ckde_cv_alldevice_flash
+    from ...ops.kde import (
+        ckde_cv_alldevice, ckde_cv_alldevice_flash, kernel_route)
 
-    fused = (
-        ckde_cv_alldevice_flash
-        if data.is_cuda and data.dtype == torch.float32
-        else ckde_cv_alldevice
-    )
+    fused = (ckde_cv_alldevice_flash if kernel_route(data)
+             else ckde_cv_alldevice)
     return fused(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
                  te_idx, te_mask, rule=rule)
 

@@ -17,35 +17,23 @@ Three things live here:
 - :func:`ckde_cv_pairs`, the wrapper: plain version for CPU tensors, the
   CUDA kernel (``pybnesian_tpu_torch/csrc/ckde_cv.cu``) for CUDA tensors,
   with a launch counter ``ckde_cv_pairs.launches``;
-- the build (nvcc, at first use, keyed by the source's content hash) and
-  the ctypes binding of that kernel.
+- the ctypes binding of that kernel (built at first use by
+  :mod:`.cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from . import cuda_build
 
 __all__ = [
     "ckde_cv_pairs",
     "ckde_cv_pairs_reference",
-    "build_kernel",
     "MAX_DPAD",
-]
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "ckde_cv.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 #: widest family (columns per program) the kernel is instantiated for
@@ -161,49 +149,9 @@ def ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
 ckde_cv_pairs.launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidate = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-
-
-def build_kernel() -> dict:
-    """Compile ``csrc/ckde_cv.cu`` for sm_90a into the package's ``_build``
-    directory unless a library for this source and these flags exists.
-    Returns ``{"path", "built", "seconds", "ptxas"}``: ``built`` is False
-    when an existing library was reused; ``ptxas`` holds nvcc's resource
-    report (registers, shared memory, spills)."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    path = os.path.join(_BUILD_DIR, f"libckde_cv-{key[:16]}.so")
-    if os.path.exists(path):
-        return {"path": path, "built": False, "seconds": 0.0, "ptxas": ""}
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    # atomic: a concurrent build never loads a partial file
-    os.replace(tmp, path)
-    return {"path": path, "built": True, "seconds": seconds,
-            "ptxas": proc.stderr}
-
-
 @functools.cache
 def _load_library():
-    lib = ctypes.CDLL(build_kernel()["path"])
+    lib = cuda_build.load("ckde_cv.cu")
     fn = lib.ckde_cv_pairs_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p

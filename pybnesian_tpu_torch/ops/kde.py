@@ -1,7 +1,18 @@
-"""Cross-validated conditional-KDE (CKDE) scores on torch tensors.
+"""Kernel density estimation (KDE) on torch tensors: fitted-model
+log-likelihoods and cross-validated conditional-KDE (CKDE) scores.
 
-Port of ``pybnesian_tpu/ops/kde.py`` as far as the CV score needs it. One
-call scores F CKDE families over K folds:
+Port of ``pybnesian_tpu/ops/kde.py``. The fitted-model functions
+(:func:`kde_logl_whitened`, :func:`kde_conditional_logsumexp`,
+:func:`batched_ckde_logl`, :func:`kde_logl_pair`) take whitened train and
+test rows. A float32 batch on a GPU goes to a hand-written kernel: the KDE
+kernel of :func:`kde_logl` for the first two, the CV pairs kernel of
+:func:`ckde_cv_pairs` for the batched one. Every other batch (float64, or
+CPU tensors) takes the plain torch port of the JAX function, whose pair
+distances are one matmul per test chunk. The JAX functions padded test
+rows to a multiple of their chunk; the kernels mask their own ragged edges
+and the plain forms chunk internally, so no caller pads.
+
+One CV call scores F CKDE families over K folds:
 
 1. :func:`ckde_cv_whitened_parts` — per (family, fold) row gather, rule
    bandwidth (normal reference or Scott), Cholesky and whitening;
@@ -29,9 +40,15 @@ import numpy as np
 import torch
 
 from .ckde_cv_kernel import ckde_cv_pairs
+from .kde_kernel import kde_logl
 from .linalg import cholesky_or_nan
 
 __all__ = [
+    "kernel_route",
+    "kde_logl_whitened",
+    "kde_logl_pair",
+    "kde_conditional_logsumexp",
+    "batched_ckde_logl",
     "ckde_cv_whitened_parts",
     "ckde_cv_alldevice",
     "ckde_cv_alldevice_flash",
@@ -45,6 +62,129 @@ LOG_2PI = math.log(2.0 * math.pi)
 # dense path: 2**24 keeps each of its few live temporaries at 64 MiB in
 # float32 and 128 MiB in float64
 _DENSE_BLOCK = 1 << 24
+
+
+def kernel_route(t) -> bool:
+    """The port's routing rule: a float32 tensor on a GPU goes to the
+    hand-written kernels, every other tensor to the plain torch forms —
+    by dtype and device, never because a kernel failed."""
+    return t.is_cuda and t.dtype == torch.float32
+
+
+def _dense_lse(train, test):
+    """(M,) ``logsumexp_j −½‖test_i − train_j‖²`` by test chunks, each
+    chunk's distances one matmul (``‖a‖² + ‖b‖² − 2a·b``), as the JAX
+    package's XLA path forms them."""
+    N = train.shape[0]
+    chunk = max(1, _DENSE_BLOCK // max(N, 1))
+    tn = torch.sum(train * train, dim=1)
+    out = torch.empty(test.shape[0], dtype=train.dtype, device=train.device)
+    for s in range(0, test.shape[0], chunk):
+        tc = test[s: s + chunk]
+        d2 = (torch.sum(tc * tc, dim=1)[:, None] - 2.0 * (tc @ train.T)
+              + tn[None, :])
+        out[s: s + chunk] = torch.logsumexp(-0.5 * d2, dim=1)
+    return out
+
+
+def kde_logl_whitened(train_white, test_white, lognorm):
+    """Per-test-point KDE log-likelihood.
+
+    train_white: (N, d) training points already multiplied by L⁻¹
+    (bandwidth Cholesky); test_white: (M, d), any M; lognorm: scalar
+    −Σ log diag(L) − d/2·log 2π − log N (reference kde/KDE.hpp:451-478).
+    Returns (M,) log p(test) in the inputs' dtype."""
+    if kernel_route(train_white):
+        N = train_white.shape[0]
+        out = kde_logl(
+            train_white[None].contiguous(),
+            torch.ones((1, N), dtype=torch.float32, device=train_white.device),
+            test_white[None].contiguous(),
+            torch.tensor([float(lognorm)], dtype=torch.float32,
+                         device=train_white.device),
+        )
+        return out[0]
+    return _dense_lse(train_white, test_white) + lognorm
+
+
+def kde_logl_pair(train_white, test_white, lognorm):
+    """Full (M, N) matrix of per-kernel log-densities (before logsumexp):
+    ``logK[i, j] = −½‖test_i − train_j‖² + lognorm``. Used by CKDE
+    sampling weights and cdf (reference CKDE.hpp:289-470). Plain torch on
+    every device (the JAX package leaves it to XLA too); distances by
+    direct per-column differences."""
+    d2 = torch.zeros((test_white.shape[0], train_white.shape[0]),
+                     dtype=train_white.dtype, device=train_white.device)
+    for k in range(train_white.shape[1]):
+        diff = test_white[:, k, None] - train_white[None, :, k]
+        d2 += diff * diff
+    return -0.5 * d2 + lognorm
+
+
+def kde_conditional_logsumexp(joint_train_white, joint_test_white,
+                              marg_train_white, marg_test_white,
+                              joint_lognorm, marg_lognorm):
+    """CKDE logl = (logsumexp_joint + joint_lognorm) − (logsumexp_marginal
+    + marg_lognorm) per test row (reference CKDE.hpp:202-254). Shapes:
+    joint (N, d+e)/(M, d+e), marginal (N, e)/(M, e), any M.
+
+    On the kernel route both halves go in ONE launch of the KDE kernel as
+    two programs, the marginal zero-padded to the joint's width."""
+    if kernel_route(joint_train_white):
+        dj = joint_train_white.shape[1]
+        pad = dj - marg_train_white.shape[1]
+        device = joint_train_white.device
+        train = torch.stack([
+            joint_train_white,
+            torch.nn.functional.pad(marg_train_white, (0, pad)),
+        ]).contiguous()
+        test = torch.stack([
+            joint_test_white,
+            torch.nn.functional.pad(marg_test_white, (0, pad)),
+        ]).contiguous()
+        out = kde_logl(
+            train,
+            torch.ones(train.shape[:2], dtype=torch.float32, device=device),
+            test,
+            torch.tensor([float(joint_lognorm), float(marg_lognorm)],
+                         dtype=torch.float32, device=device),
+        )
+        return out[0] - out[1]
+    return (_dense_lse(joint_train_white, joint_test_white)
+            - _dense_lse(marg_train_white, marg_test_white)
+            + (joint_lognorm - marg_lognorm))
+
+
+def batched_ckde_logl(jtr, jte, zv_tr, zv_te, trm, lndiff, no_ev=None):
+    """Per-test-row conditional-KDE log-likelihood of F factors in ONE
+    launch — the model-level ``logl`` path (reference BNGeneric::logl:996
+    sums factor logls one at a time).
+
+    Shared-Cholesky layout (evidence first, variable last): jtr: (F, ntr,
+    djmax) whitened joint train with padded rows masked by trm; jte: (F,
+    nte, djmax); zv_tr/zv_te: (F, *) whitened variable coordinate so
+    ``marg_d2 = joint_d2 − Δz_var²``; trm: (F, ntr) 1.0 on valid rows;
+    lndiff: (F,) = −log L_vv − ½ log 2π. ``no_ev``: optional (F,) flags of
+    evidence-free factors, whose marginal logsumexp is log n_valid (the Δz
+    subtraction zeroes their marginal distances): the kernel then skips
+    their marginal pass; the plain form needs no flag. Returns (F, nte).
+
+    On the kernel route this is :func:`ckde_cv_pairs` with one program per
+    factor."""
+    neg = torch.where(trm > 0, 0.0, -math.inf).to(jtr.dtype)
+    if kernel_route(jtr):
+        F = jtr.shape[0]
+        flags = (torch.zeros(F, device=jtr.device) if no_ev is None
+                 else torch.as_tensor(no_ev, device=jtr.device))
+        n_valid = torch.sum((trm > 0).to(torch.float32), dim=1)
+        out = ckde_cv_pairs(
+            jtr.contiguous(), neg.contiguous(), zv_tr.contiguous(),
+            jte.contiguous(), zv_te.contiguous(),
+            flags.to(torch.float32).contiguous(),
+            torch.log(torch.clamp(n_valid, min=1.0)),
+        )
+        return out + lndiff[:, None]
+    return _dense_pairs(jtr, neg, zv_tr, jte, zv_te) + lndiff[:, None]
 
 
 def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["default_device", "torch_dtype"]
+__all__ = ["default_device", "torch_dtype", "host_to_device"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -39,3 +39,13 @@ def default_device() -> torch.device:
 def torch_dtype(dtype) -> torch.dtype:
     """torch dtype of a numpy dtype (float32/float64/int32/int64)."""
     return _TORCH_DTYPES[np.dtype(dtype)]
+
+
+def host_to_device(array, dtype, device=None) -> torch.Tensor:
+    """A host array as a tensor of numpy dtype ``dtype`` on ``device`` (the
+    default device): numpy casts it, torch only copies it. Letting
+    ``torch.as_tensor`` cast float64 to float32 on the way cost ~50 ms of
+    CPU per ``model.slogl`` at 10,000 rows on the H100 machine's host,
+    where numpy's cast takes well under a millisecond."""
+    return torch.from_numpy(np.ascontiguousarray(array, dtype=dtype)).to(
+        device if device is not None else default_device())
