@@ -6,23 +6,34 @@
 Phases, in order; each prints its findings, and a failing phase raises, so
 the script exits non-zero and prints no result:
 
-0. environment: torch, CUDA, nvcc and the card (name, power limit);
-1. build: nvcc compiles every source of csrc/ for sm_90a, all at once;
+0. environment: torch, CUDA, nvcc and the card (name, power limit, SM
+   count, max SM clock);
+1. build: nvcc compiles every source of csrc/ for sm_90a, all at once,
+   and prints each source's registers and the functions that spill;
 2. the CV pairs kernel (``ckde_cv_pairs``) against its plain torch version
-   on the card: small ragged cases, the bench shape, and the main path's
-   own inputs;
+   on the card: small ragged cases, then timed with its launch plan and
+   bound: the bench shape, config3b's shape (G 4, 10k × 10k, dpad 2) and
+   the main path's own inputs; each timed shape, and the CV path's shape at
+   100,000 rows (G 150, 90,000 × 10,000, dpad 3), also timed with the train
+   axis split 1, 2, 4 and 8 ways, each output held against the planned
+   launch's;
 3. the port's ``flash_cv_selfcheck`` on the card;
 4. the CV path: ``CVLikelihood.local_score_batch`` on bench.py's workload
    (10,000 rows × 5 float32 columns, 15 CKDE families, 10 folds, normal
-   reference bandwidth) — one warm call and 3 timed calls through the
-   kernel, scores held against the port's float64 path — then a
-   semiparametric mix of linear-Gaussian and CKDE families;
+   reference bandwidth) — one warm call and 3 calls through the kernel
+   whose scores are held against the port's float64 path (their mean rate
+   printed), then 30 timed calls (their median rate), the family set
+   rotated throughout — then a semiparametric mix of linear-Gaussian and
+   CKDE families;
 5. the KDE kernel (``kde_logl``) against its plain version: small ragged
    cases (G 1 and 2, d 1 to 20, an all-invalid first train tile) and the
-   TPU kernel's own shape (10,240 × 10,240 rows, d 3), both timed;
-6. the exp-chain probe (``exp_chain``) against its plain version, its rate
-   (the card's float32 exp ceiling), and the two KDE kernels' exp rates as
-   shares of that ceiling;
+   TPU kernel's own shape (10,240 × 10,240 rows, d 3), timed with its
+   launch plan and bound, and split 1, 2, 4 and 8 ways;
+6. the exp-chain probe (``exp_chain``) against its plain version and its
+   accurate-``expf`` rate; then every timed kernel's bound (the larger of
+   its exps over the SFU's 16 ``ex2`` per clock per SM at the max SM clock,
+   its FP32 operations over 67 TFLOP/s, and its bytes over 3.35 TB/s) and
+   its share of that bound;
 7. the fitted-model path at config3b's size: an 8-node SemiparametricBN
    chain (CKDE at x0, x2, x4, x6; linear-Gaussian at the odd nodes) fitted
    on 10,000 float32 rows, ``model.slogl`` on 10,000 more (warm, then 6
@@ -30,11 +41,17 @@ the script exits non-zero and prints no result:
    port's float64 path, every CKDE ``cpd.logl`` and a 3-variable KDE
    through the KDE kernel, and ``model.sample``.
 
-Each path (4, 6, 7) runs with every launch count set to 0 just before it
-and read just after. The line before the last is a JSON object with each
-kernel's launches on those paths, its error against its plain version and
-both times; the last line is ``{"ok": true, "device": {...}}``. Needs
-CUDA; imports neither JAX nor the JAX package.
+A kernel's time (``ms``) is the median of CUDA-event windows of one
+launch each; ``batched_ms`` is the median per launch of windows of
+:data:`KERNEL_BATCH` back-to-back launches, in which the card runs one
+launch while the host issues the next, so that it holds no launch
+latency. Each path (4, 6, 7) runs with every launch count set to 0 just
+before it and read just after. A JSON object with each kernel's launches
+on those paths, its error against its plain version, its times, its plain
+version's time and its bound comes two lines before the last, then the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
+Needs CUDA; imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,9 +82,21 @@ EXP_TOL = 1e-5        # max abs difference of the exp chain, kernel vs plain
 ROW_TOL = 1e-3        # per-row logl: float32 kernel routes vs float64 plain,
                       # and the model's batched route vs its factors' routes
 TIMED_RUNS = 10
+KERNEL_BATCH = 20     # back-to-back launches per window of ``batched_ms``
+SPLITS = (1, 2, 4, 8)  # train-axis splits of the sweep
+CV_RUNS = 30
 MODEL_RUNS = 6
 # (G, ntr, nte, d) of the Pallas KDE kernel's measured shape (pallas_kde.py:11)
 KDE_TPU_SHAPE = (1, 10_240, 10_240, 3)
+# (G, ntr, nte, dpad) of config3b's model.slogl: one program per CKDE node
+CONFIG3B_PAIRS_SHAPE = (4, 10_000, 10_000, 2)
+# (G, ntr, nte, dpad) of the CV path at 100,000 rows: 15 families x 10
+# folds, the widest family (two parents) padded to 3 columns
+CV_100K_PAIRS_SHAPE = (150, 90_000, 10_000, 3)
+# published peaks of one H100 SXM (NVIDIA's data sheet; PERF.md)
+SFU_EX2_PER_CLOCK_PER_SM = 16
+FP32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def make_data(n=10_000, d=5, seed=0, dtype=np.float32):
@@ -137,6 +167,8 @@ def run(cmd):
 
 
 def phase_environment(torch):
+    """The card: its ``nvidia-smi`` name and power limit line, its SM count
+    and its max SM clock in Hz (for the SFU bound)."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs a GPU")
     from pybnesian_tpu_torch.ops.cuda_build import nvcc as find_nvcc
@@ -145,13 +177,85 @@ def phase_environment(torch):
     nvcc_version = run([nvcc, "--version"]).splitlines()[-1]
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
+    max_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                         "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     say("0 environment", python=sys.version.split()[0],
         torch=torch.__version__,
         cuda=torch.version.cuda, nvcc=repr(nvcc_version),
         device=repr(torch.cuda.get_device_name(0)),
-        count=torch.cuda.device_count())
+        count=torch.cuda.device_count(), sms=sms, max_sm_mhz=max_mhz)
     print(smi, flush=True)
-    return smi
+    return {"smi": smi, "sms": sms, "max_sm_hz": max_mhz * 1e6}
+
+
+def bound(card, exps, ops, nbytes):
+    """(ms, what bounds it): the least time the card could take for work of
+    ``exps`` SFU exps, ``ops`` FP32 operations (an FMA is 2) and ``nbytes``
+    bytes, each input read once and each output written once."""
+    times = {
+        "sfu": exps / (card["sms"] * SFU_EX2_PER_CLOCK_PER_SM
+                       * card["max_sm_hz"]),
+        "fp32": ops / FP32_OPS_PER_S,
+        "bytes": nbytes / HBM_BYTES_PER_S,
+    }
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def pairs_work(args):
+    """(exps, FP32 ops, bytes) that one ckde_cv_pairs call on ``args``
+    needs: every pair of a test row and a valid train row takes one exp for
+    the joint and, in programs with evidence, one for the marginal; its
+    distance is 3 ops per column, the scale 1, each logsumexp step 2, the
+    marginal's correction 4."""
+    G, ntr, dpad = args[0].shape
+    nte = args[3].shape[1]
+    valid = (args[1] == 0).sum(1).double()
+    marg = (args[5] <= 0.5).double()
+    pairs = float(valid.sum()) * nte
+    marg_pairs = float((valid * marg).sum()) * nte
+    exps = pairs + marg_pairs
+    ops = pairs * (3 * dpad + 3) + marg_pairs * 6
+    nbytes = 4 * (G * ntr * (dpad + 2) + G * nte * (dpad + 2) + 2 * G
+                  + G * nte)
+    return exps, ops, nbytes
+
+
+def kde_work(args):
+    """(exps, FP32 ops, bytes) of one kde_logl call on ``args``: one exp per
+    pair of a test row and a valid train row, 3 ops per column, 3 more."""
+    G, ntr, d = args[0].shape
+    nte = args[2].shape[1]
+    pairs = float((args[1] > 0).sum()) * nte
+    nbytes = 4 * (G * ntr * (d + 1) + G * nte * d + G + G * nte)
+    return pairs, pairs * (3 * d + 3), nbytes
+
+
+def timing_fields(card, case):
+    """The timed case's fields: times, launch plan, bound and shares."""
+    bound_ms, by = bound(card, *case["work"])
+    rows, group, split = case["plan"]
+    return {"kernel_ms": f"{case['ms']:.4f}",
+            "kernel_batched_ms": f"{case['batched_ms']:.4f}",
+            "plain_ms": f"{case['plain_ms']:.4f}",
+            "plan_R_T_S": f"{rows},{group},{split}", "cluster": split,
+            "bound_ms": f"{bound_ms:.4f}", "bound_by": by,
+            "bound_share": f"{bound_ms / case['ms']:.4f}",
+            "batched_bound_share": f"{bound_ms / case['batched_ms']:.4f}"}
+
+
+def ptxas_spills(report):
+    """The functions that an ``nvcc -Xptxas -v`` report shows spilling
+    registers to local memory."""
+    spilling, name = [], None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[1]
+        elif "spill stores" in line:
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                spilling.append(name)
+    return spilling
 
 
 def phase_build():
@@ -170,6 +274,7 @@ def phase_build():
         })
         say("1 build", source=source, built=info["built"],
             seconds=f"{info['seconds']:.2f}", ptxas_used=repr(regs),
+            spilling=repr(ptxas_spills(info["ptxas"])),
             library=os.path.basename(info["path"]))
     say("1 build", sources=len(infos), wall_s=f"{wall:.2f}")
 
@@ -188,7 +293,9 @@ def pair_inputs(torch, G, ntr, nte, dpad, seed, scale=3.0):
     return [torch.as_tensor(a, device="cuda") for a in arrays]
 
 
-def cuda_median_ms(torch, fn, runs=TIMED_RUNS):
+def cuda_median_ms(torch, fn, runs=TIMED_RUNS, batch=1):
+    """Median ms per call of ``fn`` over ``runs`` CUDA-event windows of
+    ``batch`` back-to-back calls each."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -196,16 +303,45 @@ def cuda_median_ms(torch, fn, runs=TIMED_RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
-def compare_pairs(torch, args, label, timed=False):
+def time_kernel(torch, fn):
+    """``ms`` (one launch per window) and ``batched_ms`` of a kernel."""
+    return {"ms": cuda_median_ms(torch, fn),
+            "batched_ms": cuda_median_ms(torch, fn, batch=KERNEL_BATCH)}
+
+
+def split_sweep(torch, launch, args, want, plan, phase, label):
+    """Times ``launch`` (a kernel's uncounted launcher) on ``args`` with the
+    plan's train axis forced to each split of :data:`SPLITS`, one launch
+    per window, each output held against ``want``, the planned launch's
+    output on the same inputs."""
+    times = {}
+    for split in SPLITS:
+        forced = (*plan[:2], split)
+        got = launch(*args, forced)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= PAIR_TOL:
+            raise AssertionError(f"{label} split {split}: max abs diff "
+                                 f"{err} > {PAIR_TOL} from the planned "
+                                 "launch")
+        times[f"S{split}_ms"] = (
+            f"{cuda_median_ms(torch, lambda: launch(*args, forced)):.4f}")
+    say(phase, case=label, planned_S=plan[2], **times)
+
+
+def compare_pairs(torch, args, label, card=None):
+    """The kernel against its plain version on ``args``; timed, with its
+    launch plan and bound, when ``card`` is given."""
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
-        ckde_cv_pairs, ckde_cv_pairs_reference)
+        _launch, _launch_plan, ckde_cv_pairs, ckde_cv_pairs_reference)
 
     got = ckde_cv_pairs(*args)
     want = ckde_cv_pairs_reference(*args)
@@ -219,28 +355,57 @@ def compare_pairs(torch, args, label, timed=False):
     nte = args[3].shape[1]
     fields = {"case": label, "G_ntr_nte_dpad": f"{G}x{ntr}x{nte}x{dpad}",
               "max_abs_err": f"{err:.3e}"}
-    ms = plain_ms = None
-    if timed:
-        ms = cuda_median_ms(torch, lambda: ckde_cv_pairs(*args))
-        plain_ms = cuda_median_ms(torch,
-                                  lambda: ckde_cv_pairs_reference(*args))
-        fields.update(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    result = {"err": err}
+    if card is not None:
+        result.update(
+            time_kernel(torch, lambda: ckde_cv_pairs(*args)),
+            plain_ms=cuda_median_ms(torch,
+                                    lambda: ckde_cv_pairs_reference(*args)),
+            work=pairs_work(args),
+            plan=_launch_plan(G, ntr, nte, dpad, card["sms"]))
+        fields.update(timing_fields(card, result))
     say("2 kernel", **fields)
-    return err, ms, plain_ms
+    if card is not None:
+        split_sweep(torch, _launch, args, got, result["plan"], "2 split",
+                    label)
+    return result
 
 
-def phase_kernel(torch, main_args):
+def phase_kernel(torch, main_args, card):
+    """Small cases, then the timed shapes; returns the timed cases'
+    results by label."""
     # (a) small cases: ragged ntr and nte, evidence-free programs, a program
     # whose second 256-row train tile is all padding, dpad 1/2/4/8
     for dpad in (1, 2, 4, 8):
         args = pair_inputs(torch, 4, 600, 77, dpad, seed=dpad)
         args[1][2, 256:512] = -math.inf
         compare_pairs(torch, args, f"small-dpad{dpad}")
-    # (b) the bench shape: 150 (family, fold) programs, 9000 × 1000 rows
-    compare_pairs(torch, pair_inputs(torch, 150, 9000, 1000, 4, seed=7),
-                  "bench-shape", timed=True)
-    # (c) the main path's own inputs: the whitened parts of its first batch
-    return compare_pairs(torch, main_args, "main-path-inputs", timed=True)
+    # (b) the bench shape: 150 (family, fold) programs, 9000 × 1000 rows;
+    # (c) config3b's model.slogl shape; (d) the main path's own inputs:
+    # the whitened parts of its first batch
+    cases = {
+        "bench-shape": compare_pairs(
+            torch, pair_inputs(torch, 150, 9000, 1000, 4, seed=7),
+            "bench-shape", card),
+        "config3b-shape": compare_pairs(
+            torch, pair_inputs(torch, *CONFIG3B_PAIRS_SHAPE, seed=8),
+            "config3b-shape", card),
+        "main-path-inputs": compare_pairs(torch, main_args,
+                                          "main-path-inputs", card),
+    }
+    # (e) the CV path's shape at 100,000 rows, too large for the plain
+    # version's timing: the forced splits against the planned launch
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
+        _launch, _launch_plan, ckde_cv_pairs)
+
+    args = pair_inputs(torch, *CV_100K_PAIRS_SHAPE, seed=9)
+    want = ckde_cv_pairs(*args)
+    if not torch.isfinite(want).all():
+        raise AssertionError("cv-100k-shape: non-finite kernel output")
+    split_sweep(torch, _launch, args, want,
+                _launch_plan(*CV_100K_PAIRS_SHAPE, card["sms"]), "2 split",
+                "cv-100k-shape")
+    return cases
 
 
 def main_path_pair_inputs(torch, frame32, k):
@@ -296,10 +461,10 @@ def phase_main_path(torch, frame32, frame64, k):
         raise AssertionError(f"score runs on {score.device}, not cuda")
     model = KDENetwork(cols)
     ckde = CKDEType()
-    # warm call + 3 timed calls, the family set rotated as in bench.py:67-88;
-    # valid shifts are 1..d-2, so with d = 5 the third timed call reuses
-    # the warm call's families (nothing caches scores)
-    shifts = [1, 2, 3, 1]
+    # warm call + 3 checked calls + CV_RUNS timed calls, the family set
+    # rotated as in bench.py:67-88; valid shifts are 1..d-2, so with d = 5
+    # every third call reuses a family set (nothing caches scores)
+    shifts = [1 + c % (d - 2) for c in range(4 + CV_RUNS)]
     batches = [[(v, ps, ckde) for v, ps in families(d, s)] for s in shifts]
     results, elapsed, grew = [], [], []
     reset_counts()
@@ -316,16 +481,22 @@ def phase_main_path(torch, frame32, frame64, k):
     rel = max(
         check_scores(got, reference.local_score_batch(model, batch),
                      f"kde shift {s}")
-        for got, batch, s in zip(results, batches, shifts)
+        for got, batch, s in zip(results[:4], batches[:4], shifts[:4])
     )
-    timed = elapsed[1:]
-    rate = len(batches[0]) / (sum(timed) / len(timed))
+    if not all(np.all(np.isfinite(got)) for got in results):
+        raise AssertionError("non-finite scores in the timed calls")
+    checked, timed = elapsed[1:4], elapsed[4:]
+    rate = len(batches[0]) / statistics.mean(checked)
+    median_rate = len(batches[0]) / statistics.median(timed)
     say("4 main path", network="KDENetwork", families=len(batches[0]),
-        folds=k, rows=frame32.num_rows, launches_per_call=grew,
+        folds=k, rows=frame32.num_rows, launches_per_call=sorted(set(grew)),
         warm_s=f"{elapsed[0]:.4f}",
-        timed_s=repr([round(t, 6) for t in timed]),
-        family_scores_per_s=f"{rate:.2f}", max_rel_vs_f64=f"{rel:.3e}",
-        launches=launches)
+        checked_s=repr([round(t, 6) for t in checked]),
+        family_scores_per_s_mean3=f"{rate:.2f}",
+        timed_calls=len(timed),
+        median_call_ms=f"{statistics.median(timed) * 1e3:.4f}",
+        family_scores_per_s_median30=f"{median_rate:.2f}",
+        max_rel_vs_f64=f"{rel:.3e}", launches=launches)
 
     # semiparametric mix: linear-Gaussian and CKDE families in one batch
     lg = LinearGaussianCPDType()
@@ -357,9 +528,12 @@ def kde_inputs(torch, G, ntr, nte, d, seed, scale=2.0):
             for a in (train, valid, test, lognorm)]
 
 
-def compare_kde(torch, args, label, timed=False):
+def compare_kde(torch, args, label, card=None):
+    """The kernel against its plain version on ``args``; timed, with its
+    launch plan and bound, when ``card`` is given."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _launch_plan
     from pybnesian_tpu_torch.ops.kde_kernel import (
-        kde_logl, kde_logl_reference)
+        _launch, kde_logl, kde_logl_reference)
 
     got = kde_logl(*args)
     want = kde_logl_reference(*args)
@@ -372,44 +546,44 @@ def compare_kde(torch, args, label, timed=False):
     if not err <= PAIR_TOL:
         raise AssertionError(f"{label}: max abs diff {err} > {PAIR_TOL}")
     G, ntr, d = args[0].shape
-    fields = {"case": label,
-              "G_ntr_nte_d": f"{G}x{ntr}x{args[2].shape[1]}x{d}",
+    nte = args[2].shape[1]
+    fields = {"case": label, "G_ntr_nte_d": f"{G}x{ntr}x{nte}x{d}",
               "max_abs_err": f"{err:.3e}"}
-    ms = plain_ms = None
-    if timed:
-        ms = cuda_median_ms(torch, lambda: kde_logl(*args))
-        plain_ms = cuda_median_ms(torch, lambda: kde_logl_reference(*args))
-        fields.update(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    result = {"err": err}
+    if card is not None:
+        result.update(
+            time_kernel(torch, lambda: kde_logl(*args)),
+            plain_ms=cuda_median_ms(torch,
+                                    lambda: kde_logl_reference(*args)),
+            work=kde_work(args),
+            plan=_launch_plan(G, ntr, nte, d, card["sms"]))
+        fields.update(timing_fields(card, result))
     say("5 kde kernel", **fields)
-    return err, ms, plain_ms
+    if card is not None:
+        split_sweep(torch, _launch, args, got, result["plan"],
+                    "5 kde split", label)
+    return result
 
 
-def phase_kde_kernel(torch):
-    """Small ragged cases, then the TPU kernel's shape (pallas_kde.py:11)."""
+def phase_kde_kernel(torch, card):
+    """Small ragged cases, then the TPU kernel's shape (pallas_kde.py:11),
+    timed; returns the timed case's result with the largest error."""
     errs = []
     for G in (1, 2):
         for d in (1, 2, 3, 8, 16, 20):
             args = kde_inputs(torch, G, 600, 77, d, seed=10 * G + d)
             args[1][0, :256] = 0.0  # an all-invalid first train tile
-            errs.append(compare_kde(torch, args, f"small-G{G}-d{d}")[0])
-    err, ms, plain_ms = compare_kde(
-        torch, kde_inputs(torch, *KDE_TPU_SHAPE, seed=1),
-        "tpu-docstring-shape", timed=True)
-    return max(errs + [err]), ms, plain_ms
+            errs.append(compare_kde(torch, args, f"small-G{G}-d{d}")["err"])
+    result = compare_kde(torch, kde_inputs(torch, *KDE_TPU_SHAPE, seed=1),
+                         "tpu-docstring-shape", card)
+    result["err"] = max(errs + [result["err"]])
+    return result
 
 
-def pairs_exps(args):
-    """Exps of one ckde_cv_pairs launch: 2 per pair, 1 for evidence-free
-    (no_ev) programs."""
-    G, ntr, _ = args[0].shape
-    n_no_ev = int((args[5] > 0.5).sum())
-    return ntr * args[3].shape[1] * (2 * (G - n_no_ev) + n_no_ev)
-
-
-def phase_exp_chain(torch, timed_kernels):
-    """The probe against its plain version, then its rate as the exp
-    ceiling; the KDE kernels' exp rates (``timed_kernels``: name → (exps
-    per launch, ms per launch)) as shares of it."""
+def phase_exp_chain(torch, card, timed_cases):
+    """The probe against its plain version, its accurate-``expf`` rate and
+    its bound; then each timed kernel case (``timed_cases``: label →
+    result) against its bound."""
     from pybnesian_tpu_torch.ops.exp_chain import (
         CHAIN, REPEATS, SHAPE, exp_chain, exp_chain_reference)
 
@@ -424,22 +598,34 @@ def phase_exp_chain(torch, timed_kernels):
         raise AssertionError(f"exp chain: max abs diff {err} > {EXP_TOL}")
     plain_ms = cuda_median_ms(torch, lambda: exp_chain_reference(x))
     reset_counts()
-    ms = cuda_median_ms(torch, lambda: exp_chain(x))
+    times = time_kernel(torch, lambda: exp_chain(x))
     launches = read_counts()
     if launches["exp_chain"] == 0:
         raise AssertionError("the probe did not launch its kernel")
-    exps = SHAPE[0] * SHAPE[1] * CHAIN * REPEATS
-    ceiling = exps / (ms * 1e-3)
+    n = SHAPE[0] * SHAPE[1]
+    exps = n * CHAIN * REPEATS
+    # per step: two FMAs and an add around the exp; x read, out written
+    result = {"err": err, **times, "plain_ms": plain_ms,
+              "work": (exps, 5 * exps, 8 * n), "plan": None}
+    ms = times["batched_ms"]
     say("6 exp chain", shape=f"{SHAPE[0]}x{SHAPE[1]}", chain=CHAIN,
-        repeats=REPEATS, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", gexp_per_s=f"{ceiling / 1e9:.2f}",
+        repeats=REPEATS, max_abs_err=f"{err:.3e}",
+        kernel_ms=f"{times['ms']:.4f}", kernel_batched_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}",
+        accurate_expf_gexp_per_s=f"{exps / (ms * 1e-3) / 1e9:.2f}",
         launches=launches)
-    for name, (n_exps, kms) in timed_kernels.items():
-        rate = n_exps / (kms * 1e-3)
-        say("6 exp-ceiling share", kernel=name, exps=n_exps,
-            kernel_ms=f"{kms:.4f}", gexp_per_s=f"{rate / 1e9:.2f}",
-            exp_ceiling_share=f"{rate / ceiling:.4f}")
-    return err, ms, plain_ms, launches
+    for label, case in {**timed_cases, "exp_chain": result}.items():
+        exps, ops, nbytes = case["work"]
+        bound_ms, by = bound(card, exps, ops, nbytes)
+        say("6 bound", case=label, exps=f"{exps:.6g}", fp32_ops=f"{ops:.6g}",
+            bytes=f"{nbytes:.6g}", kernel_ms=f"{case['ms']:.4f}",
+            kernel_batched_ms=f"{case['batched_ms']:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=by,
+            bound_share=f"{bound_ms / case['ms']:.4f}",
+            batched_bound_share=f"{bound_ms / case['batched_ms']:.4f}",
+            gexp_per_s=f"{exps / (case['ms'] * 1e-3) / 1e9:.2f}",
+            plan_R_T_S=",".join(map(str, case["plan"] or ["none"])))
+    return result, launches
 
 
 def phase_model_path(torch):
@@ -536,7 +722,7 @@ def phase_model_path(torch):
 def main():
     import torch
 
-    smi = phase_environment(torch)
+    card = phase_environment(torch)
     from pybnesian_tpu_torch import DataFrame
 
     phase_build()
@@ -546,18 +732,20 @@ def main():
     frame64 = DataFrame.wrap(
         {c: v.astype(np.float64) for c, v in data.items()})
     pairs_args = main_path_pair_inputs(torch, frame32, k)
-    pairs = phase_kernel(torch, pairs_args)
+    pairs_cases = phase_kernel(torch, pairs_args, card)
     phase_selfcheck()
     cv_launches = phase_main_path(torch, frame32, frame64, k)
-    kde = phase_kde_kernel(torch)
-    G, ntr, nte, _ = KDE_TPU_SHAPE
-    *probe, probe_launches = phase_exp_chain(torch, {
-        "ckde_cv_pairs": (pairs_exps(pairs_args), pairs[1]),
-        "kde_logl": (G * ntr * nte, kde[1]),
+    kde = phase_kde_kernel(torch, card)
+    probe, probe_launches = phase_exp_chain(torch, card, {
+        "ckde_cv_pairs main-path-inputs": pairs_cases["main-path-inputs"],
+        "ckde_cv_pairs config3b-shape": pairs_cases["config3b-shape"],
+        "kde_logl tpu-docstring-shape": kde,
     })
     model_launches = phase_model_path(torch)
     paths = {"cv": cv_launches, "probe": probe_launches,
              "model": model_launches}
+    pairs = dict(pairs_cases["main-path-inputs"],
+                 err=max(c["err"] for c in pairs_cases.values()))
     results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -565,15 +753,20 @@ def main():
                    if counts[name]}
         if not by_path:
             raise AssertionError(f"{name}: launched on no path")
-        err, ms, plain_ms = results[name]
+        result = results[name]
+        bound_ms, by = bound(card, *result["work"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
+            "launches_by_path": by_path, "max_abs_err": result["err"],
+            "ms": result["ms"], "batched_ms": result["batched_ms"],
+            "plain_ms": result["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            # no single PyTorch call computes any of these functions
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
+    print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

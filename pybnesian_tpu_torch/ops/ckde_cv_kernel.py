@@ -17,6 +17,9 @@ Three things live here:
 - :func:`ckde_cv_pairs`, the wrapper: plain version for CPU tensors, the
   CUDA kernel (``pybnesian_tpu_torch/csrc/ckde_cv.cu``) for CUDA tensors,
   with a launch counter ``ckde_cv_pairs.launches``;
+- :func:`_launch_plan`, the launch plan of both kernels of that source
+  (this one and ``kde_logl``'s): test rows per thread, train rows per
+  group, and the split of the train axis across a thread-block cluster;
 - the ctypes binding of that kernel (built at first use by
   :mod:`.cuda_build`).
 """
@@ -38,6 +41,25 @@ __all__ = [
 
 #: widest family (columns per program) the kernel is instantiated for
 MAX_DPAD = 16
+# The launch plan's limits; each mirrors a constant of csrc/ckde_cv.cu.
+#: threads per block (kThreads)
+THREADS = 128
+#: R, test rows per thread of the templated widths (kRowsPerThread)
+ROWS_PER_THREAD = 2
+#: T, train rows per group of the templated widths (kGroup)
+GROUP = 16
+#: T of the KDE kernel's runtime-width variant (kWideGroup)
+WIDE_GROUP = 32
+#: most blocks of one cluster, the portable limit (kMaxSplit)
+MAX_SPLIT = 8
+#: train rows per shared-memory tile (kTile): the least a split block sweeps
+TILE = 256
+#: blocks per SM that the plan aims for, splitting the train axis to get
+#: them. Measured on the H100 (chip_smoke.py's split sweep, PERF.md): the
+#: grids of 40 to 600 blocks ran fastest split 8 ways, the CV path's 6,000
+#: blocks at 100k rows 2 ways, 2% faster than unsplit and 5% faster than
+#: split 8 ways; 64 per SM picks each of those
+TARGET_BLOCKS_PER_SM = 64
 #: the grid's y axis holds the programs
 _MAX_PROGRAMS = 65535
 # elements of one (programs, test chunk, train rows) block of the plain
@@ -71,6 +93,33 @@ def ckde_cv_pairs_reference(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
         )
         out[:, s: s + chunk] = lse_j - lse_m
     return out
+
+
+def _launch_plan(G, ntr, nte, d, sm_count):
+    """``(R, T, S)`` for one launch of a kernel of ``csrc/ckde_cv.cu`` on G
+    programs of ntr train and nte test rows of width d, on a card with
+    ``sm_count`` SMs: R test rows per thread, T train rows per group, and
+    S blocks of a thread-block cluster sharing each test tile's train rows
+    (S = 1: no split).
+
+    Widths up to :data:`MAX_DPAD` take R = :data:`ROWS_PER_THREAD` and
+    T = :data:`GROUP`; the train axis is split until the grid holds
+    :data:`TARGET_BLOCKS_PER_SM` blocks per SM, over at most
+    :data:`MAX_SPLIT` blocks each with at least one :data:`TILE` of train
+    rows, so no split is empty. Wider programs (the KDE kernel's
+    runtime-width variant) take one row per thread, T = :data:`WIDE_GROUP`
+    and no split."""
+    if d > MAX_DPAD:
+        return 1, WIDE_GROUP, 1
+    tiles = max(1, G * -(-nte // (THREADS * ROWS_PER_THREAD)))
+    target = TARGET_BLOCKS_PER_SM * sm_count
+    split = min(MAX_SPLIT, -(-target // tiles), ntr // TILE)
+    return ROWS_PER_THREAD, GROUP, max(1, split)
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_args(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
@@ -127,21 +176,10 @@ def ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
         raise ValueError(f"{G} programs exceed the grid's {_MAX_PROGRAMS}")
     if max(ntr, nte) * dpad >= 2**31:
         raise ValueError("ntr and nte must fit 32-bit row offsets")
-    out = torch.empty((G, nte), dtype=torch.float32, device=jtr.device)
     if G == 0 or nte == 0:
-        return out
-    lib = _load_library()
-    with torch.cuda.device(jtr.device):
-        stream = torch.cuda.current_stream(jtr.device).cuda_stream
-        err = lib.ckde_cv_pairs_f32(
-            jtr.data_ptr(), neg.data_ptr(), zv_tr.data_ptr(),
-            jte.data_ptr(), zv_te.data_ptr(), no_ev.data_ptr(),
-            lm_const.data_ptr(), out.data_ptr(), G, ntr, nte, dpad, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"ckde_cv_pairs kernel launch failed: CUDA error {err}"
-        )
+        return torch.empty((G, nte), dtype=torch.float32, device=jtr.device)
+    out = _launch(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const,
+                  _launch_plan(G, ntr, nte, dpad, _sm_count(jtr.device)))
     ckde_cv_pairs.launches += 1
     return out
 
@@ -149,11 +187,34 @@ def ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
 ckde_cv_pairs.launches = 0
 
 
+def _launch(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const, plan):
+    """One launch of the kernel with launch plan ``plan`` on checked CUDA
+    arguments with G, nte >= 1; returns ``out``. Counts nothing: the
+    wrapper counts its own launches."""
+    G, ntr, dpad = jtr.shape
+    nte = jte.shape[1]
+    out = torch.empty((G, nte), dtype=torch.float32, device=jtr.device)
+    with torch.cuda.device(jtr.device):
+        stream = torch.cuda.current_stream(jtr.device).cuda_stream
+        err = _load_library().ckde_cv_pairs_f32(
+            jtr.data_ptr(), neg.data_ptr(), zv_tr.data_ptr(),
+            jte.data_ptr(), zv_te.data_ptr(), no_ev.data_ptr(),
+            lm_const.data_ptr(), out.data_ptr(), G, ntr, nte, dpad, *plan,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"ckde_cv_pairs kernel launch failed (plan {plan}): "
+            f"CUDA error {err}"
+        )
+    return out
+
+
 @functools.cache
 def _load_library():
     lib = cuda_build.load("ckde_cv.cu")
     fn = lib.ckde_cv_pairs_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int

@@ -14,7 +14,8 @@ zero-padded to the joint's width (zero columns add nothing to a distance).
 - :func:`kde_logl_reference`, the plain torch version;
 - :func:`kde_logl`, the wrapper: plain version for CPU tensors, the CUDA
   kernel (``kde_logl_f32`` in ``pybnesian_tpu_torch/csrc/ckde_cv.cu``) for
-  CUDA tensors, with a launch counter ``kde_logl.launches``.
+  CUDA tensors, with a launch counter ``kde_logl.launches``, launched
+  with the plan of :func:`~.ckde_cv_kernel._launch_plan`.
 
 Unlike the Pallas kernel, whose running max starts at −inf, an all-invalid
 first train block gives no NaN here: both versions give the logsumexp over
@@ -29,6 +30,7 @@ import functools
 import torch
 
 from . import cuda_build
+from .ckde_cv_kernel import _launch_plan, _sm_count
 
 __all__ = ["kde_logl", "kde_logl_reference", "MAX_D"]
 
@@ -108,18 +110,10 @@ def kde_logl(train, valid, test, lognorm):
         raise ValueError(f"{G} programs exceed the grid's {_MAX_PROGRAMS}")
     if max(ntr, nte) * d >= 2**31:
         raise ValueError("ntr and nte must fit 32-bit row offsets")
-    out = torch.empty((G, nte), dtype=torch.float32, device=train.device)
     if G == 0 or nte == 0:
-        return out
-    lib = _load_library()
-    with torch.cuda.device(train.device):
-        stream = torch.cuda.current_stream(train.device).cuda_stream
-        err = lib.kde_logl_f32(
-            train.data_ptr(), valid.data_ptr(), test.data_ptr(),
-            lognorm.data_ptr(), out.data_ptr(), G, ntr, nte, d, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"kde_logl kernel launch failed: CUDA error {err}")
+        return torch.empty((G, nte), dtype=torch.float32, device=train.device)
+    out = _launch(train, valid, test, lognorm,
+                  _launch_plan(G, ntr, nte, d, _sm_count(train.device)))
     kde_logl.launches += 1
     return out
 
@@ -127,11 +121,32 @@ def kde_logl(train, valid, test, lognorm):
 kde_logl.launches = 0
 
 
+def _launch(train, valid, test, lognorm, plan):
+    """One launch of the kernel with launch plan ``plan`` on checked CUDA
+    arguments with G, nte >= 1; returns ``out``. Counts nothing: the
+    wrapper counts its own launches."""
+    G, ntr, d = train.shape
+    nte = test.shape[1]
+    out = torch.empty((G, nte), dtype=torch.float32, device=train.device)
+    with torch.cuda.device(train.device):
+        stream = torch.cuda.current_stream(train.device).cuda_stream
+        err = _load_library().kde_logl_f32(
+            train.data_ptr(), valid.data_ptr(), test.data_ptr(),
+            lognorm.data_ptr(), out.data_ptr(), G, ntr, nte, d, *plan,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"kde_logl kernel launch failed (plan {plan}): CUDA error {err}"
+        )
+    return out
+
+
 @functools.cache
 def _load_library():
     lib = cuda_build.load("ckde_cv.cu")
     fn = lib.kde_logl_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int

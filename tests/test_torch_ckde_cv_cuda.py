@@ -9,6 +9,11 @@ installed (``--noconftest`` skips tests/conftest.py, which sets up JAX):
 
 Tolerance: 1e-3 absolute per test row, as chip_smoke.py holds the kernel
 (float32 sums over up to thousands of train rows, in another order).
+
+Some cases force a launch plan (R test rows per thread, T train rows per
+group, S cluster blocks splitting the train axis) through the uncounted
+launcher ``ckde_cv_kernel._launch``, to reach splits the shapes alone would
+not.
 """
 
 import math
@@ -17,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from pybnesian_tpu_torch.ops import ckde_cv_kernel
 from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
     MAX_DPAD,
     ckde_cv_pairs,
@@ -41,7 +47,8 @@ def _inputs(device, dpad, G=4, ntr=600, nte=77, seed=0):
     jtr = rng.normal(0, 2.0, (G, ntr, dpad)).astype(np.float32)
     jte = rng.normal(0, 2.0, (G, nte, dpad)).astype(np.float32)
     neg = np.where(rng.random((G, ntr)) < 0.1, -np.inf, 0.0).astype(np.float32)
-    neg[2, 256:512] = -np.inf
+    if G > 2:
+        neg[2, 256:512] = -np.inf
     no_ev = (np.arange(G) % 2 == 1).astype(np.float32)
     lm_const = np.log(np.maximum((neg == 0).sum(1), 1)).astype(np.float32)
     arrays = [jtr, neg, np.ascontiguousarray(jtr[..., -1]), jte,
@@ -82,6 +89,122 @@ def test_nan_input_propagates(cuda):
     want = ckde_cv_pairs_reference(*args).cpu()
     assert torch.all(torch.isnan(got[0])) and torch.all(torch.isnan(want[0]))
     torch.testing.assert_close(got[1:], want[1:], atol=ATOL, rtol=0)
+
+
+def _run(args, plan=None):
+    """The wrapper's launch, or one with a forced ``plan``."""
+    if plan is None:
+        return ckde_cv_pairs(*args)
+    return ckde_cv_kernel._launch(*args, plan)
+
+
+def _check(args, plan=None, atol=ATOL):
+    got = _run(args, plan)
+    want = ckde_cv_pairs_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("plan", [(2, 16, 1), (2, 16, 3), (2, 16, 8)])
+def test_nan_train_and_test_rows(cuda, plan):
+    """A NaN train row turns its program NaN; a NaN test row turns only
+    that row NaN; with and without a split, as in the plain version."""
+    args = _inputs(cuda, 3, ntr=2000, nte=300)
+    args[0][0, 1500, :] = math.nan  # a train row late in the last split
+    args[3][2, 17, 1] = math.nan
+    got = _run(args, plan).cpu()
+    want = ckde_cv_pairs_reference(*args).cpu()
+    assert torch.all(torch.isnan(got[0])) and torch.all(torch.isnan(want[0]))
+    assert torch.isnan(got[2, 17]) and torch.isnan(want[2, 17])
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("plan", [None, (2, 16, 1), (2, 16, 4)])
+def test_nan_in_an_invalid_train_row(cuda, plan):
+    """A NaN in coordinate 0 of a null train row still turns its program
+    NaN, as -1/2 * NaN + -inf does in the plain version."""
+    args = _inputs(cuda, 3, ntr=2000, nte=300)
+    args[0][1, 700, 0] = math.nan
+    args[1][1, 700] = -math.inf
+    got = _run(args, plan).cpu()
+    want = ckde_cv_pairs_reference(*args).cpu()
+    assert torch.all(torch.isnan(got[1])) and torch.all(torch.isnan(want[1]))
+    torch.testing.assert_close(got[[0, 2, 3]], want[[0, 2, 3]], atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("split", [2, 4, 8])
+def test_split_with_all_invalid_train_rows(cuda, split):
+    """The last split block's share is all padding: its (-1e30, 0) pair
+    merges to nothing."""
+    args = _inputs(cuda, 2, ntr=4096, nte=200)
+    share = -(-4096 // split)
+    args[1][:, (split - 1) * share:] = -math.inf
+    assert torch.isfinite(_check(args, (2, 16, split))).all()
+
+
+@pytest.mark.parametrize("ntr", [1, 20, 50, 127])
+def test_fewer_train_rows_than_split_times_group(cuda, ntr):
+    """ntr < S * T: partial groups, and empty shares for the last ranks."""
+    args = _inputs(cuda, 4, ntr=ntr, nte=45, seed=ntr)
+    args[1][:, 0] = 0.0  # at least one valid row per program
+    _check(args, (2, 16, 8))
+
+
+@pytest.mark.parametrize("plan", [(2, 16, 1), (2, 16, 2), (2, 16, 5),
+                                  (2, 16, 7)])
+def test_ragged_rows(cuda, plan):
+    """ntr and nte multiples of neither the 256-row tile, T, R nor the
+    block's 128 * R rows."""
+    _check(_inputs(cuda, 3, G=5, ntr=256 * 3 + 37, nte=128 * 4 + 3, seed=5),
+           plan)
+
+
+@pytest.mark.parametrize("split", [1, 4])
+def test_far_test_rows(cuda, split):
+    """Test rows ~30 away from every train row: every exp of the
+    unshifted values would underflow; the max-then-sum keeps them."""
+    args = _inputs(cuda, 2, ntr=1200, nte=64)
+    args[3][:, :, 0] += 30.0
+    args[4].copy_(args[3][..., -1])
+    got = _check(args, (2, 16, split))
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dpad", [1, MAX_DPAD])
+def test_extreme_widths_with_a_split(cuda, dpad):
+    """dpad 1 and 16 at a shape that the plan splits."""
+    args = _inputs(cuda, dpad, G=2, ntr=3000, nte=500, seed=dpad)
+    assert ckde_cv_kernel._launch_plan(2, 3000, 500, dpad, 132)[2] > 1
+    _check(args)
+
+
+def test_one_program_at_10k_splits(cuda):
+    """G 1 at 10k × 10k: the plan splits the train axis."""
+    G, ntr, nte, dpad = 1, 10_000, 10_000, 3
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ckde_cv_kernel._launch_plan(G, ntr, nte, dpad, sms)[2] > 1
+    _check(_inputs(cuda, dpad, G=G, ntr=ntr, nte=nte, seed=11))
+
+
+@pytest.mark.parametrize("plan", [None, (2, 16, 1)])
+def test_cv_shape(cuda, plan):
+    """G 150 at the CV path's shape (9000 × 1000, dpad 3): with the plan's
+    own split, and with no split."""
+    G, ntr, nte, dpad = 150, 9000, 1000, 3
+    args = _inputs(cuda, dpad, G=G, ntr=ntr, nte=nte, seed=12)
+    assert torch.isfinite(_check(args, plan)).all()
+
+
+@pytest.mark.parametrize("plan", [(3, 16, 1), (2, 8, 1), (2, 16, 9),
+                                  (2, 16, 0), (4, 8, 1), (1, 32, 1)])
+def test_entry_point_rejects_other_plans(cuda, plan):
+    """The C entry point refuses a plan outside what it instantiates."""
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _run(_inputs(cuda, 12), plan)
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

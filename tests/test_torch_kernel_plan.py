@@ -1,0 +1,151 @@
+"""The launch plan of the KDE kernels of ``csrc/ckde_cv.cu`` (``_launch_plan``
+in ``pybnesian_tpu_torch/ops/ckde_cv_kernel.py``), on the CPU.
+
+The plan is pure Python: (R, T, S) = test rows per thread, train rows per
+group, and blocks of a thread-block cluster that split each program's
+train rows. These tests hold it to what the CUDA entry points accept (the
+limits are read from the source itself) and to the split the kernel makes
+(each cluster rank sweeps a contiguous share of ceil(ntr / S) rows).
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from pybnesian_tpu_torch.ops import ckde_cv_kernel as ck
+from pybnesian_tpu_torch.ops import kde_kernel
+
+SOURCE = (Path(ck.__file__).resolve().parent.parent / "csrc" / "ckde_cv.cu")
+H100_SMS = 132
+CV_SHAPE = (150, 9000, 1000, 3)        # bench.py's CV path, main-path inputs
+CONFIG3B_SHAPE = (4, 10_000, 10_000, 2)  # config3b's model.slogl
+KDE_G1_SHAPE = (1, 10_240, 10_240, 3)    # the Pallas KDE kernel's shape
+SHAPES = [
+    CV_SHAPE, CONFIG3B_SHAPE, KDE_G1_SHAPE,
+    (150, 90_000, 10_000, 3),  # the CV path at 100k rows
+    (2, 10_000, 10_000, 2),    # CKDE.logl: joint and marginal
+    (4, 600, 77, 8),
+    (1, 600, 77, 16),
+    (1, 255, 1, 1),
+    (1, 7, 3, 4),
+    (1, 0, 5, 2),
+    (2, 300, 130, 17),         # the runtime-width KDE variant
+    (1, 300, 130, 256),
+    (40, 5000, 3000, 12),
+]
+SM_COUNTS = [1, 16, 78, 114, H100_SMS]
+
+
+def _constants():
+    text = SOURCE.read_text()
+    return {name: int(value) for name, value in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def _accepted(d, rows, group, split):
+    """What ``ckde_cv_pairs_f32`` and ``kde_logl_f32`` accept (plan_ok and
+    the runtime-width check)."""
+    c = _constants()
+    if d > c["kMaxTemplated"]:
+        return (rows, group, split) == (1, c["kWideGroup"], 1)
+    return ((rows, group) == (c["kRowsPerThread"], c["kGroup"])
+            and 1 <= split <= c["kMaxSplit"])
+
+
+def _shares(ntr, split):
+    """Train rows of each cluster rank, as the kernel splits them."""
+    share = -(-ntr // split)
+    return [max(0, min(ntr, lo + share) - lo)
+            for lo in (min(ntr, r * share) for r in range(split))]
+
+
+def test_python_limits_mirror_the_source():
+    c = _constants()
+    assert ck.THREADS == c["kThreads"]
+    assert ck.ROWS_PER_THREAD == c["kRowsPerThread"]
+    assert ck.GROUP == c["kGroup"]
+    assert ck.WIDE_GROUP == c["kWideGroup"]
+    assert ck.MAX_SPLIT == c["kMaxSplit"]
+    assert ck.TILE == c["kTile"]
+    assert ck.MAX_DPAD == c["kMaxTemplated"]
+    assert kde_kernel.MAX_D == c["kMaxWide"]
+    assert c["kMaxSplit"] <= 8  # portable cluster size, no opt-in needed
+
+
+@pytest.mark.parametrize("entry", ["ckde_cv_pairs_f32", "kde_logl_f32"])
+def test_entry_points_take_the_plan_last(entry):
+    """The C signature ends (..., R, T, S, stream), the order in which the
+    wrappers pass ``*plan, stream``."""
+    text = SOURCE.read_text()
+    params = re.search(entry + r"\(([^)]*)\)", text).group(1)
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names[-4:] == ["rows_per_thread", "group", "split", "stream"]
+    ints = [p for p in params.split(",") if p.split()[0] == "int"]
+    pointers = len(names) - len(ints)
+    assert (pointers, len(ints)) == {"ckde_cv_pairs_f32": (9, 7),
+                                     "kde_logl_f32": (6, 7)}[entry]
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plan_is_accepted_and_no_split_is_empty(shape, sms):
+    G, ntr, nte, d = shape
+    rows, group, split = ck._launch_plan(G, ntr, nte, d, sms)
+    assert _accepted(d, rows, group, split)
+    assert 1 <= split <= ck.MAX_SPLIT
+    shares = _shares(ntr, split)
+    assert sum(shares) == ntr
+    if split > 1:
+        assert min(shares) >= ck.TILE  # every split sweeps a full tile
+    # pure: the same shape and card give the same plan
+    assert ck._launch_plan(G, ntr, nte, d, sms) == (rows, group, split)
+
+
+@pytest.mark.parametrize("shape", [CV_SHAPE, CONFIG3B_SHAPE, KDE_G1_SHAPE],
+                         ids=["cv", "config3b", "kde-G1"])
+def test_measured_shapes_split_to_the_cluster_limit(shape):
+    """600, 160 and 40 blocks of 256 test rows, all under 64 per SM: each
+    splits 8 ways, which measured fastest on the H100 at all three shapes
+    (PERF.md)."""
+    assert ck._launch_plan(*shape, H100_SMS) == (2, 16, ck.MAX_SPLIT)
+
+
+def test_cv_path_at_100k_rows_splits_two_ways():
+    """6,000 blocks, ~45 per SM: split 2 ways, which measured fastest on
+    the H100 there (split 8 ways was slower than no split; PERF.md)."""
+    assert ck._launch_plan(150, 90_000, 10_000, 3, H100_SMS) == (2, 16, 2)
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+def test_full_grid_takes_no_split(sms):
+    # the CV path at 100k rows: 150 programs x 40 tiles of 256 test rows,
+    # split only while the grid is under the target
+    G, nte = 150, 10_000
+    tiles = G * -(-nte // (ck.THREADS * ck.ROWS_PER_THREAD))
+    split = ck._launch_plan(G, 90_000, nte, 3, sms)[2]
+    assert (split == 1) == (tiles >= ck.TARGET_BLOCKS_PER_SM * sms)
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[3] <= ck.MAX_DPAD],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_reaches_the_target_or_a_limit(shape, sms):
+    G, ntr, nte, d = shape
+    split = ck._launch_plan(G, ntr, nte, d, sms)[2]
+    tiles = G * -(-nte // (ck.THREADS * ck.ROWS_PER_THREAD))
+    target = ck.TARGET_BLOCKS_PER_SM * sms
+    assert (tiles * split >= target or split == ck.MAX_SPLIT
+            or split == max(1, ntr // ck.TILE))
+    # one split fewer would not reach the target
+    assert split == 1 or tiles * (split - 1) < target
+
+
+def test_split_needs_a_tile_of_train_rows():
+    # a tiny program cannot be split, however empty the card
+    assert ck._launch_plan(1, ck.TILE - 1, 10, 3, H100_SMS)[2] == 1
+    assert ck._launch_plan(1, 2 * ck.TILE, 10, 3, H100_SMS)[2] == 2
+
+
+def test_wide_kde_takes_one_row_per_thread():
+    assert ck._launch_plan(1, 10_000, 10_000, 17, H100_SMS) == (1, 32, 1)
