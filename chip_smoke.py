@@ -39,13 +39,30 @@ the script exits non-zero and prints no result:
    on 10,000 float32 rows, ``model.slogl`` on 10,000 more (warm, then 6
    timed calls through the pairs kernel), ``model.logl`` against the
    port's float64 path, every CKDE ``cpd.logl`` and a 3-variable KDE
-   through the KDE kernel, and ``model.sample``.
+   through the KDE kernel, and ``model.sample``;
+8. structure learning at config3b's size: ``hc`` on a SemiparametricBN
+   over 10,000 float32 rows of the same 8-column chain, with the default
+   ValidatedLikelihood (holdout 0.2, 10 folds) and operators (arcs and
+   node types), one warm run and one timed run, every CKDE family through
+   the pairs kernel (CV and holdout channels) and every validation update
+   of a CKDE node through the KDE kernel; held against a float64 run of the
+   same call on the card (plain routes): the same operators, or a first
+   differing pair whose float64 deltas are within :data:`TIE_ATOL`; both
+   kernels against their plain versions on the inputs the run's score
+   builds at the run's shapes (CV folds 7,200 × 800, holdout 8,000 ×
+   2,000); the float32 scores of the cache pass's families and of both
+   validation routes against the float64 run's at :data:`SCORE_RTOL`, with
+   their cross-batch difference (the cache pass's families in one batch,
+   then each alone) and two-route difference (the holdout batch against a
+   fitted factor per node); a ``score="cv-lik"`` search (no validation
+   guard): its iterations and how many of its steps undo an earlier one;
+   and BIC, the GaussianNetwork default, against float64, then its ``hc``.
 
 A kernel's time (``ms``) is the median of CUDA-event windows of one
 launch each; ``batched_ms`` is the median per launch of windows of
 :data:`KERNEL_BATCH` back-to-back launches, in which the card runs one
 launch while the host issues the next, so that it holds no launch
-latency. Each path (4, 6, 7) runs with every launch count set to 0 just
+latency. Each path (4, 6, 7, 8) runs with every launch count set to 0 just
 before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
 version's time and its bound comes two lines before the last, then the
@@ -56,6 +73,7 @@ Needs CUDA; imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -86,6 +104,15 @@ KERNEL_BATCH = 20     # back-to-back launches per window of ``batched_ms``
 SPLITS = (1, 2, 4, 8)  # train-axis splits of the sweep
 CV_RUNS = 30
 MODEL_RUNS = 6
+HC_ROWS = 10_000      # config3b's size (BASELINE.md config 3: 10k rows)
+HC_PATIENCE = 5
+HC_MAX_ITERS = 200
+TIE_ATOL = 1e-2       # nats: float64 deltas of two operators that float32 may
+                      # order either way. A delta sums up to four local scores
+                      # (two nodes, before and after), and on an H100 one
+                      # float32 score of this data moves by at most 2e-3
+                      # nats between batches and routes (cross-batch and
+                      # two-route differences below)
 # (G, ntr, nte, d) of the Pallas KDE kernel's measured shape (pallas_kde.py:11)
 KDE_TPU_SHAPE = (1, 10_240, 10_240, 3)
 # (G, ntr, nte, dpad) of config3b's model.slogl: one program per CKDE node
@@ -337,7 +364,7 @@ def split_sweep(torch, launch, args, want, plan, phase, label):
     say(phase, case=label, planned_S=plan[2], **times)
 
 
-def compare_pairs(torch, args, label, card=None):
+def compare_pairs(torch, args, label, card=None, phase="2 kernel"):
     """The kernel against its plain version on ``args``; timed, with its
     launch plan and bound, when ``card`` is given."""
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
@@ -364,7 +391,7 @@ def compare_pairs(torch, args, label, card=None):
             work=pairs_work(args),
             plan=_launch_plan(G, ntr, nte, dpad, card["sms"]))
         fields.update(timing_fields(card, result))
-    say("2 kernel", **fields)
+    say(phase, **fields)
     if card is not None:
         split_sweep(torch, _launch, args, got, result["plan"], "2 split",
                     label)
@@ -409,18 +436,25 @@ def phase_kernel(torch, main_args, card):
 
 
 def main_path_pair_inputs(torch, frame32, k):
-    """The kernel's arguments for the main path's first batch, built by the
-    score's own cache and the flash route's own helpers."""
+    """The kernel's arguments for the main path's first batch."""
     from pybnesian_tpu_torch import CVLikelihood
+
+    return engine_pair_inputs(torch, CVLikelihood(frame32, k=k, seed=0)._engine,
+                              families(frame32.num_columns))
+
+
+def engine_pair_inputs(torch, engine, fams):
+    """The kernel's arguments for the (variable, parents) families ``fams``
+    under the normal reference rule, built by a score's own fold engine
+    (its device cache) and the flash route's own helpers."""
     from pybnesian_tpu_torch.learning.scores.likelihood import _family_columns
     from pybnesian_tpu_torch.ops.kde import (
         ckde_cv_pair_args, ckde_cv_whitened_parts)
 
-    engine = CVLikelihood(frame32, k=k, seed=0)._engine
     pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask = (
         engine._device_cv_cache()
     )
-    col_idx, col_mask = _family_columns(families(frame32.num_columns), pos)
+    col_idx, col_mask = _family_columns(fams, pos)
     col_mask = torch.as_tensor(col_mask, dtype=torch.float32, device="cuda")
     parts = ckde_cv_whitened_parts(
         data, null_mask, torch.as_tensor(col_idx, device="cuda"), col_mask,
@@ -528,7 +562,7 @@ def kde_inputs(torch, G, ntr, nte, d, seed, scale=2.0):
             for a in (train, valid, test, lognorm)]
 
 
-def compare_kde(torch, args, label, card=None):
+def compare_kde(torch, args, label, card=None, phase="5 kde kernel"):
     """The kernel against its plain version on ``args``; timed, with its
     launch plan and bound, when ``card`` is given."""
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import _launch_plan
@@ -558,7 +592,7 @@ def compare_kde(torch, args, label, card=None):
             work=kde_work(args),
             plan=_launch_plan(G, ntr, nte, d, card["sms"]))
         fields.update(timing_fields(card, result))
-    say("5 kde kernel", **fields)
+    say(phase, **fields)
     if card is not None:
         split_sweep(torch, _launch, args, got, result["plan"],
                     "5 kde split", label)
@@ -719,6 +753,396 @@ def phase_model_path(torch):
     return launches
 
 
+def dag_order(nodes, arcs):
+    """A topological order of ``nodes`` under ``arcs``; raises on a cycle."""
+    parents = {n: set() for n in nodes}
+    for s, t in arcs:
+        parents[t].add(s)
+    order = []
+    while len(order) < len(nodes):
+        ready = [n for n in nodes if n not in order and parents[n] <= set(order)]
+        if not ready:
+            raise AssertionError(f"the learned graph has a cycle: {arcs}")
+        order += ready
+    return order
+
+
+def counting_validated_likelihood():
+    """A ValidatedLikelihood that counts the families it scores and keeps
+    every score it returns (both channels)."""
+    from pybnesian_tpu_torch import ValidatedLikelihood
+
+    class CountingValidatedLikelihood(ValidatedLikelihood):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.families = 0
+            self.scores = []
+
+        def _keep(self, values):
+            values = np.atleast_1d(np.asarray(values, np.float64))
+            self.families += len(values)
+            self.scores.append(values)
+
+        def local_score_batch(self, model, families):
+            out = super().local_score_batch(model, families)
+            self._keep(out)
+            return out
+
+        def local_score_node_type(self, model, node_type, variable, parents):
+            out = super().local_score_node_type(model, node_type, variable,
+                                                parents)
+            self._keep(out)
+            return out
+
+        def vlocal_score_batch(self, model, families):
+            out = super().vlocal_score_batch(model, families)
+            self._keep(out)
+            return out
+
+        def vlocal_score_node_type(self, model, node_type, variable, parents):
+            out = super().vlocal_score_node_type(model, node_type, variable,
+                                                 parents)
+            self._keep(out)
+            return out
+
+    return CountingValidatedLikelihood
+
+
+class StepRecorder:
+    """hc callback: each iteration's operator and the model after it
+    (iteration 0: the start model; the last call: the model returned)."""
+
+    def __init__(self):
+        self.operators, self.models, self.iterations = [], [], 0
+
+    def call(self, model, operator, score, iteration):
+        self.operators.append(operator)
+        self.models.append(model.clone())
+        self.iterations = iteration
+
+
+def learn(torch, frame):
+    """One ``hc`` run on ``frame`` as a user calls it, with the counting
+    score and a recorder: (model, score, recorder, wall seconds)."""
+    from pybnesian_tpu_torch import SemiparametricBNType, hc
+
+    recorder = StepRecorder()
+    t0 = time.perf_counter()
+    score = counting_validated_likelihood()(frame, 0.2, 10, 0)
+    model = hc(frame, bn_type=SemiparametricBNType(), score=score,
+               callback=recorder, seed=0, patience=HC_PATIENCE,
+               max_iters=HC_MAX_ITERS)
+    torch.cuda.synchronize()
+    return model, score, recorder, time.perf_counter() - t0
+
+
+def graph_of(model):
+    return (sorted(model.arcs()),
+            {n: model.node_type(n).ToString() for n in model.nodes()})
+
+
+def op_key(op):
+    from pybnesian_tpu_torch import interop
+
+    state = interop.operator_state(op)
+    return None if state is None else state[:3]
+
+
+def delta_in(score, before, op):
+    """``op``'s score delta from the model ``before``, by ``score``'s own
+    local scores of the nodes it changes."""
+    after = before.clone()
+    op.apply(after)
+    return sum(score.local_score(after, n) - score.local_score(before, n)
+               for n in op.nodes_changed(after))
+
+
+def compare_runs(run32, run64):
+    """Holds the float32 run against the float64 run: the same operators,
+    or, where the two sequences first differ, two operators that float32
+    may order either way (float64 deltas within :data:`TIE_ATOL` nats).
+    Where one run stops and the other goes on, the two must still return
+    the same graph. Returns the fields to print, with the first differing
+    operators and their float64 deltas."""
+    (model32, _, rec32, _), (model64, score64, rec64, _) = run32, run64
+    same_graph = graph_of(model32) == graph_of(model64)
+    fields = {"vs_f64": "same graph" if same_graph else "differs"}
+    first = next((i for i, (a, b) in enumerate(itertools.zip_longest(
+        map(op_key, rec32.operators), map(op_key, rec64.operators),
+        fillvalue="stopped")) if a != b), None)
+    fields["same_operators"] = first is None
+    if first is None:
+        if not same_graph:
+            raise AssertionError("the same operators gave different graphs")
+        return fields
+    fields["first_differing_iteration"] = first
+    op32, op64 = (rec.operators[first] if first < len(rec.operators) else None
+                  for rec in (rec32, rec64))
+    fields.update(op_f32=repr(op32 and op32.ToString()),
+                  op_f64=repr(op64 and op64.ToString()))
+    if op32 is None or op64 is None:
+        if not same_graph:
+            say("8 hc", **fields)
+            raise AssertionError("one run stopped where the other went on, "
+                                 "and their graphs differ")
+        return fields
+    before = rec64.models[first - 1]
+    d32 = delta_in(score64, before, op32)
+    d64 = delta_in(score64, before, op64)
+    gap = abs(d32 - d64)
+    fields.update(op_f32_delta_f64=f"{d32:.9g}", op_f64_delta_f64=f"{d64:.9g}",
+                  tie_gap=f"{gap:.3e}", tie_rel=f"{gap / abs(d64):.3e}")
+    if not gap <= TIE_ATOL:
+        say("8 hc", **fields)
+        raise AssertionError("the float32 and float64 runs chose different "
+                             f"operators {gap} nats apart, more than a "
+                             f"float32 tie ({TIE_ATOL} nats)")
+    return fields
+
+
+def reversals(recorder):
+    """How many operators of a run undo an earlier one (an arc added and
+    later removed, flipped back, a node type changed back)."""
+    undo, count = set(), 0
+    for i, op in enumerate(recorder.operators[1:-1], start=1):
+        key = op_key(op)
+        if key in undo:
+            count += 1
+        undo.add(op_key(op.opposite(recorder.models[i - 1])))
+    return count
+
+
+def cv_lik_search(torch, frame):
+    """``hc`` with ``score="cv-lik"``: the CV channel alone, no validation
+    guard, patience 0; whether float32 noise makes it undo its own steps
+    or run to ``max_iters``."""
+    from pybnesian_tpu_torch import SemiparametricBNType, hc
+
+    recorder = StepRecorder()
+    t0 = time.perf_counter()
+    hc(frame, bn_type=SemiparametricBNType(), score="cv-lik", seed=0,
+       callback=recorder, max_iters=HC_MAX_ITERS)
+    torch.cuda.synchronize()
+    return {"cv_lik_wall_s": f"{time.perf_counter() - t0:.4f}",
+            "cv_lik_iterations": recorder.iterations,
+            "cv_lik_reached_max_iters": recorder.iterations >= HC_MAX_ITERS,
+            "cv_lik_reversals": reversals(recorder)}
+
+
+def cross_batch(score, score64, model):
+    """The float32 CV scores of the cache pass's families — each node alone
+    (linear-Gaussian and CKDE) and each one-parent family (linear-Gaussian,
+    and CKDE as a CKDE node's update scores it) — in one batch, held against
+    the float64 score's on the same folds, then scored each in a batch of
+    its own: max abs and relative difference of the two float32 batchings."""
+    from pybnesian_tpu_torch import CKDEType, LinearGaussianCPDType
+
+    nodes = model.nodes()
+    fams = []
+    for nt in (LinearGaussianCPDType(), CKDEType()):
+        fams += [(v, [], nt) for v in nodes]
+        fams += [(t, [s], nt) for t in nodes for s in nodes if s != t]
+    together = score.local_score_batch(model, fams)
+    rel64 = check_scores(together, score64.local_score_batch(model, fams),
+                         "cache-pass families vs float64")
+    alone = np.array([score.local_score_batch(model, [f])[0] for f in fams])
+    rel_alone = check_scores(alone, together, "cache-pass families alone")
+    diff = np.abs(together - alone)
+    rel = diff / np.abs(alone)
+    ckde = np.array([f[2] == CKDEType() for f in fams])
+    return {"cross_batch_families": len(fams),
+            "cache_pass_max_rel_vs_f64": f"{rel64:.3e}",
+            "cross_batch_max_abs": f"{diff.max():.3e}",
+            "cross_batch_max_rel": f"{rel_alone:.3e}",
+            "cross_batch_ckde_max_abs": f"{diff[ckde].max():.3e}",
+            "cross_batch_ckde_max_rel": f"{rel[ckde].max():.3e}"}
+
+
+def two_routes(score, score64, model, label):
+    """The validation channel's two routes on ``model``'s nodes — the
+    holdout batch (``vlocal_score_batch``, CKDE nodes through the pairs
+    kernel) and a fitted factor per node (``vlocal_score``, CKDE nodes
+    through the KDE kernel) — each held against the float64 score's, then
+    against each other: max abs and relative difference."""
+    nodes = model.nodes()
+    fams = [(n, model.parents(n)) for n in nodes]
+    batch = score.vlocal_score_batch(model, fams)
+    single = np.array([score.vlocal_score(model, n) for n in nodes])
+    rel_batch = check_scores(batch, score64.vlocal_score_batch(model, fams),
+                             f"{label} holdout batch vs float64")
+    rel_single = check_scores(
+        single, np.array([score64.vlocal_score(model, n) for n in nodes]),
+        f"{label} fitted factors vs float64")
+    rel = check_scores(batch, single, f"{label} two routes")
+    return {f"{label}_batch_max_rel_vs_f64": f"{rel_batch:.3e}",
+            f"{label}_factors_max_rel_vs_f64": f"{rel_single:.3e}",
+            f"{label}_two_route_max_abs":
+                f"{np.abs(batch - single).max():.3e}",
+            f"{label}_two_route_max_rel": f"{rel:.3e}"}
+
+
+def hc_kde_inputs(torch, score, model):
+    """(label, arguments) of the KDE kernel for the validation update of
+    each CKDE node of ``model`` that has parents, built as ``CKDE.logl``
+    builds them: the joint and the marginal KDE fitted on the holdout's
+    training part and whitened, evaluated on its test part, as two
+    programs (G 2), the marginal zero-padded to the joint's width."""
+    from pybnesian_tpu_torch import CKDE, CKDEType
+
+    train, test = score.training_data(), score.validation_data()
+    cases = []
+    for v in model.nodes():
+        ps = model.parents(v)
+        if not ps or model.node_type(v) != CKDEType():
+            continue
+        cpd = CKDE(v, ps)
+        cpd.fit(train)
+        joint, marg = cpd.kde_joint(), cpd.kde_marg()
+        mat = np.nan_to_num(test.to_numpy([v, *ps], drop_null=False,
+                                          dtype=np.float64), nan=0.0)
+        jtr, mtr = joint.whitened_training(), marg.whitened_training()
+        pad = jtr.shape[1] - mtr.shape[1]
+        tr = torch.stack([jtr, torch.nn.functional.pad(mtr, (0, pad))]
+                         ).contiguous()
+        te = torch.stack([
+            joint._to_device(joint._whiten(mat)),
+            torch.nn.functional.pad(marg._to_device(marg._whiten(mat[:, 1:])),
+                                    (0, pad)),
+        ]).contiguous()
+        valid = torch.ones(tr.shape[:2], dtype=torch.float32, device="cuda")
+        lognorm = torch.tensor([float(joint._lognorm), float(marg._lognorm)],
+                               dtype=torch.float32, device="cuda")
+        cases.append((f"hc-update-{v}", [tr, valid, te, lognorm]))
+    return cases
+
+
+def hc_kernel_cases(torch, score, model):
+    """Both kernels against their plain versions at the shapes ``hc`` gives
+    them, on inputs that the run's own score builds: the pairs kernel on
+    the CV channel's folds and on the holdout split, for every node alone
+    (the cache pass's node-type families), for ``model``'s families, and
+    for its widest family alone; the KDE kernel on each validation update
+    of a CKDE node of ``model``. Returns each kernel's largest error."""
+    nodes = model.nodes()
+    learned = [(v, model.parents(v)) for v in nodes]
+    batches = {"nodes": [(v, []) for v in nodes], "learned": learned,
+               "widest": [max(learned, key=lambda f: len(f[1]))]}
+    pairs = max(
+        compare_pairs(torch, engine_pair_inputs(torch, engine, fams),
+                      f"hc-{channel}-{label}", phase="8 hc kernel")["err"]
+        for channel, engine in (("cv", score.cv_lik._engine),
+                                ("holdout", score.holdout_lik._engine))
+        for label, fams in batches.items())
+    cases = hc_kde_inputs(torch, score, model)
+    if not cases:
+        raise AssertionError("the learned model has no CKDE node with parents")
+    kde = max(compare_kde(torch, args, label, phase="8 hc kernel")["err"]
+              for label, args in cases)
+    return {"ckde_cv_pairs": pairs, "kde_logl": kde}
+
+
+def bic_check(torch, frame32, frame64):
+    """BIC, ``hc``'s default score on a GaussianNetwork (linear-Gaussian
+    families, no kernel): its batched route on the card in float32 held
+    against float64 on every family of up to one parent and each inner
+    node's two neighbours; then that ``hc`` in float32 (no float64 graph to
+    hold it to: BIC scores an arc and its reversal alike, so float32 breaks
+    exact ties)."""
+    from pybnesian_tpu_torch import BIC, GaussianNetwork, GaussianNetworkType, hc
+
+    cols = frame32.column_names()
+    fams = [(v, []) for v in cols]
+    fams += [(t, [s]) for t in cols for s in cols if s != t]
+    fams += [(cols[i], [cols[i - 1], cols[i + 1]])
+             for i in range(1, len(cols) - 1)]
+    model = GaussianNetwork(cols)
+    bic = BIC(frame32)
+    if bic.device.type != "cuda":
+        raise AssertionError(f"BIC runs on {bic.device}, not cuda")
+    rel = check_scores(bic.local_score_batch(model, fams),
+                       BIC(frame64).local_score_batch(model, fams),
+                       "BIC vs float64")
+    recorder = StepRecorder()
+    t0 = time.perf_counter()
+    learned = hc(frame32, bn_type=GaussianNetworkType(), callback=recorder,
+                 max_iters=HC_MAX_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dag_order(learned.nodes(), learned.arcs())
+    if not recorder.iterations < HC_MAX_ITERS:
+        raise AssertionError(f"BIC hc ran to max_iters ({HC_MAX_ITERS})")
+    return {"bic_families": len(fams), "bic_max_rel_vs_f64": f"{rel:.3e}",
+            "bic_hc_wall_s": f"{wall:.4f}",
+            "bic_hc_iterations": recorder.iterations,
+            "bic_hc_arcs": len(learned.arcs())}
+
+
+def phase_hc(torch):
+    """hc at config3b's size: a warm float32 run, the timed float32 run
+    (launch counts from it alone), a float64 run of the same call; both
+    kernels against their plain versions at the run's shapes; the float32
+    scores against the float64 run's, with their cross-batch and two-route
+    differences; BIC on the card. Returns the launches and each kernel's
+    largest error here."""
+    from pybnesian_tpu_torch import DataFrame
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+
+    data = config3b_data(HC_ROWS, seed=2)
+    frame32 = DataFrame.wrap(data)
+    frame64 = DataFrame.wrap({k: v.astype(np.float64)
+                              for k, v in data.items()})
+    warm = learn(torch, frame32)
+    reset_counts()
+    run32 = learn(torch, frame32)
+    launches = read_counts()
+    model, score, recorder, wall = run32
+    if graph_of(model) != graph_of(warm[0]):
+        raise AssertionError("two float32 runs learned different graphs")
+    if not recorder.iterations < HC_MAX_ITERS:
+        raise AssertionError(f"hc ran to max_iters ({HC_MAX_ITERS})")
+    scores = np.concatenate(score.scores)
+    # the chain has no degenerate family, so no score may be -inf
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError(f"{int((~np.isfinite(scores)).sum())} "
+                             "non-finite scores in the float32 run")
+    dag_order(model.nodes(), model.arcs())
+    for name in ("ckde_cv_pairs", "kde_logl"):
+        if launches[name] == 0:
+            raise AssertionError(f"hc did not launch {name}")
+    t0 = time.perf_counter()
+    run64 = learn(torch, frame64)
+    wall64 = time.perf_counter() - t0
+    compared = compare_runs(run32, run64)
+    arcs, types = graph_of(model)
+    say("8 hc", network="SemiparametricBN", rows=HC_ROWS,
+        columns=len(data), patience=HC_PATIENCE, warm_s=f"{warm[3]:.4f}",
+        wall_s=f"{wall:.4f}", iterations=recorder.iterations,
+        families_scored=score.families,
+        family_scores_per_s=f"{score.families / wall:.2f}",
+        launches=launches,
+        pairs_launches_per_iteration=(
+            f"{launches['ckde_cv_pairs'] / recorder.iterations:.2f}"),
+        f64_wall_s=f"{wall64:.4f}", f64_iterations=run64[2].iterations,
+        **compared)
+    say("8 hc", arcs=repr(arcs),
+        ckde=repr(sorted(n for n, t in types.items() if t == "CKDEFactor")),
+        lg=repr(sorted(n for n, t in types.items()
+                       if t == "LinearGaussianFactor")))
+    errs = hc_kernel_cases(torch, score, model)
+    before = ckde_cv_pairs.launches
+    start, score64 = recorder.models[0], run64[1]
+    fields = cross_batch(score, score64, start)
+    fields.update(two_routes(score, score64, start, "start"))
+    fields.update(two_routes(score, score64, model, "learned"))
+    if ckde_cv_pairs.launches == before:
+        raise AssertionError("the cross-batch scores did not launch the "
+                             "pairs kernel")
+    fields.update(cv_lik_search(torch, frame32))
+    say("8 hc", **fields)
+    say("8 hc", **bic_check(torch, frame32, frame64))
+    return launches, errs
+
+
 def main():
     import torch
 
@@ -742,10 +1166,13 @@ def main():
         "kde_logl tpu-docstring-shape": kde,
     })
     model_launches = phase_model_path(torch)
+    hc_launches, hc_errs = phase_hc(torch)
     paths = {"cv": cv_launches, "probe": probe_launches,
-             "model": model_launches}
+             "model": model_launches, "hc": hc_launches}
     pairs = dict(pairs_cases["main-path-inputs"],
-                 err=max(c["err"] for c in pairs_cases.values()))
+                 err=max([c["err"] for c in pairs_cases.values()]
+                         + [hc_errs["ckde_cv_pairs"]]))
+    kde = dict(kde, err=max(kde["err"], hc_errs["kde_logl"]))
     results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe}
     kernels = []
     for name, (source, replaces) in KERNELS.items():

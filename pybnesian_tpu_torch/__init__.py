@@ -1,14 +1,24 @@
 """pybnesian_tpu_torch: the PyTorch / CUDA port of pybnesian_tpu.
 
-The slice ported so far is cross-validated likelihood scoring of
-linear-Gaussian and conditional-KDE families (``CVLikelihood``), the inner
-loop of structure learning for KDE and semiparametric networks. Plain
-tensor code is torch; the pairwise CV-CKDE logsumexp is a hand-written CUDA
-kernel (``csrc/ckde_cv.cu``) on a GPU. This package never imports JAX or
+What it holds so far:
+
+- structure learning by greedy hill-climbing (``hc``,
+  ``GreedyHillClimbing``) with the arc and node-type operators and the
+  ``BIC``, ``CVLikelihood``, ``HoldoutLikelihood`` and
+  ``ValidatedLikelihood`` scores, over linear-Gaussian and conditional-KDE
+  (CKDE) families of Gaussian, KDE and semiparametric networks;
+- fitted-model evaluation: ``KDE``, ``ProductKDE``, ``CKDE`` and network
+  ``logl``, ``slogl``, ``sample``, ``cdf``.
+
+Plain tensor code is torch; the pairwise KDE logsumexps are hand-written
+CUDA kernels (``csrc/ckde_cv.cu``) that float32 tensors on the GPU launch.
+Entry points run on the GPU unless the caller asks for the CPU, with a
+``device=`` argument or process-wide with :func:`use_device`; with neither,
+and no GPU visible, they raise. This package never imports JAX or
 ``pybnesian_tpu``.
 """
 
-from .data import CrossValidation, DataFrame
+from .data import CrossValidation, DataFrame, HoldOut
 from .factors import (
     Arguments,
     DiscreteFactor,
@@ -21,12 +31,41 @@ from .factors import (
 )
 from .factors.ckde import CKDE, CKDEType
 from .kde import KDE, NormalReferenceRule, ProductKDE, ScottsBandwidth
-from .learning.scores import CVLikelihood
-from .models import GaussianNetwork, KDENetwork, SemiparametricBN
+from .learning.algorithms import Callback, GreedyHillClimbing, SaveModel, hc
+from .learning.operators import (
+    AddArc,
+    ArcOperatorSet,
+    ChangeNodeType,
+    ChangeNodeTypeSet,
+    FlipArc,
+    Operator,
+    OperatorPool,
+    OperatorSet,
+    OperatorTabuSet,
+    RemoveArc,
+)
+from .learning.scores import (
+    BIC,
+    CVLikelihood,
+    HoldoutLikelihood,
+    Score,
+    ValidatedLikelihood,
+    ValidatedScore,
+)
+from .models import (
+    GaussianNetwork,
+    GaussianNetworkType,
+    KDENetwork,
+    KDENetworkType,
+    SemiparametricBN,
+    SemiparametricBNType,
+)
+from .runtime.device import use_device
 
 __all__ = [
     "DataFrame",
     "CrossValidation",
+    "HoldOut",
     "FactorType",
     "Factor",
     "UnknownFactorType",
@@ -42,7 +81,30 @@ __all__ = [
     "NormalReferenceRule",
     "ScottsBandwidth",
     "KDENetwork",
+    "KDENetworkType",
     "SemiparametricBN",
+    "SemiparametricBNType",
     "GaussianNetwork",
+    "GaussianNetworkType",
+    "Score",
+    "ValidatedScore",
+    "BIC",
     "CVLikelihood",
+    "HoldoutLikelihood",
+    "ValidatedLikelihood",
+    "Operator",
+    "AddArc",
+    "RemoveArc",
+    "FlipArc",
+    "ChangeNodeType",
+    "OperatorTabuSet",
+    "OperatorSet",
+    "ArcOperatorSet",
+    "ChangeNodeTypeSet",
+    "OperatorPool",
+    "GreedyHillClimbing",
+    "hc",
+    "Callback",
+    "SaveModel",
+    "use_device",
 ]

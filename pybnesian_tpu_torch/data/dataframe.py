@@ -25,9 +25,8 @@ import sys
 from typing import Iterable, Sequence
 
 import numpy as np
-import torch
 
-from ..runtime.device import default_device, torch_dtype
+from ..runtime.device import host_to_device, resolve_device
 
 __all__ = ["Column", "DataFrame"]
 
@@ -485,7 +484,7 @@ class DataFrame:
         Cached per (cols, dtype, device).
         """
         cols = tuple(cols)
-        device = torch.device(device) if device is not None else default_device()
+        device = resolve_device(device)
         if dtype is None:
             dt = self.same_type(*cols) if cols else np.float64
             dtype = np.float64 if dt == "categorical" else dt
@@ -494,15 +493,13 @@ class DataFrame:
         if cached is not None:
             return cached
         mat = self.to_numpy(cols, drop_null=False, dtype=dtype)
-        values = torch.as_tensor(np.nan_to_num(mat, nan=0.0), device=device)
-        valid = torch.as_tensor(
-            np.column_stack(
-                [~self.col(c).null_mask() for c in cols]
-            ).astype(dtype)
+        values = host_to_device(np.nan_to_num(mat, nan=0.0), dtype, device)
+        valid = host_to_device(
+            np.column_stack([~self.col(c).null_mask() for c in cols])
             if cols
-            else np.ones((self._num_rows, 0), dtype),
-            dtype=torch_dtype(dtype),
-            device=device,
+            else np.ones((self._num_rows, 0)),
+            dtype,
+            device,
         )
         out = (values, valid)
         self._dev_cache[key] = out
@@ -511,7 +508,7 @@ class DataFrame:
     def device_codes(self, cols: Sequence[str], device=None):
         """Discrete codes as an int32 tensor on ``device`` (null = -1)."""
         cols = tuple(cols)
-        device = torch.device(device) if device is not None else default_device()
+        device = resolve_device(device)
         key = (cols, "codes", str(device))
         cached = self._dev_cache.get(key)
         if cached is not None:
@@ -521,7 +518,7 @@ class DataFrame:
             if cols
             else np.empty((self._num_rows, 0), np.int32)
         )
-        out = torch.as_tensor(mat.astype(np.int32), device=device)
+        out = host_to_device(mat, np.int32, device)
         self._dev_cache[key] = out
         return out
 

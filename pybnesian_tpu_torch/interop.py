@@ -7,7 +7,8 @@ column arrays, the (train_idx, test_idx) pairs of
 linear-Gaussian factors — so that the two packages can score the same
 folds on the same graph and evaluate the same fitted model without either
 refitting. It never imports ``pybnesian_tpu``: :func:`network_state` reads
-a fitted network of either package through its public surface.
+a fitted network, and :func:`operator_state` a structure-search operator,
+of either package through its public surface.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .learning.scores.likelihood import CVLikelihood, _KFoldEngine
 from .models import GaussianNetwork, KDENetwork, SemiparametricBN
 
 __all__ = ["network", "cv_likelihood", "cpd_state", "fitted_cpd",
-           "network_state", "fitted_network"]
+           "network_state", "fitted_network", "operator_state"]
 
 _SELECTORS = {
     "NormalReferenceRule": NormalReferenceRule,
@@ -127,3 +128,17 @@ def fitted_network(kind: str, nodes, arcs, node_types, cpds):
     model = network(kind, nodes, arcs, node_types)
     model.add_cpds([fitted_cpd(n, st) for n, st in cpds.items()])
     return model
+
+
+def operator_state(op):
+    """A structure-search operator of either package as plain Python, so
+    that the two packages' searches can be compared step by step:
+    ``(class name, nodes, node-type name or None, delta)``, with nodes
+    ``(source, target)`` for an arc operator and ``(node,)`` for
+    ``ChangeNodeType``. ``None`` stays ``None``."""
+    if op is None:
+        return None
+    kind = type(op).__name__
+    if hasattr(op, "node_type"):
+        return kind, (op.node(),), op.node_type().ToString(), op.delta()
+    return kind, (op.source(), op.target()), None, op.delta()

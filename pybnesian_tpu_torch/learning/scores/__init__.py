@@ -1,4 +1,6 @@
 from .base import Score, ValidatedScore
-from .likelihood import CVLikelihood
+from .bic import BIC
+from .likelihood import CVLikelihood, HoldoutLikelihood, ValidatedLikelihood
 
-__all__ = ["Score", "ValidatedScore", "CVLikelihood"]
+__all__ = ["Score", "ValidatedScore", "BIC", "CVLikelihood",
+           "HoldoutLikelihood", "ValidatedLikelihood"]

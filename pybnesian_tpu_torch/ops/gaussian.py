@@ -1,8 +1,10 @@
-"""Linear-Gaussian cross-validated log-likelihood on torch tensors.
+"""Linear-Gaussian family scores on torch tensors.
 
-Port of ``pybnesian_tpu/ops/gaussian.py`` as far as the CV score needs it:
-:func:`batched_lg_cv_loglik` and its helpers. Candidate families are the unit
-of batching, as in the JAX package:
+Port of ``pybnesian_tpu/ops/gaussian.py`` as far as the scores need it:
+:func:`batched_lg_cv_loglik` (CV likelihood),
+:func:`batched_lg_holdout_loglik` (holdout likelihood), :func:`batched_bic`
+(BIC) and their helpers. Candidate families are the unit of batching, as in
+the JAX package:
 
 - each family (variable, parent-set) is a variable index + padded
   parent-index vector + 0/1 parent mask (ragged parent sets → one shape);
@@ -14,18 +16,29 @@ of batching, as in the JAX package:
 
 JAX's ``vmap`` over families and folds is written out as leading (F, K)
 batch axes. XLA fused these functions; there is no Pallas kernel behind
-them, so the port is plain torch.
+them, so the port is plain torch. The JAX callers padded F and P to powers
+of two to bound the number of XLA compiles; here a batch has its own shape.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..runtime.device import host_to_device
 from .linalg import cholesky_or_nan
 
-__all__ = ["batched_lg_cv_loglik", "lg_params_from_gram"]
+__all__ = [
+    "family_tensors",
+    "family_grams",
+    "lg_params_from_gram",
+    "bic_from_gram",
+    "batched_bic",
+    "batched_lg_cv_loglik",
+    "batched_lg_holdout_loglik",
+]
 
 LOG_2PI = math.log(2.0 * math.pi)
 _MACHINE_TOL = 2.220446049250313e-16 * 4
@@ -48,6 +61,34 @@ def _family_design(values, valid, var_idx, parent_idx, parent_mask):
     ones = torch.ones((F, n, 1), dtype=values.dtype, device=values.device)
     design = torch.cat([ones, X, y[:, :, None]], dim=2)
     return design, w
+
+
+def family_tensors(families, dtype, device):
+    """(var_idx, parent_idx, parent_mask) of ``families``, a list of
+    (variable position, [parent positions]), on ``device``: (F,) and
+    (F, P) long, (F, P) 0/1 of numpy float ``dtype``; P is the most
+    parents of any family."""
+    F = len(families)
+    P = max((len(ps) for _, ps in families), default=0)
+    var_idx = np.zeros(F, np.int64)
+    parent_idx = np.zeros((F, P), np.int64)
+    parent_mask = np.zeros((F, P))
+    for f, (vi, ps) in enumerate(families):
+        var_idx[f] = vi
+        parent_idx[f, : len(ps)] = ps
+        parent_mask[f, : len(ps)] = 1.0
+    return (host_to_device(var_idx, np.int64, device),
+            host_to_device(parent_idx, np.int64, device),
+            host_to_device(parent_mask, dtype, device))
+
+
+def family_grams(values, valid, var_idx, parent_idx, parent_mask):
+    """Masked Gram matrices of F families: (F, P+2, P+2) over the columns
+    [1, parents, y], and the (F,) valid row counts n_eff."""
+    design, w = _family_design(values, valid, var_idx, parent_idx,
+                               parent_mask)
+    gram = torch.einsum("fn,fni,fnj->fij", w, design, design)
+    return gram, w.sum(dim=1)
 
 
 def lg_params_from_gram(gram, parent_mask, n_eff):
@@ -79,6 +120,41 @@ def lg_params_from_gram(gram, parent_mask, n_eff):
     return beta, variance, rss
 
 
+def bic_from_gram(gram, parent_mask, n_eff):
+    """Gaussian BIC local scores from family Grams, batched over the leading
+    axes (formula: reference learning/scores/bic.cpp:12-27); −inf where the
+    family is degenerate."""
+    _, variance, _ = lg_params_from_gram(gram, parent_mask, n_eff)
+    k = torch.sum(parent_mask, dim=-1)
+    n = n_eff
+    loglik = (
+        0.5 * (1.0 + k - n) - 0.5 * n * LOG_2PI - 0.5 * n * torch.log(variance)
+    )
+    score = loglik - 0.5 * torch.log(n) * (k + 2.0)
+    bad = (
+        (variance < _MACHINE_TOL)
+        | ~torch.isfinite(variance)
+        | ~torch.isfinite(score)
+    )
+    return torch.where(bad, -math.inf, score)
+
+
+def batched_bic(values, valid, var_idx, parent_idx, parent_mask):
+    """(F,) BIC local scores of F candidate families in one batched call."""
+    grams, n_eff = family_grams(values, valid, var_idx, parent_idx,
+                                parent_mask)
+    return bic_from_gram(grams, parent_mask, n_eff)
+
+
+def _gaussian_ll(y, mean, variance):
+    """Per-row log N(y | mean, variance)."""
+    return (
+        -0.5 * torch.square(y - mean) / variance
+        - 0.5 * torch.log(variance)
+        - 0.5 * LOG_2PI
+    )
+
+
 def batched_lg_cv_loglik(values, valid, train_mask, test_mask, var_idx,
                          parent_idx, parent_mask):
     """k-fold CV log-likelihood of F linear-Gaussian families in one batched
@@ -98,14 +174,26 @@ def batched_lg_cv_loglik(values, valid, train_mask, test_mask, var_idx,
     pm = parent_mask[:, None, :].expand(-1, K, -1)
     beta, variance, _ = lg_params_from_gram(gram, pm, wtr.sum(dim=2))
     mean = torch.einsum("fni,fki->fkn", design[:, :, :-1], beta)
-    var = variance[:, :, None]
-    ll = (
-        -0.5 * torch.square(y[:, None, :] - mean) / var
-        - 0.5 * torch.log(var)
-        - 0.5 * LOG_2PI
-    )
+    ll = _gaussian_ll(y[:, None, :], mean, variance[:, :, None])
     wte = w[:, None, :] * test_mask[None, :, :]
     fold_ll = torch.sum(ll * wte, dim=2)                       # (F, K)
     bad = (variance < _MACHINE_TOL) | ~torch.isfinite(variance)
     fold_ll = torch.where(bad, -math.inf, fold_ll)
     return torch.sum(fold_ll, dim=1)
+
+
+def batched_lg_holdout_loglik(train_values, train_valid, test_values,
+                              test_valid, var_idx, parent_idx, parent_mask):
+    """Fit on the training split, slogl on the test split, batched over F
+    families (reference learning/scores/holdout_likelihood.cpp). Returns
+    (F,); −inf where the fitted variance is degenerate."""
+    grams, n_eff = family_grams(train_values, train_valid, var_idx,
+                                parent_idx, parent_mask)
+    beta, variance, _ = lg_params_from_gram(grams, parent_mask, n_eff)
+    design, w = _family_design(test_values, test_valid, var_idx, parent_idx,
+                               parent_mask)
+    mean = torch.einsum("fni,fi->fn", design[:, :, :-1], beta)
+    ll = _gaussian_ll(design[:, :, -1], mean, variance[:, None])
+    total = torch.sum(ll * w, dim=1)
+    bad = (variance < _MACHINE_TOL) | ~torch.isfinite(variance)
+    return torch.where(bad, -math.inf, total)

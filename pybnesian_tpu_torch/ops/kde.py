@@ -355,9 +355,9 @@ def flash_cv_selfcheck(rule: str = "nr", atol: float = 5e-2,
     (values O(1e3)), so atol=5e-2 is ~1e-5 relative — far tighter than any
     wrong kernel would pass, loose enough for f32 accumulation-order
     differences between the two implementations."""
-    from ..runtime.device import default_device
+    from ..runtime.device import resolve_device
 
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     rng = np.random.default_rng(0)
     n, D = 512, 3
 

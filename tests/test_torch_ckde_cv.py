@@ -14,6 +14,8 @@ import torch
 
 from pybnesian_tpu.ops import kde as jkde
 from pybnesian_tpu_torch.ops import kde as tkde
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 F64 = dict(rtol=1e-9, atol=1e-7)
 F32 = dict(rtol=5e-4, atol=5e-3)

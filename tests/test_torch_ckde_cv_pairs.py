@@ -21,6 +21,7 @@ from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
     ckde_cv_pairs,
     ckde_cv_pairs_reference,
 )
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
 
 
 def _inputs(dpad, G=4, ntr=512, nte=128, seed=0):

@@ -21,6 +21,8 @@ import pybnesian_tpu as pj
 from pybnesian_tpu_torch import interop
 from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
 from pybnesian_tpu_torch.ops.kde import ckde_cv_alldevice_flash
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 TOL = {np.float64: dict(rtol=1e-9, atol=1e-7),
        np.float32: dict(rtol=5e-4, atol=5e-3)}

@@ -20,6 +20,8 @@ from pybnesian_tpu_torch.ops.exp_chain import (
     exp_chain,
     exp_chain_reference,
 )
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 ATOL = 1e-5
 

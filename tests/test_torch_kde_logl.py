@@ -26,6 +26,8 @@ from pybnesian_tpu_torch.ops.kde_kernel import (
     kde_logl,
     kde_logl_reference,
 )
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 F64 = dict(rtol=1e-9, atol=1e-7)
 F32 = dict(rtol=5e-4, atol=5e-3)

@@ -15,6 +15,8 @@ import pytest
 
 from pybnesian_tpu_torch.ops import ckde_cv_kernel as ck
 from pybnesian_tpu_torch.ops import kde_kernel
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 SOURCE = (Path(ck.__file__).resolve().parent.parent / "csrc" / "ckde_cv.cu")
 H100_SMS = 132

@@ -16,6 +16,8 @@ import torch
 
 from pybnesian_tpu.ops.gaussian import batched_lg_cv_loglik as jax_lg_cv
 from pybnesian_tpu_torch.ops.gaussian import batched_lg_cv_loglik
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 TOL = {np.float64: dict(rtol=1e-9, atol=1e-7),
        np.float32: dict(rtol=5e-4, atol=5e-3)}

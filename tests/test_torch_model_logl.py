@@ -19,6 +19,8 @@ import pybnesian_tpu_torch as tpb
 from pybnesian_tpu_torch import interop
 
 from data_gen import normal_chain_data, with_nulls
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 F64 = dict(rtol=1e-9, atol=1e-7)
 F32 = dict(rtol=5e-4, atol=5e-3)

@@ -16,6 +16,8 @@ import time
 import pytest
 
 import pybnesian_tpu_torch._native as native
+from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
+
 
 PROCESSES = 6
 
