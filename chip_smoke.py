@@ -56,13 +56,44 @@ the script exits non-zero and prints no result:
    then each alone) and two-route difference (the holdout batch against a
    fitted factor per node); a ``score="cv-lik"`` search (no validation
    guard): its iterations and how many of its steps undo an earlier one;
-   and BIC, the GaussianNetwork default, against float64, then its ``hc``.
+   and BIC, the GaussianNetwork default, against float64, then its ``hc``;
+9. UCV bandwidths at 10,000 float32 rows of the bench data, 10 folds: (a)
+   ``UCV().bandwidth`` and ``diag_bandwidth`` of 1, 2 and 3 columns, the
+   float32 search beside a float64 search on the card, the UCV score at
+   each result no worse than at the normal-reference start; (b)
+   ``CVLikelihood.local_score_batch`` with UCV as the CKDE selector
+   (through ``Arguments``) on one family each of 0, 1 and 2 parents: the
+   float32 scores against a float64 score GIVEN THE SAME per-fold
+   bandwidths at :data:`SCORE_RTOL`, the scores of the two searches' own
+   bandwidths beside them, and the pairs kernel against its plain version
+   on these inputs (G = families × folds); (c) one family with a
+   user-defined selector (a scaled covariance); (d) ``KDE(vars,
+   UCV()).fit`` and its ``logl`` through the KDE kernel. Every search's
+   iterations per problem, objective evaluations and seconds are printed,
+   with the share of them spent in the pair sums: the evaluations times
+   one ``ucv_pair_sums_batch`` call's own time at the search's shape (the
+   searches themselves run untimed inside);
+10. discrete networks on config2's data (20 nodes, 10,000 rows,
+   cardinality 3): the native core must build; ``hc`` on a DiscreteBN with
+   ``score="bic"`` and ``score="bde"`` as shipped, without a callback and
+   with one (which forces the Python loop), learning the same arcs; the
+   native loop and the Python loop on the native tier learning the same
+   arcs from the same scores; the Python loop on the card's tier learning
+   one graph with and without a callback, of the native tier's skeleton
+   and total score; BIC and BDe of the 380 one-parent families by
+   ``ops/discrete.py`` on the card against the native core at
+   :data:`DISCRETE_RTOL`; ``hc`` with ``score="bge"`` on phase 8's
+   continuous frame; the native core timed against the card per batch
+   over F in {8, 64, 380} families × {10k, 100k, 1M} rows; and per search
+   (20 nodes × {10k, 30k, 60k, 100k, 1M} rows: the native loop, the Python
+   loop on each tier), the grid that sets
+   ``discrete_native.NATIVE_BELOW_ROW_ITEMS``.
 
 A kernel's time (``ms``) is the median of CUDA-event windows of one
 launch each; ``batched_ms`` is the median per launch of windows of
 :data:`KERNEL_BATCH` back-to-back launches, in which the card runs one
 launch while the host issues the next, so that it holds no launch
-latency. Each path (4, 6, 7, 8) runs with every launch count set to 0 just
+latency. Each path (4, 6, 7, 8, 9) runs with every launch count set to 0 just
 before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
 version's time and its bound comes two lines before the last, then the
@@ -113,6 +144,14 @@ TIE_ATOL = 1e-2       # nats: float64 deltas of two operators that float32 may
                       # float32 score of this data moves by at most 2e-3
                       # nats between batches and routes (cross-batch and
                       # two-route differences below)
+DISCRETE_RTOL = 1e-9  # float64 discrete scores: the card vs the native core
+UCV_WORSE_RTOL = {"float32": 1e-4, "float64": 1e-9}  # a search's result vs
+                      # its start, both scored in float64
+DISCRETE_NODES = 20   # benchmarks/config2_discrete_hc.py: 20 nodes,
+DISCRETE_ROWS = 10_000  # 10,000 rows, cardinality 3
+GRID_FAMILIES = (8, 64, 380)
+GRID_ROWS = (10_000, 100_000, 1_000_000)
+SEARCH_GRID_ROWS = (10_000, 30_000, 60_000, 100_000, 1_000_000)
 # (G, ntr, nte, d) of the Pallas KDE kernel's measured shape (pallas_kde.py:11)
 KDE_TPU_SHAPE = (1, 10_240, 10_240, 3)
 # (G, ntr, nte, dpad) of config3b's model.slogl: one program per CKDE node
@@ -1143,9 +1182,507 @@ def phase_hc(torch):
     return launches, errs
 
 
+def frame_as(frame, dtype):
+    """``frame``'s columns cast to ``dtype``, as a new DataFrame."""
+    from pybnesian_tpu_torch import DataFrame
+
+    return DataFrame.wrap({
+        c: frame.to_numpy([c], drop_null=False, dtype=dtype)[:, 0]
+        for c in frame.column_names()})
+
+
+def pair_sums_ms(torch, frame, problems, rows, columns):
+    """Milliseconds of one ``ucv_pair_sums_batch`` call alone (CUDA
+    events, median) on a (problems, rows, columns) block of the frame's
+    standardised leading columns, in the frame's dtype: what one objective
+    evaluation of a search of that shape spends in the pair sums."""
+    from pybnesian_tpu_torch.ops.kde import ucv_pair_sums_batch
+
+    x = frame.to_numpy(frame.column_names()[:columns], drop_null=True)[:rows]
+    w = torch.as_tensor((x - x.mean(0)) / x.std(0), device="cuda")
+    w = w[None].expand(problems, -1, -1).contiguous()
+    return cuda_median_ms(torch, lambda: ucv_pair_sums_batch(w))
+
+
+def search_fields(torch, frame, searches, seconds):
+    """The printed fields of the :class:`UCVSearch` records of searches
+    over ``frame`` that took ``seconds`` together. ``pair_sums_share`` is
+    the searches' evaluations times one pair-sum call's own time at their
+    shape (:func:`pair_sums_ms`), over ``seconds``: the search itself runs
+    untimed inside."""
+    pair = sum(
+        s.evaluations * pair_sums_ms(torch, frame, len(s.x), rows,
+                                     columns) / 1e3
+        for s, rows, columns in searches)
+    iters = [int(i) for s, _r, _c in searches for i in s.iterations]
+    return {"searches": len(searches),
+            "problems": sum(len(s.x) for s, _r, _c in searches),
+            "iterations_per_problem": repr(iters) if len(iters) <= 12 else
+            f"min{min(iters)}/median{int(statistics.median(iters))}"
+            f"/max{max(iters)}",
+            "objective_evaluations": sum(s.evaluations
+                                         for s, _r, _c in searches),
+            "search_s": f"{seconds:.4f}", "pair_sums_s": f"{pair:.4f}",
+            "pair_sums_share": f"{pair / seconds:.4f}"}
+
+
+def ucv_selector_check(torch, frame32, frame64):
+    """(a): the two bandwidth selectors of 1, 2 and 3 columns, float32
+    beside float64, each result scored in float64 against its start."""
+    from pybnesian_tpu_torch import UCV, NormalReferenceRule
+    from pybnesian_tpu_torch.kde.ucv import UCVScorer
+
+    names = frame32.column_names()
+    for d in (1, 2, 3):
+        cols = names[:d]
+        scorer = UCVScorer(frame64, cols)
+        if scorer.device.type != "cuda":
+            raise AssertionError(f"UCV runs on {scorer.device}, not cuda")
+        nr = NormalReferenceRule()
+        starts = {"full": scorer.score_unconstrained(
+                      nr.bandwidth(frame64, cols)),
+                  "diagonal": scorer.score_diagonal(
+                      nr.diag_bandwidth(frame64, cols))}
+        for kind in ("full", "diagonal"):
+            found, fields = {}, {}
+            for frame, dtype in ((frame32, "float32"), (frame64, "float64")):
+                selector = UCV()
+                t0 = time.perf_counter()
+                h = (selector.bandwidth(frame, cols) if kind == "full"
+                     else selector.diag_bandwidth(frame, cols))
+                wall = time.perf_counter() - t0
+                search = selector.last_search
+                if search.dtype != dtype:
+                    raise AssertionError(f"a {dtype} frame searched in "
+                                         f"{search.dtype}")
+                score = (scorer.score_unconstrained(h) if kind == "full"
+                         else scorer.score_diagonal(h))
+                slack = UCV_WORSE_RTOL[dtype] * abs(starts[kind])
+                if not (np.all(np.isfinite(h))
+                        and score <= starts[kind] + slack):
+                    raise AssertionError(
+                        f"UCV {kind} d={d} {dtype}: score {score} at the "
+                        f"result, {starts[kind]} at the start")
+                found[dtype] = h
+                tag = dtype[-2:]
+                shown = search_fields(
+                    torch, frame, [(search, frame.num_rows, d)], wall)
+                fields.update({
+                    f"score_f{tag}": f"{score:.9g}",
+                    f"iterations_f{tag}": int(search.iterations[0]),
+                    f"evaluations_f{tag}": search.evaluations,
+                    f"wall_s_f{tag}": f"{wall:.4f}",
+                    f"pair_sums_share_f{tag}": shown["pair_sums_share"]})
+            rel = float(np.max(np.abs(found["float32"] - found["float64"]))
+                        / np.max(np.abs(found["float64"])))
+            say("9 ucv", selector=kind, columns=d, rows=frame32.num_rows,
+                score_start=f"{starts[kind]:.9g}",
+                f32_vs_f64_max_rel=f"{rel:.3e}", **fields)
+
+
+def ucv_pair_inputs(torch, engine, fams, h_maps):
+    """The pairs kernel's arguments for (variable, parents) families
+    scored with the per-fold bandwidths ``h_maps``, built by the score's
+    own fold engine and the scoring path's own helpers."""
+    from pybnesian_tpu_torch.learning.scores.likelihood import (
+        _family_bandwidths)
+    from pybnesian_tpu_torch.ops.kde import (
+        ckde_cv_pair_args, ckde_cv_whitened_parts)
+
+    pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask = (
+        engine._device_cv_cache()
+    )
+    col_idx, col_mask, H = _family_bandwidths(fams, h_maps, pos)
+    col_mask = torch.as_tensor(col_mask, dtype=torch.float32, device="cuda")
+    parts = ckde_cv_whitened_parts(
+        data, null_mask, torch.as_tensor(col_idx, device="cuda"), col_mask,
+        tr_idx, tr_mask, te_idx, te_mask,
+        bandwidths=torch.as_tensor(H, dtype=torch.float32, device="cuda"),
+    )
+    return list(ckde_cv_pair_args(*parts[:5], col_mask))
+
+
+def vech_width(nv):
+    """d of a vech vector of d (d + 1) / 2 entries."""
+    return (math.isqrt(8 * nv + 1) - 1) // 2
+
+
+def add_counts(*counts):
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def phase_ucv(torch, frame32, frame64, k):
+    """UCV and custom bandwidth selectors on the card. Returns the
+    launches of its path — the entry points of (b) in float32, (c) and
+    (d), each driven with the counts at 0 and read just after — and the
+    pairs kernel's error on the UCV-scored inputs."""
+    from pybnesian_tpu_torch import (
+        KDE, UCV, Arguments, BandwidthSelector, CKDEType, CVLikelihood,
+        DataFrame, KDENetwork, Kwargs)
+
+    ucv_selector_check(torch, frame32, frame64)
+
+    # (b) one family of each width, every node's CKDE selecting with UCV
+    names = frame32.column_names()
+    fams = [(names[0], []), (names[1], [names[0]]),
+            (names[2], [names[0], names[1]])]
+    typed = [(v, ps, CKDEType()) for v, ps in fams]
+    model = KDENetwork(names)
+    frames = {"f32": frame32, "f64": frame64}
+    scores = {tag: CVLikelihood(frame, k=k, seed=0,
+                                construction_args=Arguments(
+                  {CKDEType(): Kwargs(bandwidth_selector=UCV())}))
+              for tag, frame in frames.items()}
+    own, walls, counted = {}, {}, {}
+    for tag, score in scores.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        own[tag] = score.local_score_batch(model, typed)
+        walls[tag] = time.perf_counter() - t0
+        counted[tag] = read_counts()
+    launches_b = counted["f32"]
+    if launches_b["ckde_cv_pairs"] == 0:
+        raise AssertionError("the UCV-selected families did not launch the "
+                             "pairs kernel")
+    if not all(np.all(np.isfinite(v)) for v in own.values()):
+        raise AssertionError(f"non-finite UCV scores {own}")
+    # reported, not held to a tolerance: the two searches stop at
+    # different bandwidths
+    rel_own = float(np.max(np.abs(own["f32"] - own["f64"])
+                           / np.abs(own["f64"])))
+
+    # The entry point's two halves run again apart, outside the counted
+    # run: the searches (they are deterministic, so these are the entry
+    # point's own bandwidths, iterations and evaluations), then the scoring
+    # of given bandwidths.
+    untyped = [(v, ps, None) for v, ps in fams]
+    fold_rows = frame32.num_rows - frame32.num_rows // k
+    given = None
+    for tag, score in scores.items():
+        t0 = time.perf_counter()
+        h_maps, searches = score._engine._ucv_bandwidths(untyped)
+        search_s = time.perf_counter() - t0
+        if sorted(h_maps) != list(range(len(fams))):
+            raise AssertionError(f"UCV found bandwidths for {sorted(h_maps)}")
+        if tag == "f32":
+            given = [h_maps[i] for i in range(len(fams))]
+        say("9 ucv", path="CVLikelihood+UCV", dtype=tag, families=len(fams),
+            folds=k, rows=frame32.num_rows, programs=len(fams) * k,
+            wall_s=f"{walls[tag]:.4f}", **search_fields(
+                torch, frames[tag],
+                [(s, fold_rows, vech_width(s.x.shape[1])) for s in searches],
+                search_s))
+    # the float32 search's bandwidths, scored by both dtypes
+    t0 = time.perf_counter()
+    s32 = scores["f32"]._engine._ckde_host_batch(typed, h_maps=given)
+    scoring_s = time.perf_counter() - t0
+    s64 = scores["f64"]._engine._ckde_host_batch(typed, h_maps=given)
+    rel_given = check_scores(s32, s64, "UCV scores, the same bandwidths")
+    if not np.allclose(s32, own["f32"], rtol=SCORE_RTOL):
+        raise AssertionError("the float32 search is not reproducible: "
+                             f"{s32} vs {own['f32']}")
+    err = compare_pairs(
+        torch, ucv_pair_inputs(torch, scores["f32"]._engine, fams, given),
+        "ucv-cv-families", phase="9 ucv kernel")["err"]
+    say("9 ucv", path="CVLikelihood+UCV", scoring_s_f32=f"{scoring_s:.4f}",
+        scores_f32=repr([round(float(x), 3) for x in s32]),
+        same_bandwidths_max_rel_vs_f64=f"{rel_given:.3e}",
+        own_scores_f32=repr([round(float(x), 3) for x in own["f32"]]),
+        own_scores_f64=repr([round(float(x), 3) for x in own["f64"]]),
+        own_bandwidths_max_rel=f"{rel_own:.3e}",
+        launches=launches_b)
+
+    # (c) a user's selector: the host route of _ckde_host_batch
+    class ScaledCovariance(BandwidthSelector):
+        def bandwidth(self, df, variables):
+            return 0.05 * np.atleast_2d(df.cov(list(variables)))
+
+    def custom_score(frame):
+        return CVLikelihood(frame, k=k, seed=0, construction_args=Arguments(
+            {CKDEType(): Kwargs(bandwidth_selector=ScaledCovariance())}))
+
+    score = custom_score(frame32)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = score.local_score_batch(model, typed[2:])
+    wall = time.perf_counter() - t0
+    launches_c = read_counts()
+    if launches_c["ckde_cv_pairs"] == 0:
+        raise AssertionError("the custom-selector family did not launch the "
+                             "pairs kernel")
+    rel = check_scores(got, custom_score(frame64).local_score_batch(
+        model, typed[2:]), "custom selector vs float64")
+    say("9 ucv", path="CVLikelihood+custom selector", families=1,
+        wall_s=f"{wall:.4f}", score=f"{got[0]:.6f}",
+        max_rel_vs_f64=f"{rel:.3e}", launches=launches_c)
+
+    # (d) a UCV-fitted KDE, evaluated through the KDE kernel
+    test = make_data(seed=1)
+    cols = names[:2]
+    selector = UCV()
+    kde32 = KDE(cols, selector)
+    t0 = time.perf_counter()
+    kde32.fit(frame32)
+    fit_s = time.perf_counter() - t0
+    search = selector.last_search
+    test32 = DataFrame.wrap(test)
+    reset_counts()
+    got = kde32.logl(test32)
+    launches_d = read_counts()
+    if launches_d["kde_logl"] == 0:
+        raise AssertionError("KDE.logl did not launch the KDE kernel")
+    kde64 = KDE(cols)
+    kde64.fit_with_bandwidth(
+        frame64.to_numpy(cols, drop_null=True, dtype=np.float64),
+        kde32.bandwidth)
+    want = kde64.logl(DataFrame.wrap(
+        {c: v.astype(np.float64) for c, v in test.items()}))
+    err_kde = float(np.max(np.abs(got - want)))
+    if not (np.all(np.isfinite(got)) and err_kde <= ROW_TOL):
+        raise AssertionError(f"UCV KDE.logl vs float64: {err_kde} > {ROW_TOL}")
+    say("9 ucv", path="KDE(UCV).fit+logl", columns=len(cols),
+        fit_s=f"{fit_s:.4f}", iterations=int(search.iterations[0]),
+        evaluations=search.evaluations,
+        logl_max_abs_vs_f64=f"{err_kde:.3e}", launches=launches_d)
+    return add_counts(launches_b, launches_c, launches_d), err
+
+
+def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0):
+    """benchmarks/config2_discrete_hc.py's data (:34-45): a chain of
+    cardinality-3 columns, each copying the one before it or, with
+    probability 0.3, drawing afresh. A port DataFrame, built without
+    pandas."""
+    from pybnesian_tpu_torch.data import Column, DataFrame
+
+    rng = np.random.default_rng(seed)
+    cols = []
+    prev = rng.integers(0, 3, n)
+    for i in range(d):
+        flip = rng.random(n) < 0.3
+        cur = np.where(flip, rng.integers(0, 3, n), prev)
+        cols.append(Column(f"v{i}", cur.astype(np.int32), ("x", "y", "z")))
+        prev = cur
+    return DataFrame(cols)
+
+
+def grid_families(names, F):
+    """F families over ``names``: variable f mod d, with f mod 4 parents
+    (0 to 3), the next columns round the ring."""
+    d = len(names)
+    return [(names[f % d], [names[(f + 1 + j) % d] for j in range(f % 4)])
+            for f in range(F)]
+
+
+def host_median_s(fn, runs=3):
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def discrete_batch_grid():
+    """The native core against the card, BIC and BDe, per batch over the
+    grid of family counts and row counts: seconds per
+    ``local_score_batch`` of a score on each tier, host clock (the card's
+    calls end in the copy of the scores to the host), median of 3 after a
+    warm call. The codes are on the card before the clock starts, as they
+    are from a score's second batch on."""
+    from pybnesian_tpu_torch import BIC, BDe, DiscreteBN
+
+    for n in GRID_ROWS:
+        frame = discrete_data(n=n, seed=1)
+        names = frame.column_names()
+        model = DiscreteBN(names)
+        tiers = {kind: {"native": make(frame, native=True),
+                        "card": make(frame, native=False)}
+                 for kind, make in (("bic", BIC), ("bde", BDe))}
+        for F in GRID_FAMILIES:
+            fams = grid_families(names, F)
+            fields = {}
+            for kind, by_tier in tiers.items():
+                want = by_tier["native"].local_score_batch(model, fams)
+                got = by_tier["card"].local_score_batch(model, fams)
+                rel = float(np.max(np.abs(got - want) / np.abs(want)))
+                if not rel <= DISCRETE_RTOL:
+                    raise AssertionError(f"grid {kind} F={F} n={n}: card vs "
+                                         f"native {rel} > {DISCRETE_RTOL}")
+                t = {tier: host_median_s(
+                         lambda: score.local_score_batch(model, fams))
+                     for tier, score in by_tier.items()}
+                fields.update({f"{kind}_native_ms": f"{t['native'] * 1e3:.3f}",
+                               f"{kind}_card_ms": f"{t['card'] * 1e3:.3f}",
+                               f"{kind}_card_wins": t["card"] < t["native"]})
+            say("10 batch grid", families=F, rows=n, row_items=F * n,
+                **fields)
+
+
+def discrete_search_grid():
+    """Whole searches on each tier over :data:`SEARCH_GRID_ROWS` rows of
+    config2's 20 nodes: ``hc`` with a new score per call (its codes are
+    built, or copied to the card, inside the clock, as a user's call
+    does), median of 3 after a warm call. The native tier runs the core's
+    own loop, and the Python loop when a callback asks for it; the card's
+    tier always runs the Python loop. Beside them what the shipped rule
+    (:func:`discrete_native.takes_frame`) chooses."""
+    from pybnesian_tpu_torch import BIC, BDe, DiscreteBNType, hc
+    from pybnesian_tpu_torch.learning.scores import discrete_native
+
+    for n in SEARCH_GRID_ROWS:
+        frame = discrete_data(n=n, seed=1)
+        d = frame.num_columns
+        for kind, make in (("bic", BIC), ("bde", BDe)):
+            def search(native, callback=None):
+                return hc(frame, bn_type=DiscreteBNType(),
+                          score=make(frame, native=native),
+                          callback=callback)
+
+            if make(frame, native=False).device.type != "cuda":
+                raise AssertionError(f"{kind}'s device tier is not the card")
+            native_loop = host_median_s(lambda: search(True))
+            python_native = host_median_s(
+                lambda: search(True, StepRecorder()))
+            python_card = host_median_s(lambda: search(False))
+            say("10 search grid", score=kind, nodes=d, rows=n,
+                rows_x_columns2=n * d * d,
+                native_loop_s=f"{native_loop:.4f}",
+                python_loop_native_tier_s=f"{python_native:.4f}",
+                python_loop_card_tier_s=f"{python_card:.4f}",
+                card_beats_native_loop=python_card < native_loop,
+                card_beats_python_native=python_card < python_native,
+                rule_takes_native=discrete_native.takes_frame(n, d))
+    say("10 search grid", rule_native_below_rows_x_columns2=(
+        discrete_native.NATIVE_BELOW_ROW_ITEMS))
+
+
+def phase_discrete(torch):
+    """Discrete networks: the native core, both hc loops on both tiers,
+    the card's batched scores against the core's, BGe, and the two
+    crossover grids."""
+    from pybnesian_tpu_torch import (
+        BIC, BDe, DataFrame, DiscreteBN, DiscreteBNType,
+        GaussianNetworkType, hc)
+    from pybnesian_tpu_torch.learning.scores import discrete_native
+
+    if not discrete_native.available():
+        raise AssertionError("the native discrete core did not build: "
+                             f"{discrete_native.load_error()}")
+    frame = discrete_data()
+    names = frame.column_names()
+    bn = DiscreteBNType()
+
+    def arcs(model):
+        return sorted(model.arcs())
+
+    def timed(**kwargs):
+        before = discrete_native.hc_discrete.calls
+        t0 = time.perf_counter()
+        model = hc(frame, bn_type=bn, **kwargs)
+        seconds = time.perf_counter() - t0
+        dag_order(model.nodes(), model.arcs())
+        return model, seconds, discrete_native.hc_discrete.calls - before
+
+    for name, make in (("bic", BIC), ("bde", BDe)):
+        # as shipped: the score chosen by its name, its tier by the rule.
+        # A callback forces the Python loop; both calls must learn the
+        # same arcs, whichever tier the rule takes.
+        by_rule_native = make(frame).native_tier()
+        plain, plain_s, core_loops = timed(score=name)
+        recorder = StepRecorder()
+        watched, watched_s, _ = timed(score=name, callback=recorder)
+        if core_loops != int(by_rule_native):
+            raise AssertionError(
+                f"hc score={name}: the rule takes the "
+                f"{'native' if by_rule_native else 'card'} tier but the "
+                f"core's loop ran {core_loops} times")
+        if arcs(plain) != arcs(watched):
+            raise AssertionError(f"hc score={name}: with and without a "
+                                 "callback it learned different arcs")
+        # each tier by choice: the core's loop and the Python loop see the
+        # same scores on the native tier, bit for bit
+        native, native_s, core_loops = timed(score=make(frame, native=True))
+        if core_loops != 1:
+            raise AssertionError(f"hc score={name}: the native loop did not "
+                                 "run on the native tier")
+        python, python_s, _ = timed(score=make(frame, native=True),
+                                    callback=StepRecorder())
+        if arcs(native) != arcs(python):
+            raise AssertionError(f"hc score={name}: the native and the Python "
+                                 "loop learned different arcs")
+        card, card_s, core_loops = timed(score=make(frame, native=False))
+        card_watched, _, _ = timed(score=make(frame, native=False),
+                                   callback=StepRecorder())
+        if core_loops or arcs(card) != arcs(card_watched):
+            raise AssertionError(f"hc score={name}: the card's tier ran the "
+                                 "core's loop, or learned two graphs")
+        # the tiers' float64 scores differ in the last bits, and BIC and
+        # BDe score an arc and its reversal alike: across tiers such a tie
+        # may break the other way, to a Markov-equivalent graph
+        score = make(frame)
+        total, total_card = score.score(native), score.score(card)
+        if ({frozenset(a) for a in native.arcs()}
+                != {frozenset(a) for a in card.arcs()}
+                or not abs(total_card - total) <= DISCRETE_RTOL * abs(total)):
+            raise AssertionError(
+                f"hc score={name}: the card's tier learned another skeleton "
+                f"or score ({total_card} vs {total})")
+        if not native.num_arcs() >= DISCRETE_NODES - 1:
+            raise AssertionError(f"hc score={name} learned "
+                                 f"{native.num_arcs()} arcs of a 20-node chain")
+        say("10 discrete", hc_score=name, nodes=len(names),
+            rows=frame.num_rows, arcs=plain.num_arcs(),
+            rule_takes_native=by_rule_native,
+            by_rule_s=f"{plain_s:.4f}",
+            by_rule_with_callback_s=f"{watched_s:.4f}",
+            by_rule_same_arcs=True, python_iterations=recorder.iterations,
+            native_loop_s=f"{native_s:.4f}",
+            python_loop_native_tier_s=f"{python_s:.4f}",
+            native_tier_same_arcs=True,
+            python_loop_card_tier_s=f"{card_s:.4f}",
+            card_tier_same_arcs_as_native=arcs(card) == arcs(native),
+            card_tier_same_skeleton_and_score=True,
+            total_score=f"{total:.6f}")
+
+    # the card's batched scores against the native core's
+    fams = [(t, [s]) for t in names for s in names if s != t]
+    model = DiscreteBN(names)
+    for make in (BIC, BDe):
+        on_card = make(frame, native=False)
+        if on_card.device.type != "cuda":
+            raise AssertionError(f"{on_card.ToString()} runs on "
+                                 f"{on_card.device}, not cuda")
+        got = on_card.local_score_batch(model, fams)
+        want = make(frame, native=True).local_score_batch(model, fams)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        if not (np.all(np.isfinite(got)) and rel <= DISCRETE_RTOL):
+            raise AssertionError(f"{on_card.ToString()} on the card vs the "
+                                 f"native core: {rel} > {DISCRETE_RTOL}")
+        say("10 discrete", score=on_card.ToString(), families=len(fams),
+            card_vs_native_max_rel=f"{rel:.3e}")
+
+    # BGe on phase 8's continuous frame
+    cont = DataFrame.wrap(config3b_data(HC_ROWS, seed=2))
+    recorder = StepRecorder()
+    t0 = time.perf_counter()
+    learned = hc(cont, bn_type=GaussianNetworkType(), score="bge",
+                 callback=recorder, max_iters=HC_MAX_ITERS)
+    wall = time.perf_counter() - t0
+    dag_order(learned.nodes(), learned.arcs())
+    if not 0 < recorder.iterations < HC_MAX_ITERS:
+        raise AssertionError(f"BGe hc took {recorder.iterations} iterations")
+    say("10 discrete", hc_score="bge", rows=HC_ROWS,
+        columns=cont.num_columns, iterations=recorder.iterations,
+        arcs=learned.num_arcs(), wall_s=f"{wall:.4f}")
+    discrete_batch_grid()
+    discrete_search_grid()
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     card = phase_environment(torch)
     from pybnesian_tpu_torch import DataFrame
 
@@ -1167,11 +1704,17 @@ def main():
     })
     model_launches = phase_model_path(torch)
     hc_launches, hc_errs = phase_hc(torch)
+    ucv_launches, ucv_err = phase_ucv(torch, frame32, frame64, k)
+    phase_discrete(torch)
     paths = {"cv": cv_launches, "probe": probe_launches,
-             "model": model_launches, "hc": hc_launches}
+             "model": model_launches, "hc": hc_launches,
+             "ucv": ucv_launches}
+    for name in ("ckde_cv_pairs", "kde_logl"):
+        if ucv_launches[name] == 0:
+            raise AssertionError(f"the UCV path did not launch {name}")
     pairs = dict(pairs_cases["main-path-inputs"],
                  err=max([c["err"] for c in pairs_cases.values()]
-                         + [hc_errs["ckde_cv_pairs"]]))
+                         + [hc_errs["ckde_cv_pairs"], ucv_err]))
     kde = dict(kde, err=max(kde["err"], hc_errs["kde_logl"]))
     results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe}
     kernels = []
@@ -1192,6 +1735,7 @@ def main():
             # no single PyTorch call computes any of these functions
             "library_ms": None,
         })
+    say("all phases", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,17 +20,26 @@ and no GPU visible, they raise. This package never imports JAX or
 
 from .data import CrossValidation, DataFrame, HoldOut
 from .factors import (
+    Args,
     Arguments,
     DiscreteFactor,
     DiscreteFactorType,
     Factor,
     FactorType,
+    Kwargs,
     LinearGaussianCPD,
     LinearGaussianCPDType,
     UnknownFactorType,
 )
 from .factors.ckde import CKDE, CKDEType
-from .kde import KDE, NormalReferenceRule, ProductKDE, ScottsBandwidth
+from .kde import (
+    KDE,
+    UCV,
+    BandwidthSelector,
+    NormalReferenceRule,
+    ProductKDE,
+    ScottsBandwidth,
+)
 from .learning.algorithms import Callback, GreedyHillClimbing, SaveModel, hc
 from .learning.operators import (
     AddArc,
@@ -46,6 +55,8 @@ from .learning.operators import (
 )
 from .learning.scores import (
     BIC,
+    BDe,
+    BGe,
     CVLikelihood,
     HoldoutLikelihood,
     Score,
@@ -53,6 +64,8 @@ from .learning.scores import (
     ValidatedScore,
 )
 from .models import (
+    DiscreteBN,
+    DiscreteBNType,
     GaussianNetwork,
     GaussianNetworkType,
     KDENetwork,
@@ -70,6 +83,8 @@ __all__ = [
     "Factor",
     "UnknownFactorType",
     "Arguments",
+    "Args",
+    "Kwargs",
     "LinearGaussianCPD",
     "LinearGaussianCPDType",
     "DiscreteFactor",
@@ -80,15 +95,21 @@ __all__ = [
     "ProductKDE",
     "NormalReferenceRule",
     "ScottsBandwidth",
+    "UCV",
+    "BandwidthSelector",
     "KDENetwork",
     "KDENetworkType",
     "SemiparametricBN",
     "SemiparametricBNType",
     "GaussianNetwork",
+    "DiscreteBN",
+    "DiscreteBNType",
     "GaussianNetworkType",
     "Score",
     "ValidatedScore",
     "BIC",
+    "BGe",
+    "BDe",
     "CVLikelihood",
     "HoldoutLikelihood",
     "ValidatedLikelihood",

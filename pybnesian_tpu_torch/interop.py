@@ -21,11 +21,12 @@ from .factors.discrete import DiscreteFactorType
 from .factors.lineargaussian import LinearGaussianCPD, LinearGaussianCPDType
 from .kde import KDE, NormalReferenceRule, ScottsBandwidth
 from .kde.ucv import UCV
+from .learning.scores import BIC, BDe, BGe
 from .learning.scores.likelihood import CVLikelihood, _KFoldEngine
-from .models import GaussianNetwork, KDENetwork, SemiparametricBN
+from .models import DiscreteBN, GaussianNetwork, KDENetwork, SemiparametricBN
 
-__all__ = ["network", "cv_likelihood", "cpd_state", "fitted_cpd",
-           "network_state", "fitted_network", "operator_state"]
+__all__ = ["network", "cv_likelihood", "score_state", "score", "cpd_state",
+           "fitted_cpd", "network_state", "fitted_network", "operator_state"]
 
 _SELECTORS = {
     "NormalReferenceRule": NormalReferenceRule,
@@ -34,6 +35,7 @@ _SELECTORS = {
 }
 
 _NETWORKS = {
+    "DiscreteBN": DiscreteBN,
     "GaussianNetwork": GaussianNetwork,
     "KDENetwork": KDENetwork,
     "SemiparametricBN": SemiparametricBN,
@@ -48,8 +50,8 @@ _NODE_TYPES = {
 
 
 def network(kind: str, nodes, arcs=(), node_types=None):
-    """The port's network of class name ``kind`` ("GaussianNetwork",
-    "KDENetwork" or "SemiparametricBN") over ``nodes`` with ``arcs``
+    """The port's network of class name ``kind`` ("DiscreteBN",
+    "GaussianNetwork", "KDENetwork" or "SemiparametricBN") over ``nodes`` with ``arcs``
     [(source, target)]. ``node_types`` maps node names to type names
     ("LinearGaussianFactor", "CKDEFactor", "DiscreteFactor",
     "UnknownFactorType"); nodes left out keep the network's default."""
@@ -68,6 +70,28 @@ def cv_likelihood(columns, folds, construction_args=None, device=None):
                          construction_args=construction_args, device=device)
     score._engine = _KFoldEngine(score.df, folds, score.device)
     return score
+
+
+def score_state(score) -> dict:
+    """The class name and prior parameters of a closed-form score (BIC,
+    BDe, BGe) of either package, as plain Python: ``kind``, and ``iss``
+    for BDe, ``iss_mu``, ``iss_w`` and ``nu`` for BGe."""
+    state = {"kind": type(score).__name__}
+    for key in ("iss", "iss_mu", "iss_w", "nu"):
+        if hasattr(score, key):
+            value = getattr(score, key)
+            state[key] = (None if value is None
+                          else np.asarray(value, np.float64).tolist())
+    return state
+
+
+def score(columns, kind: str, device=None, **prior):
+    """The port's BIC, BDe or BGe over ``columns`` (a pandas frame with
+    categorical columns, a dict of arrays or a DataFrame) from
+    :func:`score_state`'s dict: ``score(df, **score_state(other))``."""
+    if kind == "BGe":
+        return BGe(columns, **prior)
+    return {"BIC": BIC, "BDe": BDe}[kind](columns, device=device, **prior)
 
 
 def cpd_state(cpd) -> dict:

@@ -10,8 +10,12 @@ path evaluates all families × folds in one batched call
 :func:`~pybnesian_tpu_torch.ops.gaussian.batched_lg_holdout_loglik` for the
 holdout split) and the CKDE path scores all families × folds of a bandwidth
 rule in one fused call (:mod:`pybnesian_tpu_torch.ops.kde`); the holdout
-split is one more fold set, of one fold. Discrete and Python-defined factor
-types keep the host paths.
+split is one more fold set, of one fold. CKDE families whose bandwidth
+selector is UCV get their families × folds bandwidths from one batched
+search (:func:`pybnesian_tpu_torch.kde.ucv.ucv_search_batch`), families
+with a user-defined selector from the selector, fold by fold; both are then
+scored by the same fused call, given those bandwidths. Discrete and
+Python-defined factor types keep the host paths.
 
 Every score holds its tensors on its ``device`` (default
 :func:`~pybnesian_tpu_torch.runtime.device.default_device`); the factors it
@@ -19,7 +23,8 @@ fits on the host paths run under :func:`use_device` of that device.
 
 Routing of a CKDE batch (the JAX package's rule, likelihood.py:81-84): a
 float32 batch on a GPU goes through the hand-written kernel; every other
-batch through the plain torch :func:`ckde_cv_alldevice`. There is no
+batch through the plain torch :func:`ckde_cv_alldevice` — whatever chose
+the bandwidths. There is no
 parity gate with a silent fall-back: on a GPU the kernel runs or the call
 raises.
 """
@@ -44,16 +49,17 @@ __all__ = ["CVLikelihood", "HoldoutLikelihood", "ValidatedLikelihood"]
 
 
 def _fused_cv_scores(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
-                     te_idx, te_mask, rule):
-    """(F,) CV scores of one rule group: the kernel route for a float32
-    batch on a GPU, the plain torch route otherwise."""
+                     te_idx, te_mask, rule=None, bandwidths=None):
+    """(F,) CV scores of one group of families, with the bandwidths of
+    ``rule`` or the given per-(family, fold) ``bandwidths``: the kernel
+    route for a float32 batch on a GPU, the plain torch route otherwise."""
     from ...ops.kde import (
         ckde_cv_alldevice, ckde_cv_alldevice_flash, kernel_route)
 
     fused = (ckde_cv_alldevice_flash if kernel_route(data)
              else ckde_cv_alldevice)
     return fused(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
-                 te_idx, te_mask, rule=rule)
+                 te_idx, te_mask, rule=rule, bandwidths=bandwidths)
 
 
 def _family_columns(fams, pos):
@@ -68,6 +74,33 @@ def _family_columns(fams, pos):
             col_idx[f, j] = pos[c]
             col_mask[f, j] = 1.0
     return col_idx, col_mask
+
+
+def _family_bandwidths(fams, per_family, pos):
+    """``(col_idx, col_mask, H)`` of the fused scoring path for (variable,
+    parents) families with host bandwidths ``per_family[f][k]``, the (dj,
+    dj) matrix of family f in fold k with the variable FIRST: the columns
+    of :func:`_family_columns` (evidence first, variable last), and the
+    bandwidths permuted to that order in the leading block of an (F, K,
+    djmax, djmax) array."""
+    col_idx, col_mask = _family_columns(fams, pos)
+    djmax = col_idx.shape[1]
+    K = len(per_family[0])
+    H = np.zeros((len(fams), K, djmax, djmax))
+    for f, hs in enumerate(per_family):
+        dj = len(hs[0])
+        perm = [*range(1, dj), 0]
+        for k in range(K):
+            H[f, k, :dj, :dj] = np.asarray(hs[k])[np.ix_(perm, perm)]
+    return col_idx, col_mask, H
+
+
+def _finite_or_neg_inf(scores) -> np.ndarray:
+    """Device scores as host float64; NaN (a degenerate family) and +inf
+    become −inf."""
+    vals = scores.to(torch.float64).cpu().numpy().copy()
+    vals[~np.isfinite(vals)] = -math.inf
+    return vals
 
 
 def _ckde_selector(node_type, model, variable, parents, args):
@@ -126,6 +159,13 @@ class _KFoldEngine:
             self._fam_cache = ({c: i for i, c in enumerate(cols)}, mat, nulls)
         return self._fam_cache
 
+    def _dtype(self):
+        """float32 for a float32 frame, else float64: the dtype of every
+        device tensor of the CKDE paths, the bandwidth search included."""
+        cols = self.df.continuous_columns()
+        dt = self.df.same_type(*cols) if cols else np.float64
+        return np.float32 if np.dtype(dt) == np.float32 else np.float64
+
     def _device_cv_cache(self):
         """Device-resident data + fold index arrays, uploaded once. Folds
         are padded only to the longest fold (rows masked out)."""
@@ -144,8 +184,7 @@ class _KFoldEngine:
                 tr_mask[k, : len(tr)] = 1.0
                 te_idx[k, : len(te)] = te
                 te_mask[k, : len(te)] = 1.0
-            dt = self.df.same_type(*cols) if cols else np.float64
-            dtype = np.float32 if np.dtype(dt) == np.float32 else np.float64
+            dtype = self._dtype()
 
             def dev(a, dt=dtype):
                 return host_to_device(a, dt, self.device)
@@ -164,7 +203,9 @@ class _KFoldEngine:
     def ckde_scores_batch(self, fams) -> np.ndarray:
         """fams: list of (variable, parents, selector). Rule-based selectors
         (normal reference, Scott) run the fused device path, one call per
-        rule; UCV and custom Python selectors are not ported yet."""
+        rule; UCV families take their bandwidths from one batched search
+        and families with a custom Python selector from the selector, and
+        both are then scored by the same fused path."""
         from ...kde.bandwidth import NormalReferenceRule, ScottsBandwidth
         from ...kde.ucv import UCV
 
@@ -185,11 +226,6 @@ class _KFoldEngine:
                 continue
             device_groups.setdefault(rule, []).append(i)
 
-        if ucv_idx:
-            self._ckde_ucv_batch([fams[i] for i in ucv_idx])
-        if fallback:
-            self._ckde_host_batch([fams[i] for i in fallback])
-
         if device_groups:
             (pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask) = (
                 self._device_cv_cache()
@@ -209,23 +245,158 @@ class _KFoldEngine:
                 )
                 pending.append((idxs, scores))
             for idxs, scores in pending:
-                vals = scores.to(torch.float64).cpu().numpy().copy()
-                vals[~np.isfinite(vals)] = -math.inf
-                out[np.array(idxs)] = vals
+                out[np.array(idxs)] = _finite_or_neg_inf(scores)
+
+        if ucv_idx:
+            out[np.array(ucv_idx)] = self._ckde_ucv_batch(
+                [fams[i] for i in ucv_idx]
+            )
+        if fallback:
+            out[np.array(fallback)] = self._ckde_host_batch(
+                [fams[i] for i in fallback]
+            )
+        return out
+
+    def _fold_trains(self, variable, parents):
+        """Per-fold training rows of one family, variable first, nulls
+        dropped: a list of (row indices, (n_k, dj) float64 rows), or None
+        when some fold has no more rows than columns."""
+        pos, full_mat, nulls = self._family_arrays()
+        cidx = [pos[c] for c in (variable, *parents)]
+        valid = ~nulls[:, cidx].any(axis=1)
+        out = []
+        for (tr, _te) in self.folds:
+            trk = tr[valid[tr]]
+            if len(trk) <= len(cidx):
+                return None
+            out.append((trk, full_mat[np.ix_(trk, cidx)]))
         return out
 
     def _ckde_ucv_batch(self, fams) -> np.ndarray:
-        raise NotImplementedError(
-            "CV scores of UCV-selected CKDE families are not ported to torch "
-            "yet (ROADMAP.md Queue 1 item 5: UCV bandwidth)"
-        )
+        """UCV-selected CKDE families: every (family, fold) bandwidth
+        problem of one width runs through ONE batched Nelder–Mead on the
+        device (:func:`pybnesian_tpu_torch.kde.ucv.ucv_search_batch`),
+        from the normal-reference start (UCV.cpp:400), and the optimal
+        bandwidths feed the fused scoring path. Replaces F·K sequential
+        searches (reference kde/UCV.cpp runs one NLopt loop per factor
+        fit)."""
+        out = np.full(len(fams), -math.inf)
+        h_maps, _searches = self._ucv_bandwidths(fams)
+        if h_maps:
+            idxs = sorted(h_maps)
+            out[np.array(idxs)] = self._ckde_host_batch(
+                [fams[i] for i in idxs], h_maps=[h_maps[i] for i in idxs],
+            )
+        return out
 
-    def _ckde_host_batch(self, fams) -> np.ndarray:
-        raise NotImplementedError(
-            "CV scores of CKDE families with a custom bandwidth selector are "
-            "not ported to torch yet (ROADMAP.md Queue 1 item 5: UCV and "
-            "custom bandwidth selectors)"
+    def _ucv_bandwidths(self, fams):
+        """{index in ``fams``: [the K per-fold UCV bandwidths, (dj, dj),
+        variable first]} by one batched search per family width, and those
+        searches' :class:`~pybnesian_tpu_torch.kde.ucv.UCVSearch` records;
+        a family with a fold of too few rows, or whose normal-reference
+        start is not positive definite, is left out."""
+        from ...kde.ucv import invvech_triangular, ucv_search_batch, vech
+
+        K = len(self.folds)
+        probs_by_dj: dict[int, list] = {}
+        for i, (v, ps, _sel) in enumerate(fams):
+            trains = self._fold_trains(v, ps)
+            if trains is None:
+                continue
+            dj = len(ps) + 1
+            starts = []
+            for _rows, train in trains:
+                n_k = len(train)
+                knr = (4.0 / (n_k * (dj + 2.0))) ** (2.0 / (dj + 4.0))
+                H0 = knr * np.cov(train, rowvar=False, ddof=1).reshape(dj, dj)
+                try:
+                    starts.append(vech(np.linalg.cholesky(H0)))
+                except np.linalg.LinAlgError:
+                    break
+            if len(starts) == K:
+                probs_by_dj.setdefault(dj, []).append((i, trains, starts))
+
+        h_maps: dict[int, list] = {}
+        searches = []
+        for dj, entries in probs_by_dj.items():
+            B = len(entries) * K
+            npad = max(len(train) for (_i, trains, _s) in entries
+                       for (_rows, train) in trains)
+            Xpad = np.zeros((B, npad, dj))
+            validm = np.zeros((B, npad))
+            Ns = np.zeros(B)
+            x0s = np.zeros((B, dj * (dj + 1) // 2))
+            for b, (_i, trains, starts) in enumerate(entries):
+                for k, ((_rows, train), x0) in enumerate(zip(trains, starts)):
+                    row = b * K + k
+                    Xpad[row, : len(train)] = train
+                    validm[row, : len(train)] = 1.0
+                    Ns[row] = len(train)
+                    x0s[row] = x0
+            search = ucv_search_batch(Xpad, validm, Ns, x0s, dj,
+                                      dtype=self._dtype(), device=self.device)
+            searches.append(search)
+            xb = search.x
+            for b, (i, _trains, _starts) in enumerate(entries):
+                factors = [invvech_triangular(xb[b * K + k])
+                           for k in range(K)]
+                h_maps[i] = [L @ L.T for L in factors]
+        return h_maps, searches
+
+    def _ckde_host_batch(self, fams, h_maps=None) -> np.ndarray:
+        """CKDE families whose per-fold bandwidths come from the host: from
+        the family's own selector (a user-defined
+        :class:`~pybnesian_tpu_torch.kde.BandwidthSelector`, called once
+        per fold on the fold's training rows with the columns variable
+        first), or precomputed, ``h_maps[i][k]`` the (dj, dj) bandwidth of
+        family i in fold k in that column order. The bandwidths are
+        permuted to the scoring layout (evidence first, variable last) and
+        all families × folds are scored by ONE fused call, the one the
+        rule bandwidths take; a fold whose bandwidth is not positive
+        definite, or that has too few rows, makes its family −inf."""
+        out = np.full(len(fams), -math.inf)
+        kept: list[int] = []
+        per_family = []
+        for i, (v, ps, selector) in enumerate(fams):
+            dj = len(ps) + 1
+            if h_maps is not None:
+                hs = h_maps[i]
+            else:
+                trains = self._fold_trains(v, ps)
+                if trains is None:
+                    continue
+                try:
+                    with use_device(self.device):
+                        hs = [
+                            np.asarray(
+                                selector.bandwidth(self.df.take(rows),
+                                                   [v, *ps]),
+                                dtype=np.float64,
+                            ).reshape(dj, dj)
+                            for rows, _train in trains
+                        ]
+                except SingularCovarianceData:
+                    continue
+            kept.append(i)
+            per_family.append(hs)
+        if not kept:
+            return out
+
+        (pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask) = (
+            self._device_cv_cache()
         )
+        col_idx, col_mask, H = _family_bandwidths(
+            [fams[i][:2] for i in kept], per_family, pos)
+        dtype = numpy_dtype(data.dtype)
+        scores = _fused_cv_scores(
+            data, null_mask,
+            host_to_device(col_idx, np.int64, self.device),
+            host_to_device(col_mask, dtype, self.device),
+            tr_idx, tr_mask, te_idx, te_mask,
+            bandwidths=host_to_device(H, dtype, self.device),
+        )
+        out[np.array(kept)] = _finite_or_neg_inf(scores)
+        return out
 
     def ckde_score(self, variable, parents, selector) -> float:
         return float(self.ckde_scores_batch([(variable, parents, selector)])[0])

@@ -14,8 +14,9 @@ and the plain forms chunk internally, so no caller pads.
 
 One CV call scores F CKDE families over K folds:
 
-1. :func:`ckde_cv_whitened_parts` — per (family, fold) row gather, rule
-   bandwidth (normal reference or Scott), Cholesky and whitening;
+1. :func:`ckde_cv_whitened_parts` — per (family, fold) row gather,
+   bandwidth (the normal reference or Scott rule, or matrices the caller
+   gives: UCV's, a user selector's), Cholesky and whitening;
 2. the pairwise joint-and-marginal logsumexp — on a GPU the hand-written
    kernel behind :func:`ckde_cv_pairs` (:func:`ckde_cv_alldevice_flash`),
    elsewhere the dense chunked form of :func:`ckde_cv_alldevice`;
@@ -30,6 +31,9 @@ whitening serves both densities, and ``marg_d2 = joint_d2 − Δz_var²`` where
 
 JAX's ``vmap`` over families and folds is written out as leading (F, K)
 axes; its ``lax.map`` over test chunks is a Python loop.
+
+:func:`ucv_pair_sums_batch` holds the pair sums of the UCV bandwidth
+objective (plain torch on every device, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ __all__ = [
     "ckde_cv_alldevice_flash",
     "ckde_cv_pair_args",
     "flash_cv_selfcheck",
+    "ucv_pair_sums",
+    "ucv_pair_sums_batch",
 ]
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -188,10 +194,15 @@ def batched_ckde_logl(jtr, jte, zv_tr, zv_te, trm, lndiff, no_ev=None):
 
 
 def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
-                           tr_mask, te_idx, te_mask, rule="nr"):
-    """Stage 1 of the CV-CKDE path: per (family, fold) gather, rule
-    bandwidth, Cholesky and whitening — everything *before* the pairwise
-    part.
+                           tr_mask, te_idx, te_mask, rule="nr",
+                           bandwidths=None):
+    """Stage 1 of the CV-CKDE path: per (family, fold) gather, bandwidth,
+    Cholesky and whitening — everything *before* the pairwise part. The
+    bandwidth is the rule's (``rule``: normal reference "nr" or "scott")
+    unless ``bandwidths`` gives one matrix per (family, fold): (F, K, djmax,
+    djmax) in the family's column order (evidence first, variable last),
+    entries of padded columns ignored — the route of UCV-selected and
+    user-selected bandwidths.
 
     data: (n, D) values (nulls zeroed); null_mask: (n, D) 1.0 where null;
     col_idx/col_mask: (F, djmax) family columns, evidence first / variable
@@ -217,19 +228,23 @@ def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
     w = tr_mask[None] * fvalid[:, tr_idx]                      # (F, K, ntr)
     train = fam[:, tr_idx]                                     # (F, K, ntr, d)
     n_eff = torch.sum(w, dim=2)                                # (F, K)
-    mean = torch.sum(train * w[..., None], dim=2) / n_eff[..., None]
-    xc = (train - mean[:, :, None, :]) * (
-        w[..., None] * col_mask[:, None, None, :]
-    )
-    cov = xc.mT @ xc / (n_eff - 1.0)[..., None, None]
     d_col = d_eff[:, None]
-    if rule == "nr":
-        k = (4.0 / (n_eff * (d_col + 2.0))) ** (2.0 / (d_col + 4.0))
-    elif rule == "scott":
-        k = n_eff ** (-2.0 / (d_col + 4.0))
+    if bandwidths is not None:
+        H = bandwidths * (col_mask[:, :, None] * col_mask[:, None, :])[:, None]
     else:
-        raise ValueError(f"unknown bandwidth rule {rule!r}")
-    H = k[..., None, None] * cov + torch.diag_embed(1.0 - col_mask)[:, None]
+        mean = torch.sum(train * w[..., None], dim=2) / n_eff[..., None]
+        xc = (train - mean[:, :, None, :]) * (
+            w[..., None] * col_mask[:, None, None, :]
+        )
+        cov = xc.mT @ xc / (n_eff - 1.0)[..., None, None]
+        if rule == "nr":
+            k = (4.0 / (n_eff * (d_col + 2.0))) ** (2.0 / (d_col + 4.0))
+        elif rule == "scott":
+            k = n_eff ** (-2.0 / (d_col + 4.0))
+        else:
+            raise ValueError(f"unknown bandwidth rule {rule!r}")
+        H = k[..., None, None] * cov
+    H = H + torch.diag_embed(1.0 - col_mask)[:, None]
     L = cholesky_or_nan(H)
     eye = torch.eye(djmax, dtype=dtype, device=data.device).expand_as(L)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
@@ -282,19 +297,19 @@ def _dense_pairs(jtr, neg, zv_tr, jte, zv_te):
 
 
 def ckde_cv_alldevice(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
-                      te_idx, te_mask, rule="nr"):
+                      te_idx, te_mask, rule="nr", bandwidths=None):
     """CV log-likelihood of F CKDE families, all folds, in plain torch:
     :func:`ckde_cv_whitened_parts`, then the dense pairwise double
     logsumexp, then the fold sums. The route for every batch that is not
     float32 on a GPU (float64, or CPU tensors) and the reference the
     kernel route is checked against.
 
-    Same arguments as :func:`ckde_cv_whitened_parts`. Returns (F,) summed CV
-    test logl; NaN marks degenerate families (the caller maps them to
-    -inf)."""
+    Same arguments as :func:`ckde_cv_whitened_parts` (``bandwidths``
+    included). Returns (F,) summed CV test logl; NaN marks degenerate
+    families (the caller maps them to -inf)."""
     jtr, neg, zv_tr, jte, zv_te, wte, lndiff, ok = ckde_cv_whitened_parts(
         data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
-        rule=rule,
+        rule=rule, bandwidths=bandwidths,
     )
     F, K, ntr, djmax = jtr.shape
     nte = jte.shape[2]
@@ -307,7 +322,8 @@ def ckde_cv_alldevice(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
 
 
 def ckde_cv_alldevice_flash(data, null_mask, col_idx, col_mask, tr_idx,
-                            tr_mask, te_idx, te_mask, rule="nr"):
+                            tr_mask, te_idx, te_mask, rule="nr",
+                            bandwidths=None):
     """:func:`ckde_cv_alldevice` with the pairwise double logsumexp in the
     streaming kernel of :func:`ckde_cv_pairs` — no (nte × ntr) intermediate
     in device memory. Same arguments and result; float32 inputs. The F
@@ -315,7 +331,7 @@ def ckde_cv_alldevice_flash(data, null_mask, col_idx, col_mask, tr_idx,
     masks its own ragged edges."""
     jtr, neg, zv_tr, jte, zv_te, wte, lndiff, ok = ckde_cv_whitened_parts(
         data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
-        rule=rule,
+        rule=rule, bandwidths=bandwidths,
     )
     out = ckde_cv_pairs(
         *ckde_cv_pair_args(jtr, neg, zv_tr, jte, zv_te, col_mask)
@@ -385,3 +401,76 @@ def flash_cv_selfcheck(rule: str = "nr", atol: float = 5e-2,
         and np.allclose(flash, dense, atol=atol, rtol=rtol)
     )
     return ok, diff
+
+
+# elements of one (problems, row block, column span) pair block of the UCV
+# sums: 2**25 keeps each of its three live temporaries at 128 MiB in
+# float32, and a 9,000-row problem in a few dozen blocks
+_UCV_BLOCK = 1 << 25
+
+
+def ucv_pair_sums_batch(white, valid=None):
+    """The UCV pair sums of B problems at once: ``white`` (B, N, d) whitened
+    training rows, ``valid`` (B, N) 1.0 on the rows that count (a problem
+    with fewer rows than N is padded with invalid ones), or None when every
+    row counts. Returns ``(s2h, sh)``, each (B,) in ``white``'s dtype:
+
+        s2h = Σ_{i<j} exp(−¼‖wᵢ−wⱼ‖²),   sh = Σ_{i<j} exp(−½‖wᵢ−wⱼ‖²)
+
+    over the valid pairs of each problem — the leave-one-out terms of the
+    UCV objective for bandwidths 2H and H (reference kde/UCV.cpp,
+    KDE.cl.src:471-565) from ONE exp per pair: the second term is the square
+    of the first.
+
+    Plain torch on every device (the JAX package has no hand-written kernel
+    here either). Only the upper triangle is walked: a block of rows
+    [a, a+blk) meets the columns [a, N), so the i ≥ j half of each diagonal
+    block is the only waste; N need not be a multiple of the block, the
+    last block is just shorter. ``blk`` is chosen so that one (B, blk, N)
+    temporary stays at ``_UCV_BLOCK`` elements. The i < j mask touches
+    only the block's first ``blk`` columns, the validity mask only runs
+    when ``valid`` is given: every pass over a pair block costs as much as
+    its exp.
+
+    Distances are DIRECT differences, Σ_k (w_ik − w_jk)², one pass per
+    column, not the ‖a‖² − 2a·b + ‖b‖² matmul form of the dense KDE paths:
+    the sums are dominated by the closest pairs, which is where that form
+    cancels worst in float32 (its error is ε·‖w‖², the distance itself may be
+    smaller), and the UCV objective is a small difference of the two sums.
+    d is a handful of columns, so the matmul would save little. A block's
+    rows are summed in the data's dtype (a tree sum over at most N terms);
+    the row sums, and the blocks, in float64 (asking the big reduction for
+    float64 made torch copy the whole block to float64 first: a fifth of
+    the call on an H100)."""
+    B, N, d = white.shape
+    dtype, device = white.dtype, white.device
+    s2h = torch.zeros(B, dtype=torch.float64, device=device)
+    sh = torch.zeros(B, dtype=torch.float64, device=device)
+    blk = max(1, min(N, _UCV_BLOCK // max(B * N, 1)))
+    upper = torch.triu(torch.ones((blk, blk), dtype=dtype, device=device),
+                       diagonal=1)
+    wt = white.transpose(1, 2).contiguous()                    # (B, d, N)
+    if valid is not None:
+        valid = (valid > 0).to(dtype)
+    for a in range(0, N, blk):
+        b = min(a + blk, N)
+        e = wt[:, 0, a:b, None] - wt[:, 0, None, a:]
+        e.square_()
+        for k in range(1, d):
+            diff = wt[:, k, a:b, None] - wt[:, k, None, a:]
+            e.addcmul_(diff, diff)
+        torch.exp_(e.mul_(-0.25))
+        e[:, :, : b - a].mul_(upper[: b - a, : b - a])
+        if valid is not None:
+            e.mul_(valid[:, a:b, None]).mul_(valid[:, None, a:])
+        s2h += torch.sum(e, dim=2).sum(dim=1, dtype=torch.float64)
+        sh += torch.sum(e.square_(), dim=2).sum(dim=1, dtype=torch.float64)
+    return s2h.to(dtype), sh.to(dtype)
+
+
+def ucv_pair_sums(train_white, valid=None):
+    """:func:`ucv_pair_sums_batch` of one problem: ``train_white`` (N, d),
+    ``valid`` (N,) or None. Returns two scalar tensors."""
+    s2h, sh = ucv_pair_sums_batch(
+        train_white[None], None if valid is None else valid[None])
+    return s2h[0], sh[0]

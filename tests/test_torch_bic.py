@@ -3,8 +3,10 @@
 Linear-Gaussian families with 0–3 parents through the batched route
 (``local_score_batch``) and the host route (``local_score``), a frame with
 nulls, degenerate families (a constant column), and CLG
-families (a discrete parent) on a frame with a categorical column. The
-discrete route is not ported and raises. Float64: rtol 1e-9 / atol 1e-7.
+families (a discrete parent) on a frame with a categorical column; one
+discrete family and the ``"bge"`` / ``"bde"`` score names (the discrete
+scores proper are in test_torch_discrete_scores.py). Float64: rtol 1e-9 /
+atol 1e-7.
 """
 
 import numpy as np
@@ -104,20 +106,32 @@ def test_clg_family_matches_jax(parents):
 
 
 def test_discrete_families_are_not_ported():
+    """(The name dates from when the discrete route raised.) The discrete
+    count form is ported: it equals the JAX package's, by the node-type
+    route and the batch."""
     df = _mixed()
     score = pt.BIC(df)
     model = interop.network("GaussianNetwork", ["x", "y"])
+    jmodel = pj.GaussianNetwork(["x", "y"])
     dt = pt.DiscreteFactorType()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        score.local_score_node_type(model, dt, "g", [])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        score.local_score_batch(model, [("g", [], dt)])
+    want = pj.BIC(df).local_score_node_type(
+        jmodel, pj.DiscreteFactorType(), "g", [])
+    np.testing.assert_allclose(
+        score.local_score_node_type(model, dt, "g", []), want, **TOL)
+    np.testing.assert_allclose(
+        score.local_score_batch(model, [("g", [], dt)]), [want], **TOL)
     # a discrete child of a continuous parent stays impossible, as in JAX
     assert score.local_score_node_type(model, dt, "g", ["x"]) == -np.inf
 
 
 def test_bge_and_bde_are_not_ported():
-    df = _frame()
-    for name in ("bge", "bde"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            pt.hc(df, bn_type=pt.GaussianNetworkType(), score=name)
+    """(The name dates from when the two score names raised.) ``"bge"``
+    learns the JAX package's graph; ``"bde"`` names a score that a
+    Gaussian network is not compatible with, in both packages."""
+    df = pd.DataFrame({k: v for k, v in _frame().items() if k != "z"})
+    want = pj.hc(df, bn_type=pj.GaussianNetworkType(), score="bge")
+    got = pt.hc(df, bn_type=pt.GaussianNetworkType(), score="bge")
+    assert sorted(got.arcs()) == sorted(want.arcs()) and got.num_arcs() > 0
+    for pkg in (pj, pt):
+        with pytest.raises(ValueError):
+            pkg.hc(df, bn_type=pkg.GaussianNetworkType(), score="bde")

@@ -14,7 +14,14 @@ sequence in both. Cases:
   where y comes out CKDE (same file);
 - a SemiparametricBN on a 5-node nonlinear chain of 500 rows,
   ``patience=2``;
-- the default scores named as strings (``"cv-lik"``, ``"holdout-lik"``).
+- the default scores named as strings (``"cv-lik"``, ``"holdout-lik"``);
+- a DiscreteBN on 2,000 rows of a 6-node categorical chain, with the
+  discrete BIC (the type's default) and ``"bde"``, plain and with a
+  blacklist, a whitelist, ``max_indegree=1`` and an ``epsilon``; the
+  recorder's callback makes these the Python loop, and
+  ``test_native_discrete_hc_learns_the_same_graph`` runs the same cases
+  without a callback, through the native loop of both packages;
+- a GaussianNetwork on the README frame with ``"bge"``.
 
 All of it float64 on the CPU; deltas compared with rtol 1e-9 / atol 1e-7.
 """
@@ -64,6 +71,21 @@ def chain_df(n=500, d=5, seed=3):
     return pd.DataFrame(cols)
 
 
+def discrete_df(n=2000, d=6, seed=0):
+    """A categorical chain: each column copies the one before it, or with
+    probability 0.3 draws afresh; cardinalities 3, 2, 4, 3, 2, 4."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    prev = rng.integers(0, 3, n)
+    for i in range(d):
+        k = (3, 2, 4)[i % 3]
+        cur = np.where(rng.random(n) < 0.3, rng.integers(0, k, n), prev % k)
+        cols[f"v{i}"] = pd.Categorical.from_codes(
+            cur, [f"c{j}" for j in range(k)])
+        prev = cur
+    return pd.DataFrame(cols)
+
+
 class Recorder:
     """Records each iteration's operator as :func:`interop.operator_state`
     (the same class serves both packages: hc calls ``call`` only)."""
@@ -78,7 +100,8 @@ class Recorder:
 def _types(pkg):
     return {"gaussian": pkg.GaussianNetworkType(),
             "kde": pkg.KDENetworkType(),
-            "spbn": pkg.SemiparametricBNType()}
+            "spbn": pkg.SemiparametricBNType(),
+            "discrete": pkg.DiscreteBNType()}
 
 
 CASES = {
@@ -97,7 +120,21 @@ CASES = {
     "spbn-cv-lik": (sin_df, "spbn", dict(score="cv-lik", max_iters=4)),
     "spbn-holdout-lik": (sin_df, "spbn", dict(score="holdout-lik",
                                               max_iters=4)),
+    "gaussian-bge": (readme_df, "gaussian", dict(score="bge")),
 }
+DISCRETE_CASES = {
+    f"discrete-{score}{'-' + name if name else ''}": (
+        discrete_df, "discrete", dict(score=score, **kwargs))
+    for score in ("bic", "bde")
+    for name, kwargs in {
+        "": {},
+        "blacklist": dict(arc_blacklist=[("v0", "v1"), ("v1", "v0")]),
+        "whitelist": dict(arc_whitelist=[("v5", "v0")]),
+        "max-indegree-1": dict(max_indegree=1),
+        "epsilon": dict(epsilon=600.0),
+    }.items()
+}
+CASES.update(DISCRETE_CASES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,6 +168,56 @@ def test_hc_learns_the_jax_graph(case):
         (i, s and s[:3]) for i, s in jsteps]
     np.testing.assert_allclose([s[3] for _, s in tsteps if s],
                                [s[3] for _, s in jsteps if s], **TOL)
+
+
+@pytest.mark.parametrize("case", list(DISCRETE_CASES))
+def test_native_discrete_hc_learns_the_same_graph(case):
+    """Without a callback both packages run the whole search in the native
+    core; it must learn the graph that the Python loop learnt."""
+    from pybnesian_tpu_torch.learning.scores import discrete_native
+
+    make, kind, kwargs = CASES[case]
+    df = make()
+    jmodel = pj.hc(df, bn_type=_types(pj)[kind], **kwargs)
+    before = discrete_native.hc_discrete.calls
+    tmodel = pt.hc(df, bn_type=_types(pt)[kind], **kwargs)
+    assert discrete_native.hc_discrete.calls == before + 1
+    assert _graph(tmodel) == _graph(jmodel)
+    assert _graph(tmodel) == _graph(_learn(case)["port"][0])
+    assert tmodel.num_arcs() >= 3
+
+
+@pytest.mark.parametrize("make", [pt.BIC, pt.BDe], ids=["bic", "bde"])
+def test_a_search_stays_on_its_scores_tier(make):
+    """On the device's tier the search runs the Python loop with or
+    without a callback, every batch on the device, and learns one graph;
+    it is the native tier's graph up to exact ties."""
+    from pybnesian_tpu_torch.learning.scores import discrete_native
+
+    df = discrete_df()
+    before = discrete_native.hc_discrete.calls
+    score = make(df, native=False)
+    plain = pt.hc(df, bn_type=pt.DiscreteBNType(), score=score)
+    assert discrete_native.hc_discrete.calls == before
+    assert score._native_cache is None
+    watched = pt.hc(df, bn_type=pt.DiscreteBNType(),
+                    score=make(df, native=False), callback=Recorder())
+    assert _graph(plain) == _graph(watched)
+    native = pt.hc(df, bn_type=pt.DiscreteBNType(),
+                   score=make(df, native=True))
+    assert discrete_native.hc_discrete.calls == before + 1
+    assert ({frozenset(a) for a in native.arcs()}
+            == {frozenset(a) for a in plain.arcs()})
+
+
+def test_discrete_restrictions_hold():
+    assert not {("v0", "v1"), ("v1", "v0")} & set(
+        _learn("discrete-bic-blacklist")["port"][0].arcs())
+    assert ("v5", "v0") in _learn("discrete-bde-whitelist")["port"][0].arcs()
+    capped = _learn("discrete-bde-max-indegree-1")["port"][0]
+    assert max(len(capped.parents(n)) for n in capped.nodes()) == 1
+    assert (_learn("discrete-bic-epsilon")["port"][0].num_arcs()
+            < _learn("discrete-bic")["port"][0].num_arcs())
 
 
 def test_readme_anchor_learns_two_arcs():
