@@ -87,14 +87,48 @@ the script exits non-zero and prints no result:
    over F in {8, 64, 380} families × {10k, 100k, 1M} rows; and per search
    (20 nodes × {10k, 30k, 60k, 100k, 1M} rows: the native loop, the Python
    loop on each tier), the grid that sets
-   ``discrete_native.NATIVE_BELOW_ROW_ITEMS``.
+   ``discrete_native.NATIVE_BELOW_ROW_ITEMS``;
+11. hybrid networks on config3b's chain at 10,000 float32 rows with two
+   categorical columns d0 and d1 (3 categories each; every continuous
+   node's mean shifts with d0, the even nodes' with d1): (a) a
+   SemiparametricBN with d0 a parent of every continuous node and d1 of
+   the even ones, so 4 HCKDE nodes of 9 configurations and 4
+   CLinearGaussianCPD nodes of 3, fitted, then ``model.logl``/``slogl``
+   on 10,000 more rows against float64 and against Σ ``cpd.logl``, each
+   configuration's own CKDE (the KDE kernel) against its HCKDE's rows
+   (the pairs kernel, one launch for all 9), the launches of one
+   ``HCKDE.logl`` and one ``model.logl``; (b) ``hc`` on a SemiparametricBN
+   with ``score="validated-lik"`` over the 10 columns against float64 by
+   the tie rule; (c) a CLGNetwork's fit and logl against float64, and its
+   ``hc`` with ``score="validated-lik"``; then both kernels against their
+   plain versions on the inputs that (a) to (c) gave them, the first
+   launch of each shape (:class:`Recording`), with the launches of each
+   entry point (one ``HCKDE.logl``, one ``model.logl``, the ``slogl``
+   calls, Σ ``cpd.logl``, each configuration's CKDE, ``hc``);
+12. dynamic networks on an AR(2) series of 5 variables with cross-lags,
+   10,000 float32 rows: a DynamicSemiparametricBN with CKDE nodes in the
+   static and the transition network (fit, ``logl`` against float64,
+   ``slogl``, and ``sample`` of 200 rows as a check of its shape and
+   values, not a measurement), then DMMHC over DynamicLinearCorrelation
+   with a DynamicValidatedLikelihood (the pairs kernel), its static and
+   transition arcs; then both kernels against their plain versions on the
+   inputs that these calls gave them, at each shape launched;
+13. the constraint-based learners: PC over LinearCorrelation on config4's
+   data (50 nodes, 100,000 rows) and over ChiSquare on config4b's (25
+   discrete nodes, 50,000 rows, the native core), each called on the test
+   itself, through a counter with ``pvalue_batch`` (the batched route PC
+   takes for the test itself) and one test at a time, all three learning
+   the same PDAG: tests, tests/s, arcs and edges; MMHC on a
+   SemiparametricBN over phase 8's frame with the validated likelihood,
+   against float64 by the tie rule, then both kernels against their plain
+   versions on the inputs that MMHC gave them, at each shape launched.
 
 A kernel's time (``ms``) is the median of CUDA-event windows of one
 launch each; ``batched_ms`` is the median per launch of windows of
 :data:`KERNEL_BATCH` back-to-back launches, in which the card runs one
 launch while the host issues the next, so that it holds no launch
-latency. Each path (4, 6, 7, 8, 9) runs with every launch count set to 0 just
-before it and read just after. A JSON object with each kernel's launches
+latency. Each path (4, 6, 7, 8, 9, 11, 12, 13) runs with every launch count
+set to 0 just before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
 version's time and its bound comes two lines before the last, then the
 card's name and power limit; the last line is
@@ -149,6 +183,14 @@ UCV_WORSE_RTOL = {"float32": 1e-4, "float64": 1e-9}  # a search's result vs
                       # its start, both scored in float64
 DISCRETE_NODES = 20   # benchmarks/config2_discrete_hc.py: 20 nodes,
 DISCRETE_ROWS = 10_000  # 10,000 rows, cardinality 3
+DYNAMIC_VARIABLES = 5  # phase 12: an AR(2) series of 5 variables,
+DYNAMIC_ORDER = 2      # Markovian order 2
+DYNAMIC_SAMPLE_ROWS = 200  # a check of dynamic sample's shape and values,
+                           # not a measurement of it at the series' length
+PC_NODES = 50          # benchmarks/config4_pc.py: 50 nodes,
+PC_ROWS = 100_000      # 100,000 rows
+CHI_NODES = 25         # benchmarks/config4b_discrete_pc.py: 25 nodes,
+CHI_ROWS = 50_000      # 50,000 rows, cardinality 3
 GRID_FAMILIES = (8, 64, 380)
 GRID_ROWS = (10_000, 100_000, 1_000_000)
 SEARCH_GRID_ROWS = (10_000, 30_000, 60_000, 100_000, 1_000_000)
@@ -403,9 +445,11 @@ def split_sweep(torch, launch, args, want, plan, phase, label):
     say(phase, case=label, planned_S=plan[2], **times)
 
 
-def compare_pairs(torch, args, label, card=None, phase="2 kernel"):
+def compare_pairs(torch, args, label, card=None, phase="2 kernel",
+                  quiet=False):
     """The kernel against its plain version on ``args``; timed, with its
-    launch plan and bound, when ``card`` is given."""
+    launch plan and bound, when ``card`` is given; printed unless
+    ``quiet``."""
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
         _launch, _launch_plan, ckde_cv_pairs, ckde_cv_pairs_reference)
 
@@ -430,7 +474,8 @@ def compare_pairs(torch, args, label, card=None, phase="2 kernel"):
             work=pairs_work(args),
             plan=_launch_plan(G, ntr, nte, dpad, card["sms"]))
         fields.update(timing_fields(card, result))
-    say(phase, **fields)
+    if not quiet:
+        say(phase, **fields)
     if card is not None:
         split_sweep(torch, _launch, args, got, result["plan"], "2 split",
                     label)
@@ -601,9 +646,11 @@ def kde_inputs(torch, G, ntr, nte, d, seed, scale=2.0):
             for a in (train, valid, test, lognorm)]
 
 
-def compare_kde(torch, args, label, card=None, phase="5 kde kernel"):
+def compare_kde(torch, args, label, card=None, phase="5 kde kernel",
+                quiet=False):
     """The kernel against its plain version on ``args``; timed, with its
-    launch plan and bound, when ``card`` is given."""
+    launch plan and bound, when ``card`` is given; printed unless
+    ``quiet``."""
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import _launch_plan
     from pybnesian_tpu_torch.ops.kde_kernel import (
         _launch, kde_logl, kde_logl_reference)
@@ -631,7 +678,8 @@ def compare_kde(torch, args, label, card=None, phase="5 kde kernel"):
             work=kde_work(args),
             plan=_launch_plan(G, ntr, nte, d, card["sms"]))
         fields.update(timing_fields(card, result))
-    say(phase, **fields)
+    if not quiet:
+        say(phase, **fields)
     if card is not None:
         split_sweep(torch, _launch, args, got, result["plan"],
                     "5 kde split", label)
@@ -724,10 +772,8 @@ def phase_model_path(torch):
     )
     model.fit(train32)
     # the same fitted model in float64, the plain route's reference
-    state = interop.network_state(model)
-    for v in ckde_nodes:
-        state["cpds"][v]["dtype"] = "float64"
-    model64 = interop.fitted_network(**state)
+    model64 = interop.fitted_network(**as_float64(
+        interop.network_state(model)))
 
     reset_counts()
     model.slogl(test32)  # warm
@@ -860,17 +906,23 @@ class StepRecorder:
         self.iterations = iteration
 
 
-def learn(torch, frame):
-    """One ``hc`` run on ``frame`` as a user calls it, with the counting
-    score and a recorder: (model, score, recorder, wall seconds)."""
+def learn(torch, frame, search=None):
+    """One search on ``frame`` as a user calls it, with the counting score
+    and a recorder: (model, score, recorder, wall seconds).
+    ``search(score, recorder)`` runs it; by default ``hc`` on a
+    SemiparametricBN."""
     from pybnesian_tpu_torch import SemiparametricBNType, hc
+
+    if search is None:
+        def search(score, recorder):
+            return hc(frame, bn_type=SemiparametricBNType(), score=score,
+                      callback=recorder, seed=0, patience=HC_PATIENCE,
+                      max_iters=HC_MAX_ITERS)
 
     recorder = StepRecorder()
     t0 = time.perf_counter()
     score = counting_validated_likelihood()(frame, 0.2, 10, 0)
-    model = hc(frame, bn_type=SemiparametricBNType(), score=score,
-               callback=recorder, seed=0, patience=HC_PATIENCE,
-               max_iters=HC_MAX_ITERS)
+    model = search(score, recorder)
     torch.cuda.synchronize()
     return model, score, recorder, time.perf_counter() - t0
 
@@ -896,7 +948,7 @@ def delta_in(score, before, op):
                for n in op.nodes_changed(after))
 
 
-def compare_runs(run32, run64):
+def compare_runs(run32, run64, phase="8 hc"):
     """Holds the float32 run against the float64 run: the same operators,
     or, where the two sequences first differ, two operators that float32
     may order either way (float64 deltas within :data:`TIE_ATOL` nats).
@@ -921,7 +973,7 @@ def compare_runs(run32, run64):
                   op_f64=repr(op64 and op64.ToString()))
     if op32 is None or op64 is None:
         if not same_graph:
-            say("8 hc", **fields)
+            say(phase, **fields)
             raise AssertionError("one run stopped where the other went on, "
                                  "and their graphs differ")
         return fields
@@ -932,7 +984,7 @@ def compare_runs(run32, run64):
     fields.update(op_f32_delta_f64=f"{d32:.9g}", op_f64_delta_f64=f"{d64:.9g}",
                   tie_gap=f"{gap:.3e}", tie_rel=f"{gap / abs(d64):.3e}")
     if not gap <= TIE_ATOL:
-        say("8 hc", **fields)
+        say(phase, **fields)
         raise AssertionError("the float32 and float64 runs chose different "
                              f"operators {gap} nats apart, more than a "
                              f"float32 tie ({TIE_ATOL} nats)")
@@ -1447,18 +1499,18 @@ def phase_ucv(torch, frame32, frame64, k):
     return add_counts(launches_b, launches_c, launches_d), err
 
 
-def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0):
+def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0, fresh=0.3):
     """benchmarks/config2_discrete_hc.py's data (:34-45): a chain of
     cardinality-3 columns, each copying the one before it or, with
-    probability 0.3, drawing afresh. A port DataFrame, built without
-    pandas."""
+    probability ``fresh``, drawing afresh. A port DataFrame, built without
+    pandas. With 0.35, benchmarks/config4b_discrete_pc.py's (:31-41)."""
     from pybnesian_tpu_torch.data import Column, DataFrame
 
     rng = np.random.default_rng(seed)
     cols = []
     prev = rng.integers(0, 3, n)
     for i in range(d):
-        flip = rng.random(n) < 0.3
+        flip = rng.random(n) < fresh
         cur = np.where(flip, rng.integers(0, 3, n), prev)
         cols.append(Column(f"v{i}", cur.astype(np.int32), ("x", "y", "z")))
         prev = cur
@@ -1679,6 +1731,533 @@ def phase_discrete(torch):
     discrete_search_grid()
 
 
+# ---------------------------------------------------------------- phase 11
+def hybrid_data(n, seed, dtype=np.float32, d=8, categories=3):
+    """config3b's chain (benchmarks/config3b_logl_evals.py:34-49) with two
+    categorical columns, d0 and d1, of ``categories`` uniform categories
+    each: every continuous node's mean shifts with d0, the even nodes' also
+    with d1. A port DataFrame, continuous columns in ``dtype``."""
+    from pybnesian_tpu_torch.data import Column, DataFrame
+
+    rng = np.random.default_rng(seed)
+    codes = [rng.integers(0, categories, n) for _ in range(2)]
+    shifts = [np.linspace(-1.5, 1.5, categories),
+              np.linspace(1.0, -1.0, categories)]
+    cols = []
+    prev = rng.normal(0, 1, n)
+    for i in range(d):
+        if i:
+            prev = np.sin(0.8 * prev) + 0.5 * prev + rng.normal(0, 0.6, n)
+        prev = prev + shifts[0][codes[0]]
+        if i % 2 == 0:
+            prev = prev + shifts[1][codes[1]]
+        cols.append(Column(f"x{i}", prev.astype(dtype)))
+    values = tuple(f"k{c}" for c in range(categories))
+    cols += [Column(f"d{j}", c.astype(np.int32), values)
+             for j, c in enumerate(codes)]
+    return DataFrame(cols)
+
+
+def launches_since(before):
+    return {k: v - before[k] for k, v in read_counts().items()}
+
+
+class Recording:
+    """From :meth:`start` to :meth:`stop`, every launch of the two KDE
+    kernels through ``ops/kde.py`` (where the port calls both wrappers) is
+    recorded as it passes: per kernel, how many launches it made, and a
+    copy of the first launch's arguments of each shape of arguments.
+    The copies are made on the card's stream, once per new shape. A path
+    runs between the two calls; a phase that fails ends the script, so
+    nothing restores the wrappers then."""
+
+    NAMES = ("ckde_cv_pairs", "kde_logl")
+
+    def __init__(self):
+        self.launches = dict.fromkeys(self.NAMES, 0)
+        self.first = {n: {} for n in self.NAMES}
+
+    def start(self):
+        from pybnesian_tpu_torch.ops import kde as kde_ops
+
+        self._ops = kde_ops
+        self._wrappers = {n: getattr(kde_ops, n) for n in self.NAMES}
+        for name, wrapper in self._wrappers.items():
+            setattr(kde_ops, name, self._recording(name, wrapper))
+        return self
+
+    def stop(self):
+        """Restores the wrappers; returns the launch counts read now."""
+        for name, wrapper in self._wrappers.items():
+            setattr(self._ops, name, wrapper)
+        return read_counts()
+
+    def _recording(self, name, wrapper):
+        def recording(*args):
+            shape = tuple(tuple(a.shape) for a in args)
+            self.launches[name] += 1
+            if shape not in self.first[name]:
+                self.first[name][shape] = [a.clone() for a in args]
+            return wrapper(*args)
+        return recording
+
+
+def hold_recorded(torch, rec, counted, label, phase):
+    """Each kernel that ``rec`` saw launched, against its plain version on
+    the first launch's inputs of every shape it was launched at.
+    ``counted`` is the path's launch counts over the same calls: every
+    launch the counters saw must have been recorded. Returns each launched
+    kernel's largest error."""
+    compare = {"ckde_cv_pairs": compare_pairs, "kde_logl": compare_kde}
+    for name, n in rec.launches.items():
+        if n != counted[name]:
+            raise AssertionError(f"{label}: {name} counted {counted[name]} "
+                                 f"launches, recorded {n}")
+    errs = {}
+    for name in Recording.NAMES:
+        if not rec.first[name]:
+            continue
+        errs[name] = max(compare[name](torch, args, label, phase=phase,
+                                       quiet=True)["err"]
+                         for args in rec.first[name].values())
+        say(phase, path=label, kernel=name, launches=counted[name],
+            shapes_held=len(rec.first[name]),
+            max_abs_err=f"{errs[name]:.3e}")
+    return errs
+
+
+def as_float64(state):
+    """A network's :func:`interop.network_state` with every CKDE factor,
+    inside hybrid factors and dynamic networks too, set to evaluate in
+    float64: the same fitted model on the plain route."""
+    if "static" in state:
+        return dict(state, static=as_float64(state["static"]),
+                    transition=as_float64(state["transition"]))
+
+    def cpd64(cpd):
+        if cpd is None:
+            return None
+        if "factors" in cpd:
+            return dict(cpd, factors=[cpd64(f) for f in cpd["factors"]])
+        return dict(cpd, dtype="float64") if "dtype" in cpd else cpd
+
+    return dict(state, cpds={n: cpd64(c) for n, c in state["cpds"].items()})
+
+
+def phase_hybrid(torch):
+    """Hybrid networks on config3b's chain with two categorical columns:
+    (a) a fitted SemiparametricBN of 4 HCKDE and 4 CLinearGaussianCPD nodes,
+    ``logl`` and ``slogl`` against float64, each configuration's own CKDE
+    against its HCKDE; (b) ``hc`` on a SemiparametricBN against float64 by
+    the tie rule; (c) a CLGNetwork's fit, slogl and ``hc``. Then both
+    kernels against their plain versions on the inputs that (a) to (c)
+    gave them, at each shape launched. Returns the path's launches and each
+    kernel's largest error."""
+    from pybnesian_tpu_torch import (
+        CKDE, CLGNetwork, CLGNetworkType, CLinearGaussianCPD, DataFrame,
+        DiscreteFactorType, HCKDE, LinearGaussianCPDType, SemiparametricBN,
+        CKDEType, hc, interop)
+
+    train32, test32 = hybrid_data(HC_ROWS, 0), hybrid_data(HC_ROWS, 1)
+    train64 = hybrid_data(HC_ROWS, 0, np.float64)
+    test64 = hybrid_data(HC_ROWS, 1, np.float64)
+    names = [c for c in train32.column_names() if c.startswith("x")]
+    arcs = ([(names[i], names[i + 1]) for i in range(len(names) - 1)]
+            + [("d0", v) for v in names] + [("d1", v) for v in names[0::2]])
+    types = [("d0", DiscreteFactorType()), ("d1", DiscreteFactorType())]
+    types += [(v, CKDEType() if i % 2 == 0 else LinearGaussianCPDType())
+              for i, v in enumerate(names)]
+
+    reset_counts()
+    rec = Recording().start()
+    # (a) the fitted model
+    t0 = time.perf_counter()
+    model = SemiparametricBN(train32.column_names(), arcs, types)
+    model.fit(train32)
+    fit_s = time.perf_counter() - t0
+    hckde = [v for v in names if type(model.cpd(v)) is HCKDE]
+    clg = [v for v in names if type(model.cpd(v)) is CLinearGaussianCPD]
+    configs = sorted({len(model.cpd(v)._factors) for v in hckde}), sorted(
+        {len(model.cpd(v)._factors) for v in clg})
+    if (len(hckde), len(clg), configs) != (4, 4, ([9], [3])):
+        raise AssertionError(f"HCKDE nodes {hckde}, CLG nodes {clg}, "
+                             f"configurations {configs}")
+    before = read_counts()
+    node = model.cpd(hckde[0])
+    one = node.logl(test32)
+    one_hckde = launches_since(before)
+    before = read_counts()
+    logl = model.logl(test32)
+    one_model = launches_since(before)
+    before = read_counts()
+    model.slogl(test32)  # warm
+    elapsed = []
+    for _ in range(MODEL_RUNS):
+        t0 = time.perf_counter()
+        value = model.slogl(test32)
+        elapsed.append(time.perf_counter() - t0)
+    slogl_launches = launches_since(before)
+    rate = train32.num_columns * HC_ROWS / statistics.mean(elapsed)
+    model64 = interop.fitted_network(**as_float64(
+        interop.network_state(model)))
+    logl64 = model64.logl(test64)
+    if not (np.all(np.isfinite(logl)) and np.all(np.isfinite(logl64))):
+        raise AssertionError("hybrid model.logl: non-finite rows")
+    err_model = float(np.max(np.abs(logl - logl64)))
+    before = read_counts()
+    factors = sum(np.asarray(model.cpd(v).logl(test32))
+                  for v in model.nodes())
+    factor_launches = launches_since(before)
+    err_factors = float(np.max(np.abs(factors - logl)))
+    if not (err_model <= ROW_TOL and err_factors <= ROW_TOL):
+        raise AssertionError(f"hybrid model.logl vs float64 {err_model}, "
+                             f"vs Σ cpd.logl {err_factors} > {ROW_TOL}")
+    # each configuration's own CKDE (kernel #2) against the HCKDE's rows
+    # (kernel #1, all configurations in one launch)
+    evidence = node._discrete_evidence
+    codes = {e: test32.col(e).values for e in evidence}
+    err_configs, before = 0.0, read_counts()
+    for c in range(len(node._factors)):
+        assignment = node._assignment_from_config(c)
+        rows = np.flatnonzero(np.logical_and.reduce([
+            codes[e] == node._discrete_values[e].index(assignment.value(e))
+            for e in evidence]))
+        sub = node.conditional_factor(assignment)
+        if type(sub) is not CKDE:
+            raise AssertionError(f"configuration {c}: {type(sub).__name__}")
+        got = np.asarray(sub.logl(test32.take(rows)))
+        err_configs = max(err_configs, float(np.max(np.abs(got - one[rows]))))
+    config_launches = launches_since(before)
+    if not err_configs <= ROW_TOL:
+        raise AssertionError(f"configurations' CKDE.logl vs HCKDE.logl: "
+                             f"{err_configs} > {ROW_TOL}")
+    say("11 hybrid", network="SemiparametricBN", rows=HC_ROWS,
+        columns=train32.num_columns, hckde=repr(hckde), clg=repr(clg),
+        hckde_configurations=9, clg_configurations=3, fit_s=f"{fit_s:.4f}",
+        slogl_s=repr([round(t, 6) for t in elapsed]),
+        factor_row_evals_per_s=f"{rate:.2f}", slogl=f"{value:.6f}",
+        slogl_f64=f"{model64.slogl(test64):.6f}",
+        logl_max_abs_vs_f64=f"{err_model:.3e}",
+        factors_vs_model_max_abs=f"{err_factors:.3e}",
+        configurations_vs_hckde_max_abs=f"{err_configs:.3e}",
+        launches_one_hckde_logl=one_hckde, launches_one_model_logl=one_model,
+        launches_slogl_calls=MODEL_RUNS + 1, launches_slogl=slogl_launches,
+        launches_cpd_logl_sum=factor_launches,
+        launches_configurations=config_launches)
+
+    # (b) hc on a SemiparametricBN over the 10 columns
+    before = read_counts()
+    run32 = learn(torch, train32)
+    hc_launches = launches_since(before)
+    run64 = learn(torch, train64)
+    learned, score, recorder, wall = run32
+    dag_order(learned.nodes(), learned.arcs())
+    if not recorder.iterations < HC_MAX_ITERS:
+        raise AssertionError(f"hybrid hc ran to max_iters ({HC_MAX_ITERS})")
+    compared = compare_runs(run32, run64, "11 hybrid")
+    arcs32, types32 = graph_of(learned)
+    say("11 hybrid", hc="SemiparametricBNType", score="validated-lik",
+        wall_s=f"{wall:.4f}", iterations=recorder.iterations,
+        families_scored=score.families, launches=hc_launches,
+        f64_wall_s=f"{run64[3]:.4f}", f64_iterations=run64[2].iterations,
+        **compared)
+    say("11 hybrid", arcs=repr(arcs32), ckde=repr(sorted(
+        n for n, t in types32.items() if t == "CKDEFactor")))
+
+    # (c) the CLG network: fit, slogl, hc
+    before = read_counts()
+    clgnet = CLGNetwork(train32.column_names(), arcs)
+    clgnet.fit(train32)
+    clg_logl = clgnet.logl(test32)
+    clgnet64 = CLGNetwork(train64.column_names(), arcs)
+    clgnet64.fit(train64)
+    err_clg = float(np.max(np.abs(clg_logl - clgnet64.logl(test64))))
+    if not (np.all(np.isfinite(clg_logl)) and err_clg <= ROW_TOL):
+        raise AssertionError(f"CLGNetwork.logl vs float64: {err_clg}")
+
+    def clg_search(frame):
+        def search(score, recorder):
+            return hc(frame, bn_type=CLGNetworkType(), score=score,
+                      callback=recorder, seed=0, patience=HC_PATIENCE,
+                      max_iters=HC_MAX_ITERS)
+        return search
+
+    # no float64 run: a CLG search launches no kernel, and its linear-
+    # Gaussian scores are float64 on both dtypes' routes
+    clg32 = learn(torch, train32, clg_search(train32))
+    clg_launches = launches_since(before)
+    dag_order(clg32[0].nodes(), clg32[0].arcs())
+    if not clg32[2].iterations < HC_MAX_ITERS:
+        raise AssertionError(f"CLG hc ran to max_iters ({HC_MAX_ITERS})")
+    say("11 hybrid", network="CLGNetwork", slogl=f"{clgnet.slogl(test32):.6f}",
+        logl_max_abs_vs_f64=f"{err_clg:.3e}", hc_wall_s=f"{clg32[3]:.4f}",
+        hc_iterations=clg32[2].iterations, hc_arcs=clg32[0].num_arcs(),
+        launches=clg_launches)
+    launches = rec.stop()
+    for name in ("ckde_cv_pairs", "kde_logl"):
+        if launches[name] == 0:
+            raise AssertionError(f"the hybrid path did not launch {name}")
+    say("11 hybrid", launches=launches)
+    # both kernels on the inputs this path built, at each of its shapes
+    return launches, hold_recorded(torch, rec, launches, "hybrid",
+                                   "11 hybrid kernel")
+
+
+# ---------------------------------------------------------------- phase 12
+def dynamic_data(n, seed, dtype=np.float32, d=DYNAMIC_VARIABLES):
+    """An AR(2) series of ``d`` variables with cross-lags: each variable
+    leans on its own two lags and, through config3b's sine, on the
+    previous variable's first lag. A port DataFrame in ``dtype``."""
+    from pybnesian_tpu_torch import DataFrame
+
+    rng = np.random.default_rng(seed)
+    eps = rng.normal(0, 0.5, (n, d))
+    x = np.zeros((n, d))
+    for t in range(2, n):
+        x[t] = 0.5 * x[t - 1] - 0.3 * x[t - 2] + eps[t]
+        x[t, 1:] += np.sin(0.8 * x[t - 1, :-1])
+    return DataFrame.wrap({f"y{j}": x[:, j].astype(dtype) for j in range(d)})
+
+
+def phase_dynamic(torch):
+    """Dynamic networks on an AR(2) series: a DynamicSemiparametricBN with
+    CKDE nodes in both networks (fit, logl, slogl against float64, sample)
+    and DMMHC with a DynamicValidatedLikelihood. Then both kernels against
+    their plain versions on the inputs that these calls gave them, at each
+    shape launched. Returns the path's launches and each kernel's largest
+    error."""
+    from pybnesian_tpu_torch import (
+        DMMHC, CKDEType, DynamicDataFrame, DynamicLinearCorrelation,
+        DynamicSemiparametricBN, DynamicValidatedLikelihood,
+        SemiparametricBNType, interop)
+
+    m = DYNAMIC_ORDER
+    train32, test32 = dynamic_data(HC_ROWS, 0), dynamic_data(HC_ROWS, 1)
+    test64 = dynamic_data(HC_ROWS, 1, np.float64)
+    names = train32.column_names()
+
+    def lag(v, k):
+        return f"{v}_t_{k}"
+
+    reset_counts()
+    rec = Recording().start()
+    t0 = time.perf_counter()
+    dbn = DynamicSemiparametricBN(names, m)
+    static, trans = dbn.static_bn(), dbn.transition_bn()
+    for j, v in enumerate(names):
+        trans.add_arc(lag(v, 1), lag(v, 0))
+        trans.add_arc(lag(v, 2), lag(v, 0))
+        static.add_arc(lag(v, 2), lag(v, 1))
+        if j:
+            trans.add_arc(lag(names[j - 1], 1), lag(v, 0))
+            static.add_arc(lag(names[j - 1], 2), lag(v, 1))
+        if j % 2 == 0:
+            trans.set_node_type(lag(v, 0), CKDEType())
+            static.set_node_type(lag(v, 1), CKDEType())
+    dbn.fit(train32)
+    fit_s = time.perf_counter() - t0
+    before = read_counts()
+    t0 = time.perf_counter()
+    logl = dbn.logl(test32)
+    logl_s = time.perf_counter() - t0
+    one_logl = launches_since(before)
+    slogl = dbn.slogl(test32)
+    dbn64 = interop.fitted_network(**as_float64(interop.network_state(dbn)))
+    logl64 = dbn64.logl(test64)
+    if not (np.all(np.isfinite(logl)) and np.all(np.isfinite(logl64))):
+        raise AssertionError("dynamic logl: non-finite rows")
+    err = float(np.max(np.abs(logl - logl64)))
+    if not err <= ROW_TOL:
+        raise AssertionError(f"dynamic logl vs float64: {err} > {ROW_TOL}")
+    t0 = time.perf_counter()
+    sample = dbn.sample(DYNAMIC_SAMPLE_ROWS, seed=0).to_pandas()
+    sample_s = time.perf_counter() - t0
+    if sample.shape != (DYNAMIC_SAMPLE_ROWS, len(names)) or not np.all(
+            np.isfinite(sample.to_numpy())):
+        raise AssertionError("dynamic sample: wrong shape or non-finite")
+    say("12 dynamic", network="DynamicSemiparametricBN", rows=HC_ROWS,
+        variables=len(names), markovian_order=m,
+        ckde_transition=sum(trans.node_type(n) == CKDEType()
+                            for n in trans.nodes()),
+        fit_s=f"{fit_s:.4f}", logl_s=f"{logl_s:.4f}", slogl=f"{slogl:.6f}",
+        slogl_f64=f"{dbn64.slogl(test64):.6f}",
+        logl_max_abs_vs_f64=f"{err:.3e}", launches_one_logl=one_logl,
+        smoke_sample_rows=len(sample), smoke_sample_s=f"{sample_s:.4f}")
+
+    before = read_counts()
+    ddf = DynamicDataFrame(train32, m)
+    t0 = time.perf_counter()
+    learned = DMMHC().estimate(
+        DynamicLinearCorrelation(ddf), bn_type=SemiparametricBNType(),
+        score=DynamicValidatedLikelihood(ddf, seed=0), markovian_order=m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dmmhc_launches = launches_since(before)
+    for net in (learned.static_bn(), learned.transition_bn()):
+        dag_order(net.nodes() + list(getattr(net, "interface_nodes",
+                                             lambda: [])()), net.arcs())
+    if dmmhc_launches["ckde_cv_pairs"] == 0:
+        raise AssertionError("DMMHC did not launch ckde_cv_pairs")
+    say("12 dynamic", dmmhc_wall_s=f"{wall:.4f}",
+        static_arcs=repr(sorted(learned.static_bn().arcs())),
+        transition_arcs=repr(sorted(learned.transition_bn().arcs())),
+        ckde=repr(sorted(n for n in learned.transition_bn().nodes()
+                         if learned.transition_bn().node_type(n)
+                         == CKDEType())),
+        launches=dmmhc_launches)
+    launches = rec.stop()
+    say("12 dynamic", launches=launches)
+    return launches, hold_recorded(torch, rec, launches, "dynamic",
+                                   "12 dynamic kernel")
+
+
+# ---------------------------------------------------------------- phase 13
+def config4_data(n=PC_ROWS, d=PC_NODES, seed=0):
+    """benchmarks/config4_pc.py's data (:33-45): a chain of Gaussian
+    columns, each leaning on the one before it with probability 0.6 and
+    on the one before that with probability 0.3. A dict of float64
+    columns."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    order = [f"v{i}" for i in range(d)]
+    for i, name in enumerate(order):
+        base = rng.normal(0, 1, n)
+        if i >= 1 and rng.random() < 0.6:
+            base += 0.8 * cols[order[i - 1]]
+        if i >= 2 and rng.random() < 0.3:
+            base += 0.5 * cols[order[i - 2]]
+        cols[name] = base
+    return cols
+
+
+class CountingTest:
+    """An independence test that counts its p-values. It has ``pvalue``
+    alone, so PC tests one at a time
+    (benchmarks/config4b_discrete_pc.py ``_Counting(batched=False)``)."""
+
+    def __init__(self, inner):
+        self.inner, self.count = inner, 0
+
+    def pvalue(self, x, y, *z):
+        self.count += 1
+        return self.inner.pvalue(x, y, *z)
+
+    def variable_names(self):
+        return self.inner.variable_names()
+
+    def num_variables(self):
+        return self.inner.num_variables()
+
+    def name(self, i):
+        return self.inner.name(i)
+
+    def has_variables(self, v):
+        return self.inner.has_variables(v)
+
+
+class BatchedCountingTest(CountingTest):
+    """A :class:`CountingTest` with ``pvalue_batch`` on the class, as
+    config4's ``_CountingTest`` has it (benchmarks/config4_pc.py:49-70), so
+    that PC takes the batched route it takes for the test itself."""
+
+    def pvalue_batch(self, triples):
+        triples = list(triples)
+        self.count += len(triples)
+        return self.inner.pvalue_batch(triples)
+
+
+def pc_run(test, batched):
+    """PC as config4's ``bench_ours`` calls it (benchmarks/config4_pc.py:
+    73-81), or one test at a time: (pdag, tests, seconds)."""
+    from pybnesian_tpu_torch import PC
+    from pybnesian_tpu_torch.learning.algorithms.pc import _has_real_batch
+
+    counting = (BatchedCountingTest if batched else CountingTest)(test)
+    # the batched run takes the route PC takes for ``test`` itself
+    if _has_real_batch(counting) != (batched and _has_real_batch(test)):
+        raise AssertionError(f"PC takes the wrong route (batched={batched})")
+    t0 = time.perf_counter()
+    pdag = PC().estimate(counting, alpha=0.05)
+    return pdag, counting.count, time.perf_counter() - t0
+
+
+def pdag_of(pdag):
+    return (sorted(pdag.arcs()),
+            sorted(tuple(sorted(e)) for e in pdag.edges()))
+
+
+def phase_constraint(torch):
+    """The constraint-based learners: PC over LinearCorrelation on
+    config4's data and over ChiSquare on config4b's, each as the user calls
+    it, batched with a counter and one test at a time (the same PDAG);
+    MMHC on a SemiparametricBN over phase 8's frame, float32 against
+    float64 by the tie rule, then both kernels against their plain
+    versions on the inputs that MMHC gave them, at each shape launched.
+    Returns the path's launches and each kernel's largest error."""
+    from pybnesian_tpu_torch import (
+        MMHC, PC, ChiSquare, DataFrame, LinearCorrelation,
+        SemiparametricBNType)
+
+    reset_counts()
+    rec = Recording().start()
+    for label, make in (
+            ("LinearCorrelation", lambda: LinearCorrelation(config4_data())),
+            ("ChiSquare", lambda: ChiSquare(discrete_data(
+                CHI_ROWS, CHI_NODES, fresh=0.35)))):
+        t0 = time.perf_counter()
+        test = make()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        direct = PC().estimate(test, alpha=0.05)
+        direct_s = time.perf_counter() - t0
+        pdag, tests, seconds = pc_run(test, batched=True)
+        serial, serial_tests, serial_s = pc_run(test, batched=False)
+        if not pdag_of(direct) == pdag_of(pdag) == pdag_of(serial):
+            raise AssertionError(f"PC over {label}: the direct, batched and "
+                                 "one-at-a-time runs learned different "
+                                 "PDAGs")
+        say("13 constraint", pc=label, nodes=test.num_variables(),
+            rows=test.df.num_rows, setup_s=f"{setup_s:.4f}",
+            direct_pc_s=f"{direct_s:.4f}", tests=tests,
+            pc_s=f"{seconds:.4f}", tests_per_s=f"{tests / seconds:.1f}",
+            serial_tests=serial_tests, serial_pc_s=f"{serial_s:.4f}",
+            serial_tests_per_s=f"{serial_tests / serial_s:.1f}",
+            arcs=pdag.num_arcs(), edges=pdag.num_edges(), same_pdag=True)
+
+    data = config3b_data(HC_ROWS, seed=2)
+    frames = {"float32": DataFrame.wrap(data), "float64": DataFrame.wrap(
+        {k: v.astype(np.float64) for k, v in data.items()})}
+
+    def mmhc(frame):
+        def search(score, recorder):
+            return MMHC().estimate(
+                LinearCorrelation(frame), bn_type=SemiparametricBNType(),
+                score=score, callback=recorder, max_iters=HC_MAX_ITERS)
+        return search
+
+    before = read_counts()
+    run32 = learn(torch, frames["float32"], mmhc(frames["float32"]))
+    mmhc_launches = launches_since(before)
+    run64 = learn(torch, frames["float64"], mmhc(frames["float64"]))
+    model, score, recorder, wall = run32
+    dag_order(model.nodes(), model.arcs())
+    for name in ("ckde_cv_pairs", "kde_logl"):
+        if mmhc_launches[name] == 0:
+            raise AssertionError(f"MMHC did not launch {name}")
+    arcs, types = graph_of(model)
+    say("13 constraint", mmhc="SemiparametricBNType", score="validated-lik",
+        rows=HC_ROWS, wall_s=f"{wall:.4f}", iterations=recorder.iterations,
+        families_scored=score.families, launches=mmhc_launches,
+        f64_wall_s=f"{run64[3]:.4f}",
+        **compare_runs(run32, run64, "13 constraint"))
+    say("13 constraint", arcs=repr(arcs), ckde=repr(sorted(
+        n for n, t in types.items() if t == "CKDEFactor")))
+    launches = rec.stop()
+    say("13 constraint", launches=launches)
+    return launches, hold_recorded(torch, rec, launches, "constraint",
+                                   "13 constraint kernel")
+
+
 def main():
     import torch
 
@@ -1706,16 +2285,28 @@ def main():
     hc_launches, hc_errs = phase_hc(torch)
     ucv_launches, ucv_err = phase_ucv(torch, frame32, frame64, k)
     phase_discrete(torch)
+    t_new = time.perf_counter()
+    hybrid_launches, hybrid_errs = phase_hybrid(torch)
+    dynamic_launches, dynamic_errs = phase_dynamic(torch)
+    constraint_launches, constraint_errs = phase_constraint(torch)
+    say("11-13", wall_s=f"{time.perf_counter() - t_new:.1f}")
     paths = {"cv": cv_launches, "probe": probe_launches,
              "model": model_launches, "hc": hc_launches,
-             "ucv": ucv_launches}
+             "ucv": ucv_launches, "hybrid": hybrid_launches,
+             "dynamic": dynamic_launches, "constraint": constraint_launches}
     for name in ("ckde_cv_pairs", "kde_logl"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
+    # every launch of paths 11-13 was held at its shape (hold_recorded)
+    new_errs = (hybrid_errs, dynamic_errs, constraint_errs)
     pairs = dict(pairs_cases["main-path-inputs"],
                  err=max([c["err"] for c in pairs_cases.values()]
-                         + [hc_errs["ckde_cv_pairs"], ucv_err]))
-    kde = dict(kde, err=max(kde["err"], hc_errs["kde_logl"]))
+                         + [hc_errs["ckde_cv_pairs"], ucv_err]
+                         + [e["ckde_cv_pairs"] for e in new_errs
+                            if "ckde_cv_pairs" in e]))
+    kde = dict(kde, err=max([kde["err"], hc_errs["kde_logl"]]
+                            + [e["kde_logl"] for e in new_errs
+                               if "kde_logl" in e]))
     results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe}
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -8,6 +8,7 @@ from .base import (
     UnknownFactorType,
 )
 from .discrete import DiscreteFactor, DiscreteFactorType
+from .hybrid import CLinearGaussianCPD, CLinearGaussianCPDType, HCKDE, HCKDEType
 from .lineargaussian import LinearGaussianCPD, LinearGaussianCPDType
 
 __all__ = [
@@ -22,4 +23,8 @@ __all__ = [
     "LinearGaussianCPDType",
     "DiscreteFactor",
     "DiscreteFactorType",
+    "CLinearGaussianCPD",
+    "CLinearGaussianCPDType",
+    "HCKDE",
+    "HCKDEType",
 ]

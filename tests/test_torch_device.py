@@ -100,3 +100,57 @@ def test_scores_take_their_device_into_the_factor_routes(no_gpu):
     learned = pt.hc(cols, bn_type=pt.SemiparametricBNType(), score=score,
                     max_iters=2)
     assert learned.num_nodes() == 2
+
+
+def _mixed(n=150, seed=0):
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    a = pd.Categorical(rng.choice(["u", "v"], n))
+    x = rng.normal(np.asarray(a.codes), 1.0, n)
+    return pd.DataFrame({"a": a, "x": x, "y": x + rng.normal(0, 0.5, n)})
+
+
+def test_hckde_logl_raises_without_a_choice(no_gpu):
+    df = _mixed()
+    cpd = pt.HCKDE("y", ["x", "a"])
+    cpd.fit(df)
+    with pytest.raises(RuntimeError, match="none is visible"):
+        cpd.logl(df)
+    with pt.use_device("cpu"):
+        assert np.all(np.isfinite(cpd.logl(df)))
+
+
+def test_dynamic_logl_raises_without_a_choice(no_gpu):
+    cols = _cols()
+    dbn = pt.DynamicSemiparametricBN(["x", "y"], 1)
+    dbn.transition_bn().set_node_type("y_t_0", pt.CKDEType())
+    dbn.transition_bn().add_arc("x_t_1", "y_t_0")
+    dbn.fit(cols)
+    with pytest.raises(RuntimeError, match="none is visible"):
+        dbn.logl(cols)
+    with pt.use_device("cpu"):
+        assert np.all(np.isfinite(dbn.logl(cols)))
+
+
+@pytest.mark.parametrize("entry", [
+    lambda df: pt.hc(df, bn_type=pt.CLGNetworkType(), score="validated-lik"),
+    lambda df: pt.MMHC().estimate(pt.MutualInformation(df),
+                                  bn_type=pt.SemiparametricBNType(),
+                                  score="validated-lik"),
+    lambda df: pt.DMMHC().estimate(
+        pt.DynamicLinearCorrelation(pt.DynamicDataFrame(df[["x", "y"]], 1)),
+        bn_type=pt.GaussianNetworkType(), markovian_order=1),
+])
+def test_score_based_learners_raise_without_a_choice(no_gpu, entry):
+    with pytest.raises(RuntimeError, match="none is visible"):
+        entry(_mixed())
+
+
+def test_constraint_searches_stay_on_the_host(no_gpu):
+    """PC and MMPC over the host tests hold no tensor, as in the JAX
+    package: they need no device choice."""
+    df = _mixed(300)
+    pdag = pt.PC().estimate(pt.MutualInformation(df), alpha=0.05)
+    assert pdag.num_nodes() == 3
+    assert pt.MMPC().estimate(pt.MutualInformation(df)).num_nodes() == 3
