@@ -121,13 +121,39 @@ the script exits non-zero and prints no result:
    the same PDAG: tests, tests/s, arcs and edges; MMHC on a
    SemiparametricBN over phase 8's frame with the validated likelihood,
    against float64 by the tie rule, then both kernels against their plain
-   versions on the inputs that MMHC gave them, at each shape launched.
+   versions on the inputs that MMHC gave them, at each shape launched;
+14. the last two independence tests: (a) one ``pair_stats`` batch and one
+   ``fused_z`` batch of each z size 1, 2 and 4 on config4's data (100,000
+   rows, the batched path's lane count), float32 on the card against the
+   same draws of the first :data:`RCOT_CPU_LANES` lanes through the same
+   functions in float64 on the CPU (the
+   statistic's relative and the p-value's absolute error, at
+   :data:`RCOT_STAT_RTOL` and :data:`RCOT_PVALUE_ATOL`), with how many lanes
+   a float32 conditioning solve would lose to NaN; (b) PC over
+   ``RCoT(df, seed=0)`` on all of config 4 (50 nodes), warmed up as
+   ``bench_rcot`` does, through the batched counter, twice: tests, tests/s,
+   every p-value in [0, 1], the same PDAG; (c) PC over
+   ``KMutualInformation(k=10, seed=0, samples=1000)`` on config4's first
+   2,000 rows × 6 columns, batched and one test at a time: the same PDAG and
+   p-values; (d) MMHC over RCoT on a SemiparametricBN over phase 8's frame,
+   against float64 by the tie rule, both kernels held at every shape it
+   launched them at (path ``independence``);
+15. posterior inference at config 5 (benchmarks/config5_inference.py: a
+   CLGNetwork A -> X -> Y over 2,000 rows, float64): the log-density and
+   its gradient on the card against the CPU at the init and 16 seeded
+   points (:data:`LOGDENSITY_RTOL`), the CUDA-graph replay of the gradient
+   against the eager one, and both timed; ``nuts`` (one chain, 300
+   samples, 200 warmup, max_depth 6: samples/s, mean leapfrogs, accept
+   rate); ``sample_chains`` with four NUTS chains (R-hat and ESS printed,
+   Y's slope within :data:`SLOPE_ATOL` of its MLE); ``hmc``, ``smc`` and
+   ``advi`` (finite, ADVI's mean within :data:`ADVI_ATOL` of NUTS's on the
+   continuous blocks).
 
 A kernel's time (``ms``) is the median of CUDA-event windows of one
 launch each; ``batched_ms`` is the median per launch of windows of
 :data:`KERNEL_BATCH` back-to-back launches, in which the card runs one
 launch while the host issues the next, so that it holds no launch
-latency. Each path (4, 6, 7, 8, 9, 11, 12, 13) runs with every launch count
+latency. Each path (4, 6, 7, 8, 9, 11, 12, 13, 14) runs with every launch count
 set to 0 just before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
 version's time and its bound comes two lines before the last, then the
@@ -191,6 +217,34 @@ PC_NODES = 50          # benchmarks/config4_pc.py: 50 nodes,
 PC_ROWS = 100_000      # 100,000 rows
 CHI_NODES = 25         # benchmarks/config4b_discrete_pc.py: 25 nodes,
 CHI_ROWS = 50_000      # 50,000 rows, cardinality 3
+RCOT_Z_SIZES = (1, 2, 4)  # phase 14 (a): fused_z batches (z size 0 is
+                          # pair_stats)
+RCOT_CPU_LANES = 8        # lanes of each batch also run on the CPU in float64
+RCOT_STAT_RTOL = 1e-3     # the card's float32 features (float64 algebra)
+RCOT_PVALUE_ATOL = 1e-3   # against float64 on the CPU, the same draws; an
+                          # H100 gave at most 2.037e-04 and 4.327e-05
+                          # (PERF.md, section 6)
+KMI_ROWS = 2_000       # phase 14 (c): config4's first 2,000 rows
+KMI_COLUMNS = 6        # and 6 columns
+KMI_K = 10
+KMI_SAMPLES = 1000
+CONFIG5_ROWS = 2_000   # benchmarks/config5_inference.py: 2,000 rows,
+NUTS_SAMPLES = 300     # 300 samples after
+NUTS_WARMUP = 200      # 200 warmup steps,
+NUTS_DEPTH = 6         # max_depth 6
+LOGDENSITY_POINTS = 16
+LOGDENSITY_RTOL = 1e-9  # float64 log-density and gradient, card vs CPU
+CHAINS = 4
+CHAIN_SAMPLES = 300
+CHAIN_WARMUP = 200
+RHAT_TARGET = 1.05     # split R-hat of the continuous parameters: printed,
+                       # not a gate (the sampler is the reference's, whose
+                       # chains do not reach it at these sizes; PERF.md)
+SLOPE_ATOL = 0.05      # Y's posterior slope against its MLE
+SMC_PARTICLES = 256    # tests/inference/test_config5_e2e.py's SMC
+SMC_STEPS = 10
+ADVI_STEPS = 1000
+ADVI_ATOL = 0.1        # ADVI's mean against NUTS's, continuous blocks
 GRID_FAMILIES = (8, 64, 380)
 GRID_ROWS = (10_000, 100_000, 1_000_000)
 SEARCH_GRID_ROWS = (10_000, 30_000, 60_000, 100_000, 1_000_000)
@@ -2137,10 +2191,13 @@ class CountingTest:
 
     def __init__(self, inner):
         self.inner, self.count = inner, 0
+        self.pvalues = {}  # (x, y, z) -> the p-value returned
 
     def pvalue(self, x, y, *z):
         self.count += 1
-        return self.inner.pvalue(x, y, *z)
+        p = self.inner.pvalue(x, y, *z)
+        self.pvalues[(x, y, tuple(z))] = p
+        return p
 
     def variable_names(self):
         return self.inner.variable_names()
@@ -2163,12 +2220,15 @@ class BatchedCountingTest(CountingTest):
     def pvalue_batch(self, triples):
         triples = list(triples)
         self.count += len(triples)
-        return self.inner.pvalue_batch(triples)
+        out = self.inner.pvalue_batch(triples)
+        self.pvalues.update(((x, y, tuple(z)), p)
+                            for (x, y, z), p in zip(triples, out))
+        return out
 
 
 def pc_run(test, batched):
     """PC as config4's ``bench_ours`` calls it (benchmarks/config4_pc.py:
-    73-81), or one test at a time: (pdag, tests, seconds)."""
+    73-81), or one test at a time: (pdag, the counting test, seconds)."""
     from pybnesian_tpu_torch import PC
     from pybnesian_tpu_torch.learning.algorithms.pc import _has_real_batch
 
@@ -2178,7 +2238,7 @@ def pc_run(test, batched):
         raise AssertionError(f"PC takes the wrong route (batched={batched})")
     t0 = time.perf_counter()
     pdag = PC().estimate(counting, alpha=0.05)
-    return pdag, counting.count, time.perf_counter() - t0
+    return pdag, counting, time.perf_counter() - t0
 
 
 def pdag_of(pdag):
@@ -2210,8 +2270,9 @@ def phase_constraint(torch):
         t0 = time.perf_counter()
         direct = PC().estimate(test, alpha=0.05)
         direct_s = time.perf_counter() - t0
-        pdag, tests, seconds = pc_run(test, batched=True)
-        serial, serial_tests, serial_s = pc_run(test, batched=False)
+        pdag, counted, seconds = pc_run(test, batched=True)
+        serial, serial_counted, serial_s = pc_run(test, batched=False)
+        tests, serial_tests = counted.count, serial_counted.count
         if not pdag_of(direct) == pdag_of(pdag) == pdag_of(serial):
             raise AssertionError(f"PC over {label}: the direct, batched and "
                                  "one-at-a-time runs learned different "
@@ -2258,6 +2319,416 @@ def phase_constraint(torch):
                                    "13 constraint kernel")
 
 
+# ---------------------------------------------------------------- phase 14
+def rcot_batch_args(test, size, seed):
+    """One batch of ``test``'s (an RCoT over config4's data) lane count
+    for tests conditioned on ``size`` columns: lane j tests v_j against
+    v_{j+1} given the next ``size`` columns. The draws follow the batched
+    path's rule (W scaled by each column's median-heuristic width, float32)
+    from ``default_rng(seed)``: (host arrays, lanes)."""
+    names = test.variable_names()
+    _, lanes = test._lanes(size)
+    cols = {c: test._full_col(c) for c in names}
+    pos = {c: i for i, c in enumerate(names)}
+    rng = np.random.default_rng(seed)
+    trip = [(names[j % len(names)], names[(j + 1) % len(names)],
+             tuple(names[(j + 2 + i) % len(names)] for i in range(size)))
+            for j in range(lanes)]
+    f = test.num_xy
+
+    def draw(shape, scale):
+        return (rng.standard_normal(shape) / scale).astype(np.float32)
+
+    args = {
+        "xc": np.array([pos[x] for x, _, _ in trip]),
+        "Wx": draw((lanes, f), np.array([test._sigma1(x, cols[x])
+                                          for x, _, _ in trip])[:, None]),
+        "bx": rng.uniform(0, 2 * np.pi, (lanes, f)).astype(np.float32),
+        "yc": np.array([pos[y] for _, y, _ in trip]),
+        "Wy": draw((lanes, f), np.array([test._sigma1(y, cols[y])
+                                          for _, y, _ in trip])[:, None]),
+        "by": rng.uniform(0, 2 * np.pi, (lanes, f)).astype(np.float32),
+    }
+    if size:
+        args["zc"] = np.array([[pos[c] for c in z] for _, _, z in trip])
+        args["Wz"] = draw((lanes, size, test.num_z), np.array([
+            test._sigmaz(z, np.column_stack([cols[c] for c in z]))
+            for _, _, z in trip])[:, None, None])
+        args["bz"] = rng.uniform(0, 2 * np.pi,
+                                 (lanes, test.num_z)).astype(np.float32)
+    return args, lanes
+
+
+def float32_cholesky_nans(torch, data, args):
+    """How many lanes of a ``fused_z`` batch (its tensor arguments
+    ``args`` after ``data``) would get NaN from a float32 conditioning
+    solve, as the reference computes it: czz of the float32 z features
+    plus the ridge, not positive definite."""
+    from pybnesian_tpu_torch.learning.independences import rcot
+    from pybnesian_tpu_torch.ops.linalg import cholesky_or_nan
+
+    zc, Wz, bz = args[-3:]
+    fz = rcot._featk(data, zc, Wz, bz)
+    czz = rcot._cov(fz, fz)
+    eye = torch.eye(czz.shape[-1], dtype=czz.dtype, device=czz.device)
+    L = cholesky_or_nan(czz + rcot._RIDGE * eye)
+    return int(torch.isnan(L).any(-1).any(-1).sum())
+
+
+def rcot_batches(torch, df4):
+    """(a): one ``pair_stats`` batch and one ``fused_z`` batch of each z
+    size on config4's data, on the card in float32 and on the CPU in
+    float64 on the same draws: the statistics' largest relative error and
+    the p-values' largest absolute error, and the card's time per batch."""
+    from pybnesian_tpu_torch import RCoT
+    from pybnesian_tpu_torch.learning.independences.rcot import (
+        fused_z, pair_stats)
+    from pybnesian_tpu_torch.utils.chisquaresum import (
+        chisq_sum_pvalues_batch)
+
+    test = RCoT(df4, seed=0)
+    names = test.variable_names()
+    mat = np.column_stack([test._full_col(c) for c in names])
+    n = len(mat)
+    data = {"cuda": torch.from_numpy(mat.astype(np.float32)).cuda(),
+            "cpu": torch.from_numpy(mat)}
+    for size in (0, *RCOT_Z_SIZES):
+        args, lanes = rcot_batch_args(test, size, seed=size)
+        order = ["xc", "Wx", "bx", "yc", "Wy", "by"] + (
+            ["zc", "Wz", "bz"] if size else [])
+        fn = fused_z if size else pair_stats
+
+        def run(dev, dtype, lanes_run):
+            ts = [torch.from_numpy(args[k][:lanes_run]).to(dev) for k in order]
+            ts = [t if k.endswith("c") else t.to(dtype)
+                  for k, t in zip(order, ts)]
+            sta, eigs = (t.cpu().double().numpy() for t in fn(data[dev], *ts))
+            sta = sta if size else n * sta
+            return ts, sta, chisq_sum_pvalues_batch(
+                eigs, sta, force_hbe=test.num_z == 1 and size > 0)
+
+        ts, s32, p32 = run("cuda", torch.float32, lanes)
+        ms = cuda_median_ms(torch, lambda: fn(data["cuda"], *ts), runs=3)
+        nan32 = float32_cholesky_nans(torch, data["cuda"], ts) if size else 0
+        # a lane's result does not depend on its batch
+        _, s64, p64 = run("cpu", torch.float64, RCOT_CPU_LANES)
+        rel = float(np.max(np.abs(s32[:RCOT_CPU_LANES] - s64) / np.abs(s64)))
+        perr = float(np.max(np.abs(p32[:RCOT_CPU_LANES] - p64)))
+        say("14 independence", batch="pair_stats" if size == 0 else "fused_z",
+            z_size=size, lanes=lanes, rows=n, float32_cholesky_nan_lanes=nan32,
+            card_ms=f"{ms:.3f}",
+            ms_per_test=f"{ms / lanes:.4f}", stat_max_rel_err=f"{rel:.3e}",
+            pvalue_max_abs_err=f"{perr:.3e}")
+        if not (np.all(np.isfinite(s32)) and rel <= RCOT_STAT_RTOL
+                and perr <= RCOT_PVALUE_ATOL):
+            raise AssertionError(
+                f"RCoT batch z={size}: float32 on the card against float64 "
+                f"on the CPU: statistic rel err {rel}, p-value err {perr} "
+                f"(gates {RCOT_STAT_RTOL}, {RCOT_PVALUE_ATOL})")
+
+
+def rcot_pc(df4):
+    """(b): PC over RCoT(df4, seed=0) as config4's ``bench_rcot`` runs it
+    (warm-up batches of z sizes 0, 1, 2, 3 and 5 first), through the
+    batched counter: (pdag, counting test, seconds, warm-up seconds)."""
+    from pybnesian_tpu_torch import RCoT
+
+    test = RCoT(df4, seed=0)
+    names = test.variable_names()
+    t0 = time.perf_counter()
+    for z in ([], ["v2"], ["v2", "v3"], ["v2", "v3", "v4"],
+              ["v2", "v3", "v4", "v5", "v6"]):
+        test.pvalue_batch([(names[0], names[1], tuple(z))])
+    warm = time.perf_counter() - t0
+    pdag, counted, seconds = pc_run(test, batched=True)
+    return pdag, counted, seconds, warm
+
+
+def kmi_pc(df):
+    """(c): PC over KMutualInformation batched and one test at a time: the
+    same PDAG and the same p-value for every test both ran; where two
+    differ, a shuffled estimate must tie the observed one within 1e-12."""
+    from pybnesian_tpu_torch import KMutualInformation
+
+    test = KMutualInformation(df, k=KMI_K, seed=0, samples=KMI_SAMPLES)
+    pdag, batched, b_s = pc_run(test, batched=True)
+    serial_pdag, serial, s_s = pc_run(test, batched=False)
+    if pdag_of(pdag) != pdag_of(serial_pdag):
+        raise AssertionError("PC over KMutualInformation: the batched and "
+                             "one-at-a-time runs learned different PDAGs")
+    common = batched.pvalues.keys() & serial.pvalues.keys()
+    differ = [t for t in common if batched.pvalues[t] != serial.pvalues[t]]
+    for x, y, z in differ:
+        draws, dz = test._draws(x, z)
+        ys = test._ranked[:, test._pos[y]]
+        vals = test._estimates(draws[None], ys[None],
+                               None if dz is None else dz[None])[0]
+        gap = float(np.min(np.abs(vals[1:] - vals[0])))
+        say("14 independence", kmi_differs=repr((x, y, z)),
+            batched=batched.pvalues[(x, y, z)],
+            serial=serial.pvalues[(x, y, z)], closest_tie=f"{gap:.3e}")
+        if gap > 1e-12:
+            raise AssertionError(f"KMutualInformation {(x, y, z)}: batched "
+                                 "and serial p-values differ with no tie")
+    say("14 independence", pc="KMutualInformation", rows=test.df.num_rows,
+        columns=test.num_variables(), k=KMI_K, samples=KMI_SAMPLES,
+        tests=batched.count, pc_s=f"{b_s:.4f}",
+        tests_per_s=f"{batched.count / b_s:.2f}", serial_tests=serial.count,
+        serial_pc_s=f"{s_s:.4f}",
+        serial_tests_per_s=f"{serial.count / s_s:.2f}",
+        tests_in_both=len(common), pvalues_differ=len(differ),
+        arcs=pdag.num_arcs(), edges=pdag.num_edges(), same_pdag=True)
+
+
+def phase_independence(torch):
+    """The last two independence tests: (a) RCoT's batched algebra on
+    config4's data, float32 on the card against float64 on the CPU; (b) PC
+    over RCoT on all of config 4, twice with one seed; (c) PC over
+    KMutualInformation on config4's first columns and rows, batched
+    against one test at a time; (d) MMHC over RCoT on a SemiparametricBN
+    over phase 8's frame, float32 against float64 by the tie rule, then
+    both kernels against their plain versions on the inputs that MMHC gave
+    them. Returns (d)'s launches and each kernel's largest error."""
+    from pybnesian_tpu_torch import MMHC, RCoT, DataFrame, SemiparametricBNType
+
+    t_phase = time.perf_counter()
+    df4 = config4_data()
+    rcot_batches(torch, df4)
+
+    runs = [rcot_pc(df4) for _ in range(2)]
+    (pdag, counted, seconds, warm), (again, *_) = runs
+    pvals = np.array(list(counted.pvalues.values()))
+    if not np.all((pvals >= 0) & (pvals <= 1)):
+        raise AssertionError("PC over RCoT: a p-value outside [0, 1]")
+    if pdag_of(pdag) != pdag_of(again):
+        raise AssertionError("PC over RCoT: two runs with seed 0 learned "
+                             "different PDAGs")
+    say("14 independence", pc="RCoT", nodes=PC_NODES, rows=PC_ROWS,
+        warmup_s=f"{warm:.4f}", tests=counted.count, pc_s=f"{seconds:.4f}",
+        tests_per_s=f"{counted.count / seconds:.1f}",
+        second_run_pc_s=f"{runs[1][2]:.4f}",
+        second_run_tests_per_s=f"{runs[1][1].count / runs[1][2]:.1f}",
+        pvalues_in_unit_interval=True, arcs=pdag.num_arcs(),
+        edges=pdag.num_edges(), same_pdag_twice=True)
+
+    kmi_pc({c: v[:KMI_ROWS] for c, v in list(df4.items())[:KMI_COLUMNS]})
+
+    data = config3b_data(HC_ROWS, seed=2)
+    frames = {"float32": DataFrame.wrap(data), "float64": DataFrame.wrap(
+        {k: v.astype(np.float64) for k, v in data.items()})}
+
+    def mmhc(frame):
+        def search(score, recorder):
+            return MMHC().estimate(
+                RCoT(frame, seed=0), bn_type=SemiparametricBNType(),
+                score=score, callback=recorder, max_iters=HC_MAX_ITERS)
+        return search
+
+    reset_counts()
+    rec = Recording().start()
+    run32 = learn(torch, frames["float32"], mmhc(frames["float32"]))
+    mmhc_launches = read_counts()
+    run64 = learn(torch, frames["float64"], mmhc(frames["float64"]))
+    model, score, recorder, wall = run32
+    dag_order(model.nodes(), model.arcs())
+    for name in ("ckde_cv_pairs", "kde_logl"):
+        if mmhc_launches[name] == 0:
+            raise AssertionError(f"MMHC over RCoT did not launch {name}")
+    arcs, types = graph_of(model)
+    say("14 independence", mmhc="SemiparametricBNType", test="RCoT",
+        score="validated-lik", rows=HC_ROWS, wall_s=f"{wall:.4f}",
+        iterations=recorder.iterations, families_scored=score.families,
+        launches=mmhc_launches, f64_wall_s=f"{run64[3]:.4f}",
+        **compare_runs(run32, run64, "14 independence"))
+    say("14 independence", arcs=repr(arcs), ckde=repr(sorted(
+        n for n, t in types.items() if t == "CKDEFactor")))
+    launches = rec.stop()
+    errs = hold_recorded(torch, rec, launches, "independence",
+                         "14 independence kernel")
+    say("14 independence", wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return launches, errs
+
+
+# ---------------------------------------------------------------- phase 15
+def config5_frame(n=CONFIG5_ROWS, seed=0):
+    """benchmarks/config5_inference.py's data (:29-37): A a two-category
+    column, X leaning on A, Y on X. A pandas frame."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    a = pd.Categorical.from_codes(rng.integers(0, 2, n), ["lo", "hi"])
+    x = np.where(a.codes == 1, 1.0, -1.0) + rng.normal(0, 0.5, n)
+    y = 0.8 * x + rng.normal(0, 0.4, n)
+    return pd.DataFrame({"A": a, "X": x, "Y": y})
+
+
+def logdensity_check(torch, model, df, layout, logp, init):
+    """``logp`` and its gradient on the card against the CPU's at ``init``
+    and at 16 seeded points near it: the largest relative errors."""
+    from torch.func import grad_and_value
+
+    from pybnesian_tpu_torch import use_device
+    from pybnesian_tpu_torch.inference import make_logdensity
+
+    hmc = sys.modules["pybnesian_tpu_torch.inference.hmc"]
+
+    with use_device("cpu"):
+        logp_cpu, layout_cpu, init_cpu = make_logdensity(model, df,
+                                                         dtype=np.float64)
+    if layout_cpu.slices != layout.slices or not torch.equal(
+            init_cpu, init.cpu()):
+        raise AssertionError("make_logdensity: the card's layout or init "
+                             "differs from the CPU's")
+    rng = np.random.default_rng(0)
+    points = init_cpu[None] + torch.from_numpy(
+        0.1 * rng.standard_normal((LOGDENSITY_POINTS, len(init_cpu))))
+    worst_v = worst_g = 0.0
+    for p in torch.cat([init_cpu[None], points]):
+        g_card, v_card = grad_and_value(logp)(p.cuda())
+        g_cpu, v_cpu = grad_and_value(logp_cpu)(p)
+        worst_v = max(worst_v, abs(float(v_card) - float(v_cpu))
+                      / abs(float(v_cpu)))
+        worst_g = max(worst_g, float((g_card.cpu() - g_cpu).abs().max()
+                                     / g_cpu.abs().max()))
+    # the samplers replay the gradient from a CUDA graph: the same numbers
+    vg = hmc._value_and_grad(logp)
+    graphed = hmc._graphed(vg, init)
+    same = all(torch.equal(a, b) for p in points[:4]
+               for a, b in zip(graphed(p.cuda()), vg(p.cuda())))
+    eager_ms = cuda_median_ms(torch, lambda: vg(init), runs=20)
+    graph_ms = cuda_median_ms(torch, lambda: graphed(init), runs=20)
+    say("15 inference", logdensity_points=LOGDENSITY_POINTS + 1,
+        dim=len(init_cpu), value_max_rel_err=f"{worst_v:.3e}",
+        grad_max_rel_err=f"{worst_g:.3e}", graphed_equals_eager=same,
+        gradient_ms=f"{eager_ms:.4f}", graphed_gradient_ms=f"{graph_ms:.4f}")
+    if not same:
+        raise AssertionError("the CUDA graph's gradient differs from the "
+                             "eager one")
+    if not (worst_v <= LOGDENSITY_RTOL and worst_g <= LOGDENSITY_RTOL):
+        raise AssertionError("make_logdensity on the card differs from the "
+                             f"CPU by more than {LOGDENSITY_RTOL}")
+
+
+def phase_inference(torch):
+    """Posterior inference at config 5 (benchmarks/config5_inference.py:
+    a CLGNetwork A -> X -> Y over 2,000 rows, float64): the log-density and
+    its gradient on the card against the CPU; NUTS with one chain; four
+    NUTS chains through ``sample_chains`` with R-hat and ESS; HMC, SMC and
+    ADVI on the same density."""
+    from pybnesian_tpu_torch import CLGNetwork
+    from pybnesian_tpu_torch.inference import (
+        advi, effective_sample_size, hmc, make_logdensity, nuts,
+        potential_scale_reduction, sample_chains, smc)
+    from pybnesian_tpu_torch.learning.parameters import mle_lineargaussian
+
+    t_phase = time.perf_counter()
+    df = config5_frame()
+    model = CLGNetwork(["A", "X", "Y"], [("A", "X"), ("X", "Y")])
+    logp, layout, init = make_logdensity(model, df, dtype=np.float64)
+    if not init.is_cuda:
+        raise AssertionError("make_logdensity did not place its data on "
+                             "the card")
+    logdensity_check(torch, model, df, layout, logp, init)
+    dim = len(init)
+    # the continuous blocks: X's CLG configurations and Y's regression
+    cont = [i for node in ("X", "Y")
+            for i in range(*layout.slices[node][:2])]
+    y_lo = layout.slices["Y"][0]
+    mle_slope = float(mle_lineargaussian(df, "Y", ["X"]).beta[1])
+
+    def card(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    nuts(logp, init, card(99), num_samples=5, num_warmup=5,
+         max_depth=NUTS_DEPTH)  # first-call set-up, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = nuts(logp, init, card(1), num_samples=NUTS_SAMPLES,
+                         num_warmup=NUTS_WARMUP, max_depth=NUTS_DEPTH)
+    samples = samples.cpu()
+    nuts_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(samples).all()):
+        raise AssertionError("NUTS drew a non-finite sample")
+    say("15 inference", sampler="nuts", chains=1, samples=NUTS_SAMPLES,
+        warmup=NUTS_WARMUP, max_depth=NUTS_DEPTH, wall_s=f"{nuts_s:.4f}",
+        samples_per_s=f"{NUTS_SAMPLES / nuts_s:.2f}",
+        mean_leapfrogs=f"{info['mean_leapfrogs']:.2f}",
+        leapfrogs_per_s=f"{info['mean_leapfrogs'] * NUTS_SAMPLES / nuts_s:.1f}",
+        accept_rate=f"{float(info['accept_rate']):.4f}",
+        y_slope=f"{float(samples[:, y_lo + 1].mean()):.5f}",
+        mle_slope=f"{mle_slope:.5f}")
+    nuts_mean = samples.mean(0)
+
+    t0 = time.perf_counter()
+    chains, cinfo = sample_chains(logp, init, card(2), num_chains=CHAINS,
+                                  method="nuts", num_samples=CHAIN_SAMPLES,
+                                  num_warmup=CHAIN_WARMUP,
+                                  max_depth=NUTS_DEPTH)
+    chains = chains.cpu().numpy()
+    chains_s = time.perf_counter() - t0
+    rhat = [potential_scale_reduction(chains[:, :, i]) for i in range(dim)]
+    ess = [effective_sample_size(chains[:, :, i]) for i in range(dim)]
+    slope = float(chains[:, :, y_lo + 1].mean())
+    say("15 inference", sampler="sample_chains nuts", chains=CHAINS,
+        samples=CHAIN_SAMPLES, warmup=CHAIN_WARMUP, wall_s=f"{chains_s:.4f}",
+        samples_per_s=f"{CHAINS * CHAIN_SAMPLES / chains_s:.2f}",
+        mean_leapfrogs=repr(np.round(cinfo["mean_leapfrogs"].cpu().numpy(),
+                                     2).tolist()),
+        accept_rate=repr(np.round(cinfo["accept_rate"].cpu().numpy(),
+                                  4).tolist()),
+        rhat=repr(np.round(rhat, 4).tolist()),
+        ess=repr(np.round(ess, 1).tolist()),
+        y_slope=f"{slope:.5f}", mle_slope=f"{mle_slope:.5f}")
+    worst = max(rhat[i] for i in cont)
+    say("15 inference", continuous_max_rhat=f"{worst:.4f}",
+        rhat_below=RHAT_TARGET, met=bool(worst < RHAT_TARGET))
+    if not (np.all(np.isfinite(rhat)) and np.all(np.isfinite(ess))
+            and abs(slope - mle_slope) <= SLOPE_ATOL):
+        raise AssertionError(f"sample_chains: a non-finite R-hat or ESS, or "
+                             f"Y's slope {slope} against the MLE "
+                             f"{mle_slope} (gate {SLOPE_ATOL})")
+
+    t0 = time.perf_counter()
+    hs, hinfo = hmc(logp, init, card(3), num_samples=NUTS_SAMPLES,
+                    num_warmup=NUTS_WARMUP)
+    hs = hs.cpu()
+    hmc_s = time.perf_counter() - t0
+
+    rng = torch.Generator(device="cuda").manual_seed(4)
+    particles0 = init[None] + 0.3 * torch.randn(
+        (SMC_PARTICLES, dim), generator=rng, dtype=init.dtype, device="cuda")
+    t0 = time.perf_counter()
+    particles, log_w, log_z = smc(
+        lambda t: -0.5 * ((t - init) ** 2).sum() * 1e-2, logp, particles0,
+        card(5), num_steps=SMC_STEPS, leapfrog_steps=5, step_size=0.02)
+    torch.cuda.synchronize()
+    smc_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mu, sigma, elbo = advi(logp, init, card(6), num_steps=ADVI_STEPS)
+    mu = mu.cpu()
+    advi_s = time.perf_counter() - t0
+    advi_gap = float((mu[cont] - nuts_mean[cont]).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        hs, particles, log_w, log_z, mu, sigma, elbo))
+    say("15 inference", sampler="hmc", samples=NUTS_SAMPLES,
+        warmup=NUTS_WARMUP, wall_s=f"{hmc_s:.4f}",
+        samples_per_s=f"{NUTS_SAMPLES / hmc_s:.2f}",
+        accept_rate=f"{float(hinfo['accept_rate']):.4f}")
+    say("15 inference", sampler="smc", particles=SMC_PARTICLES,
+        steps=SMC_STEPS, wall_s=f"{smc_s:.4f}",
+        log_evidence=f"{float(log_z):.4f}")
+    say("15 inference", sampler="advi", steps=ADVI_STEPS,
+        wall_s=f"{advi_s:.4f}", steps_per_s=f"{ADVI_STEPS / advi_s:.1f}",
+        final_elbo=f"{float(elbo[-1]):.4f}",
+        mu_vs_nuts_max_abs=f"{advi_gap:.4f}", finite=finite)
+    if not finite or advi_gap > ADVI_ATOL:
+        raise AssertionError(f"HMC, SMC or ADVI gave non-finite results, or "
+                             f"ADVI's mean is {advi_gap} from NUTS's on the "
+                             f"continuous blocks (gate {ADVI_ATOL})")
+    say("15 inference", wall_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main():
     import torch
 
@@ -2290,15 +2761,21 @@ def main():
     dynamic_launches, dynamic_errs = phase_dynamic(torch)
     constraint_launches, constraint_errs = phase_constraint(torch)
     say("11-13", wall_s=f"{time.perf_counter() - t_new:.1f}")
+    t_new = time.perf_counter()
+    independence_launches, independence_errs = phase_independence(torch)
+    phase_inference(torch)
+    say("14-15", wall_s=f"{time.perf_counter() - t_new:.1f}")
     paths = {"cv": cv_launches, "probe": probe_launches,
              "model": model_launches, "hc": hc_launches,
              "ucv": ucv_launches, "hybrid": hybrid_launches,
-             "dynamic": dynamic_launches, "constraint": constraint_launches}
+             "dynamic": dynamic_launches, "constraint": constraint_launches,
+             "independence": independence_launches}
     for name in ("ckde_cv_pairs", "kde_logl"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
-    # every launch of paths 11-13 was held at its shape (hold_recorded)
-    new_errs = (hybrid_errs, dynamic_errs, constraint_errs)
+    # every launch of paths 11-14 was held at its shape (hold_recorded)
+    new_errs = (hybrid_errs, dynamic_errs, constraint_errs,
+                independence_errs)
     pairs = dict(pairs_cases["main-path-inputs"],
                  err=max([c["err"] for c in pairs_cases.values()]
                          + [hc_errs["ckde_cv_pairs"], ucv_err]

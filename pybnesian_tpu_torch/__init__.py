@@ -13,14 +13,17 @@ for what the port holds so far:
   score of the JAX package (``BIC``, ``BDe``, ``BGe``, ``CVLikelihood``,
   ``HoldoutLikelihood``, ``ValidatedLikelihood`` and their ``Dynamic*``
   forms), and the constraint-based learners ``PC``, ``MMPC``, ``MMHC`` and
-  ``DMMHC`` over the host independence tests ``LinearCorrelation``,
-  ``ChiSquare`` and ``MutualInformation``;
-- fitted-model evaluation: ``logl``, ``slogl``, ``sample``, ``cdf``.
+  ``DMMHC`` over every independence test of the JAX package: the host
+  tests ``LinearCorrelation``, ``ChiSquare`` and ``MutualInformation``,
+  and ``RCoT`` and ``KMutualInformation``, whose algebra runs on the GPU;
+- fitted-model evaluation: ``logl``, ``slogl``, ``sample``, ``cdf``;
+- posterior inference over CPD parameters (``inference``: the
+  log-density, HMC/NUTS, SMC, ADVI and diagnostics).
 
 Plain tensor code is torch; the pairwise KDE logsumexps are hand-written
 CUDA kernels (``csrc/ckde_cv.cu``) that float32 tensors on the GPU launch.
-The independence tests and the PC / MMPC skeleton searches run on the host
-(numpy and the native g++ core), as in the JAX package. Entry points that
+The host independence tests and the PC / MMPC skeleton searches run on the
+host (numpy and the native g++ core), as in the JAX package. Entry points that
 hold tensors run on the GPU unless the caller asks for the CPU, with a
 ``device=`` argument or process-wide with :func:`use_device`; with neither,
 and no GPU visible, they raise. This package never imports JAX or
@@ -149,12 +152,16 @@ from .learning.independences import (
     ChiSquare,
     DynamicIndependenceTest,
     IndependenceTest,
+    KMutualInformation,
     LinearCorrelation,
     MutualInformation,
+    RCoT,
 )
 from .learning.independences.chi_square import DynamicChiSquare
 from .learning.independences.hybrid_mi import DynamicMutualInformation
+from .learning.independences.kmutual_info import DynamicKMutualInformation
 from .learning.independences.linearcorrelation import DynamicLinearCorrelation
+from .learning.independences.rcot import DynamicRCoT
 from .kdtree import KDTree
 from .utils.pickle import load
 from .runtime.device import use_device
@@ -190,18 +197,22 @@ __all__ = [
     "DynamicDataFrame", "DynamicDiscreteBN", "DynamicGaussianNetwork",
     "DynamicHeterogeneousBN", "DynamicHoldoutLikelihood",
     "DynamicHomogeneousBN", "DynamicIndependenceTest", "DynamicKDENetwork",
-    "DynamicLinearCorrelation", "DynamicMutualInformation", "DynamicScore",
+    "DynamicKMutualInformation",
+    "DynamicLinearCorrelation", "DynamicMutualInformation", "DynamicRCoT",
+    "DynamicScore",
     "DynamicSemiparametricBN", "DynamicValidatedLikelihood", "DynamicVariable",
     "Factor", "FactorType", "FlipArc", "GaussianNetwork",
     "GaussianNetworkType", "GreedyHillClimbing", "HCKDE", "HeterogeneousBN",
     "HeterogeneousBNType", "HoldOut", "HoldoutLikelihood", "HomogeneousBN",
     "HomogeneousBNType", "IndependenceTest", "KDE", "KDENetwork",
-    "KDENetworkType", "KDTree", "Kwargs", "LinearCorrelation",
+    "KDENetworkType", "KDTree", "KMutualInformation", "Kwargs",
+    "LinearCorrelation",
     "LinearGaussianCPD", "LinearGaussianCPDType", "LinearGaussianParams",
     "LocalScoreCache", "MLE", "MLEDiscreteFactor", "MLELinearGaussianCPD",
     "MMHC", "MMPC", "MeekRules", "MutualInformation", "NormalReferenceRule",
     "Operator", "OperatorPool", "OperatorSet", "OperatorTabuSet", "PC",
-    "PartiallyDirectedGraph", "ProductKDE", "RemoveArc", "SaveModel", "Score",
+    "PartiallyDirectedGraph", "ProductKDE", "RCoT", "RemoveArc", "SaveModel",
+    "Score",
     "ScottsBandwidth", "SemiparametricBN", "SemiparametricBNType", "UCV",
     "UCVScorer", "UndirectedGraph", "UnknownFactorType", "ValidatedLikelihood",
     "ValidatedScore", "data", "factors", "graph", "hc", "kde", "kdtree",

@@ -6,7 +6,9 @@ column arrays, the (train_idx, test_idx) pairs of
 ``FactorType.ToString()`` gives them, the fitted parameters of CKDE,
 linear-Gaussian, discrete and hybrid factors — so that the two packages can
 score the same folds on the same graph and evaluate the same fitted model
-without either refitting. It never imports ``pybnesian_tpu``:
+without either refitting; :func:`param_layout` carries a posterior's flat
+parameter layout and vector, so that both packages evaluate the same
+density at the same point. It never imports ``pybnesian_tpu``:
 :func:`network_state` reads a fitted network (static, conditional or
 dynamic), and :func:`operator_state` a structure-search operator, of
 either package through its public surface.
@@ -22,15 +24,17 @@ from .factors.ckde import CKDE, CKDEType
 from .factors.discrete import DiscreteFactor, DiscreteFactorType
 from .factors.hybrid import CLinearGaussianCPD, HCKDE
 from .factors.lineargaussian import LinearGaussianCPD, LinearGaussianCPDType
+from .inference.logdensity import ParamLayout
 from .kde import KDE, NormalReferenceRule, ScottsBandwidth
 from .kde.ucv import UCV
 from .learning.scores import BIC, BDe, BGe
 from .learning.scores.likelihood import CVLikelihood, _KFoldEngine
 from .models import dynamic
+from .runtime.device import host_to_device
 
 __all__ = ["network", "network_args", "cv_likelihood", "score_state",
            "score", "cpd_state", "fitted_cpd", "network_state",
-           "fitted_network", "operator_state"]
+           "fitted_network", "operator_state", "param_layout"]
 
 _SELECTORS = {
     "NormalReferenceRule": NormalReferenceRule,
@@ -283,3 +287,21 @@ def operator_state(op):
     if hasattr(op, "node_type"):
         return kind, (op.node(),), op.node_type().ToString(), op.delta()
     return kind, (op.source(), op.target()), None, op.delta()
+
+
+def param_layout(slices, theta, device=None):
+    """The port's ``(ParamLayout, theta)`` from a ``make_logdensity``
+    layout's ``slices`` ({node: (lo, hi, kind)}) and a flat parameter
+    vector ``theta`` (numpy), placed on ``device`` (default: the default
+    device) in ``theta``'s dtype."""
+    layout = ParamLayout()
+    for node, (lo, hi, kind) in sorted(slices.items(),
+                                       key=lambda item: item[1][0]):
+        if lo != layout.size:
+            raise ValueError(f"the slices leave a gap before {node!r}")
+        layout.add(node, hi - lo, kind)
+    theta = np.asarray(theta)
+    if theta.shape != (layout.size,):
+        raise ValueError(f"theta has shape {theta.shape}; the layout holds "
+                         f"{layout.size} parameters")
+    return layout, host_to_device(theta, theta.dtype, device)

@@ -2,6 +2,8 @@ from .base import DynamicIndependenceTest, IndependenceTest
 from .linearcorrelation import LinearCorrelation
 from .chi_square import ChiSquare
 from .hybrid_mi import MutualInformation
+from .kmutual_info import KMutualInformation
+from .rcot import RCoT
 
 __all__ = [
     "IndependenceTest",
@@ -9,4 +11,6 @@ __all__ = [
     "LinearCorrelation",
     "ChiSquare",
     "MutualInformation",
+    "KMutualInformation",
+    "RCoT",
 ]

@@ -154,3 +154,51 @@ def test_constraint_searches_stay_on_the_host(no_gpu):
     pdag = pt.PC().estimate(pt.MutualInformation(df), alpha=0.05)
     assert pdag.num_nodes() == 3
     assert pt.MMPC().estimate(pt.MutualInformation(df)).num_nodes() == 3
+
+
+@pytest.mark.parametrize("entry", [
+    lambda df: pt.RCoT(df),
+    lambda df: pt.KMutualInformation(df, k=3),
+    lambda df: pt.DynamicRCoT(pt.DynamicDataFrame(df, 1)),
+    lambda df: pt.DynamicKMutualInformation(pt.DynamicDataFrame(df, 1),
+                                            k=3),
+])
+def test_device_independence_tests_raise_without_a_choice(no_gpu, entry):
+    """RCoT and KMutualInformation hold tensors: unlike the host tests,
+    they need the card or a CPU choice."""
+    import pandas as pd
+
+    df = pd.DataFrame(_cols())
+    with pytest.raises(RuntimeError, match="none is visible"):
+        entry(df)
+    with pt.use_device("cpu"):
+        test = entry(df)
+        static = getattr(test, "static_tests", lambda: test)()
+        assert static.device == torch.device("cpu")
+        assert 0.0 <= static.pvalue(*static.variable_names()[:2]) <= 1.0
+
+
+def test_make_logdensity_raises_without_a_choice(no_gpu):
+    from pybnesian_tpu_torch.inference import make_logdensity
+
+    model = pt.GaussianNetwork(["x", "y"], [("x", "y")])
+    with pytest.raises(RuntimeError, match="none is visible"):
+        make_logdensity(model, _cols(), dtype=np.float64)
+    with pt.use_device("cpu"):
+        logp, _, init = make_logdensity(model, _cols(), dtype=np.float64)
+    assert init.device == torch.device("cpu")
+    assert np.isfinite(float(logp(init)))
+
+
+def test_samplers_follow_their_init_and_generator(no_gpu):
+    """The samplers hold no data of their own: they run where ``init``
+    lives, with a generator there (an int seeds one there)."""
+    from pybnesian_tpu_torch.inference import advi, hmc
+
+    init = torch.zeros(2, dtype=torch.float64)
+    samples, _ = hmc(lambda t: -0.5 * (t**2).sum(), init,
+                     torch.Generator().manual_seed(0), num_samples=5,
+                     num_warmup=5)
+    assert samples.device == init.device
+    mu, _, _ = advi(lambda t: -0.5 * (t**2).sum(), init, 1, num_steps=3)
+    assert mu.device == init.device

@@ -15,9 +15,6 @@ import pybnesian_tpu_torch as tpb
 # names of the JAX package not in the port yet, by the roadmap item that
 # adds them
 OPEN = {
-    "Queue 1 item 5 (RCoT)": {"RCoT", "DynamicRCoT"},
-    "Queue 1 item 6 (KMutualInformation)": {"KMutualInformation",
-                                            "DynamicKMutualInformation"},
     # two packages cannot both be registered as ``pybnesian``
     "never": {"install_as_pybnesian"},
 }
@@ -26,13 +23,6 @@ PORT_ONLY = {"use_device"}
 # modules of the JAX package with no counterpart in the port, by the
 # roadmap item that ports them
 OPEN_MODULES = {
-    "Queue 1 item 5 (RCoT)": {"learning/independences/rcot.py"},
-    "Queue 1 item 6 (KMutualInformation)": {
-        "learning/independences/kmutual_info.py", "ops/knn.py"},
-    "Queue 1 item 7 (inference)": {
-        f"inference/{m}.py" for m in ("__init__", "advi", "diagnostics",
-                                      "hmc", "logdensity", "predictive",
-                                      "smc")},
     "Queue 1 item 8 (multi-device and runtime)": {
         "parallel/__init__.py", "runtime/checkpoint.py", "runtime/config.py",
         "runtime/distributed.py"},
