@@ -147,13 +147,32 @@ the script exits non-zero and prints no result:
    rate); ``sample_chains`` with four NUTS chains (R-hat and ESS printed,
    Y's slope within :data:`SLOPE_ATOL` of its MLE); ``hmc``, ``smc`` and
    ``advi`` (finite, ADVI's mean within :data:`ADVI_ATOL` of NUTS's on the
-   continuous blocks).
+   continuous blocks);
+16. the multi-device layer (``parallel``, ``runtime``) on virtual shards of
+   the card, at config 6's sizes (benchmarks/config6_scaling.py): (a)
+   ``device_info`` and ``default_mesh``; (b) ``sharded_ckde_cv`` on a fam
+   mesh of 8 shards at config 6's weak-scaling inputs (4,000 rows × 4
+   columns, 5 folds, 8 families a shard), then bench.py's workload on 5
+   shards, each family held to the unsharded kernel route and the plain
+   form at :data:`SHARD_RTOL`; (c) ``sharded_batched_bic`` and
+   ``sharded_lg_fit`` at 65,536 rows × 8 columns, 32 families, data 8,
+   against a 1×1 mesh; (d) ``sharded_kde_slogl`` at 16,384 × 1,024 rows,
+   d 3, data 8, against one shard and the plain version; (e)
+   ``sample_chains_sharded`` NUTS on config 6's density over 4 shards,
+   each shard against its own ``nuts_chains`` run, then config 5's
+   four chains sharded, timed beside the same four chains batched at the
+   same draws; (f)
+   ``dryrun_multichip(8)`` over 8 virtual shards; (g) a one-rank NCCL
+   process group, an all-reduce and (c) on ``global_mesh``; (h) (b)–(d)
+   on the real mesh over every card when there is more than one (else a
+   line saying why not). Every launch of both kernels in (b), (d), (f)
+   and (h) is path ``parallel``, recorded and held to the plain version.
 
 A kernel's time (``ms``) is the median of CUDA-event windows of one
 launch each; ``batched_ms`` is the median per launch of windows of
 :data:`KERNEL_BATCH` back-to-back launches, in which the card runs one
 launch while the host issues the next, so that it holds no launch
-latency. Each path (4, 6, 7, 8, 9, 11, 12, 13, 14) runs with every launch count
+latency. Each path (4, 6, 7, 8, 9, 11, 12, 13, 14, 16) runs with every launch count
 set to 0 just before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
 version's time and its bound comes two lines before the last, then the
@@ -245,6 +264,19 @@ SMC_PARTICLES = 256    # tests/inference/test_config5_e2e.py's SMC
 SMC_STEPS = 10
 ADVI_STEPS = 1000
 ADVI_ATOL = 0.1        # ADVI's mean against NUTS's, continuous blocks
+MESH_SHARDS = 8        # phase 16: config 6's largest mesh (:178)
+C6_ROWS = 4_000        # config6_scaling.py:60-64: 4,000 rows,
+C6_COLUMNS = 4         # 4 columns,
+C6_FOLDS = 5           # 5 folds,
+C6_FAMS_PER_SHARD = 8  # 8 families a shard
+C6_BIC = (65_536, 8, 32)     # :115 rows, columns, families
+C6_KDE = (16_384, 1_024, 3)  # :137 train rows, test rows, d
+C6_NUTS = (8, 50, 50, 6)     # :158-171 dim, samples, warmup, max_depth
+C6_NUTS_SHARDS = 4
+C5_SHARDED_SAMPLES = 100  # config 5's four chains, batched and sharded, both
+C5_SHARDED_WARMUP = 100   # cut from phase 15's 300 / 200: shards run in turn
+SHARD_RTOL = 1e-4      # a sharded float32 score against the unsharded
+                       # kernel route and the plain form, per family
 GRID_FAMILIES = (8, 64, 380)
 GRID_ROWS = (10_000, 100_000, 1_000_000)
 SEARCH_GRID_ROWS = (10_000, 30_000, 60_000, 100_000, 1_000_000)
@@ -2729,6 +2761,368 @@ def phase_inference(torch):
     say("15 inference", wall_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
+# ---------------------------------------------------------------- phase 16
+def fold_inputs(torch, data, cols, K, rng, pad=256):
+    """benchmarks/config6_scaling.py's CV layout (make_inputs, :67-99) on
+    the card: K folds of a permutation drawn from ``rng``, train and test
+    rows padded to a multiple of ``pad`` with masked rows, one family per
+    list of column indices of ``cols`` (evidence first, variable last)."""
+    n, _ = data.shape
+    folds = np.array_split(rng.permutation(n), K)
+    ntr = -(-max(n - len(f) for f in folds) // pad) * pad
+    nte = -(-max(len(f) for f in folds) // pad) * pad
+    tr_idx = np.zeros((K, ntr), np.int64)
+    tr_mask = np.zeros((K, ntr), np.float32)
+    te_idx = np.zeros((K, nte), np.int64)
+    te_mask = np.zeros((K, nte), np.float32)
+    for k, te in enumerate(folds):
+        tr = np.concatenate([f for j, f in enumerate(folds) if j != k])
+        tr_idx[k, : len(tr)], tr_mask[k, : len(tr)] = tr, 1.0
+        te_idx[k, : len(te)], te_mask[k, : len(te)] = te, 1.0
+    width = max(len(c) for c in cols)
+    col_idx = np.zeros((len(cols), width), np.int64)
+    col_mask = np.zeros((len(cols), width), np.float32)
+    for f, c in enumerate(cols):
+        col_idx[f, : len(c)], col_mask[f, : len(c)] = c, 1.0
+    return tuple(torch.as_tensor(a, device="cuda") for a in (
+        data.astype(np.float32), np.zeros(data.shape, np.float32), col_idx,
+        col_mask, tr_idx, tr_mask, te_idx, te_mask))
+
+
+def config6_cv_inputs(torch, n_fams):
+    """config6_scaling.py's weak-scaling inputs (:60-99): 4,000 rows × 4
+    float32 columns, 5 folds, ``n_fams`` families of 1 or 2 columns."""
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(C6_ROWS, C6_COLUMNS))
+    cols = [[f % C6_COLUMNS] + ([(f + 1) % C6_COLUMNS] if f % 2 else [])
+            for f in range(n_fams)]
+    return fold_inputs(torch, data, cols, C6_FOLDS, rng)
+
+
+def max_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def hold_rel(err, gate, what):
+    if not err <= gate:
+        raise AssertionError(f"{what}: relative error {err} > {gate}")
+
+
+class Counted:
+    """The ``parallel`` path's launches: each call of :meth:`run` is a
+    window with the counts set to 0 just before it and read just after,
+    and every kernel launch recorded (:class:`Recording`); the windows'
+    launches add up in ``launches``. The comparisons between windows are
+    not counted."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rec = Recording()
+        self.launches = dict.fromkeys(read_counts(), 0)
+
+    def run(self, fn):
+        reset_counts()
+        self.rec.start()
+        try:
+            out = fn()
+            self.torch.cuda.synchronize()
+        finally:
+            self.rec.stop()
+        for name, n in read_counts().items():
+            self.launches[name] += n
+        return out
+
+
+def sharded_cv_check(torch, card, counted, mesh, args, label):
+    """``sharded_ckde_cv`` on ``mesh`` against the unsharded kernel route
+    and the plain form, per family; both timed."""
+    from pybnesian_tpu_torch.ops.kde import (ckde_cv_alldevice,
+                                             ckde_cv_alldevice_flash)
+    from pybnesian_tpu_torch.parallel import sharded_ckde_cv
+
+    got = counted.run(lambda: sharded_ckde_cv(mesh, *args))
+    flash = ckde_cv_alldevice_flash(*args)
+    plain = ckde_cv_alldevice(*args)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: a non-finite sharded score")
+    e_flash, e_plain = max_rel(got, flash), max_rel(got, plain)
+    hold_rel(e_flash, SHARD_RTOL, f"{label} against the unsharded kernel")
+    hold_rel(e_plain, SHARD_RTOL, f"{label} against the plain form")
+    F = len(got)
+    sharded_ms = host_median_s(lambda: (sharded_ckde_cv(mesh, *args),
+                                        torch.cuda.synchronize()), 5) * 1e3
+    flash_ms = host_median_s(lambda: (ckde_cv_alldevice_flash(*args),
+                                      torch.cuda.synchronize()), 5) * 1e3
+    say("16 parallel", case=label, mesh=mesh.shape, families=F,
+        G_per_shard=F // mesh.shape["fam"] * args[4].shape[0],
+        ntr_nte=f"{args[4].shape[1]}x{args[6].shape[1]}",
+        rel_err_vs_unsharded=f"{e_flash:.3e}",
+        rel_err_vs_plain=f"{e_plain:.3e}", sharded_ms=f"{sharded_ms:.4f}",
+        unsharded_ms=f"{flash_ms:.4f}",
+        sharded_family_scores_per_s=f"{F / sharded_ms * 1e3:.1f}",
+        card=repr(card["smi"]))
+
+
+def config6_bic_inputs(torch):
+    """config6_scaling.py bench_bic_data_axis's inputs (:115-131): 65,536
+    rows × 8 float32 columns, 32 families of 2 parents."""
+    rng = np.random.default_rng(1)
+    n, d, F = C6_BIC
+    fam = np.arange(F)
+    return tuple(torch.as_tensor(a, device="cuda") for a in (
+        rng.normal(size=(n, d)).astype(np.float32),
+        np.ones((n, d), np.float32),
+        fam % d, np.stack([(fam + 1) % d, (fam + 2) % d], 1),
+        np.ones((F, 2), np.float32)))
+
+
+def sharded_bic_check(torch, card, mesh, label):
+    """``sharded_lg_fit`` and ``sharded_batched_bic`` on ``mesh`` against
+    a 1×1 mesh (the dry run's tolerances); both timed."""
+    from pybnesian_tpu_torch.parallel import (data_fam_mesh,
+                                              sharded_batched_bic,
+                                              sharded_lg_fit)
+
+    args = config6_bic_inputs(torch)
+    one = data_fam_mesh(1, fam=1, devices=[mesh.home])
+
+    def step(m):
+        return (*sharded_lg_fit(m, *args), sharded_batched_bic(m, *args))
+
+    got, want = step(mesh), step(one)
+    ms = {m: host_median_s(lambda: (step(m), torch.cuda.synchronize()),
+                           5) * 1e3 for m in (mesh, one)}
+    tols = ((1e-4, 1e-5), (1e-4, 1e-5), (1e-4, 1e-4))
+    for name, g, w, (rtol, atol) in zip(("betas", "variances", "scores"),
+                                        got, want, tols):
+        if not torch.allclose(g.cpu(), w.cpu(), rtol=rtol, atol=atol):
+            raise AssertionError(f"{label}: {name} differ from the 1x1 mesh")
+    if not bool(torch.isfinite(got[2]).all()):
+        raise AssertionError(f"{label}: a non-finite BIC score")
+    say("16 parallel", case=label, mesh=mesh.shape,
+        rows_columns_families="x".join(map(str, C6_BIC)),
+        scores_max_rel_err=f"{max_rel(got[2], want[2]):.3e}",
+        betas_max_abs_err=f"{float((got[0] - want[0]).abs().max()):.3e}",
+        sharded_ms=f"{ms[mesh]:.4f}", one_shard_ms=f"{ms[one]:.4f}",
+        card=repr(card["smi"]))
+
+
+def kde_slogl_check(torch, card, counted, mesh, label):
+    """``sharded_kde_slogl`` at config6_scaling.py bench_kde_data_axis's
+    size (:137-150: 16,384 train × 1,024 test rows, d 3) on ``mesh``
+    against one shard and the plain version; both timed."""
+    from pybnesian_tpu_torch.ops.kde_kernel import kde_logl_reference
+    from pybnesian_tpu_torch.parallel import (data_fam_mesh,
+                                              sharded_kde_slogl)
+
+    rng = np.random.default_rng(2)
+    ntr, nte, d = C6_KDE
+    train = torch.as_tensor(rng.normal(size=(ntr, d)).astype(np.float32),
+                            device="cuda")
+    test = torch.as_tensor(rng.normal(size=(nte, d)).astype(np.float32),
+                           device="cuda")
+    one = data_fam_mesh(1, fam=1, devices=[mesh.home])
+    got = counted.run(lambda: sharded_kde_slogl(mesh, train, test, -1.0))
+    want = sharded_kde_slogl(one, train, test, -1.0)
+    plain = kde_logl_reference(
+        train[None], torch.ones((1, ntr), device="cuda"), test[None],
+        torch.tensor([-1.0], device="cuda")).sum()
+    e_one, e_plain = max_rel(got[None], want[None]), max_rel(got[None],
+                                                             plain[None])
+    hold_rel(e_one, 1e-5, f"{label} against one shard")
+    hold_rel(e_plain, SHARD_RTOL, f"{label} against the plain version")
+    ms = {m: host_median_s(lambda: (sharded_kde_slogl(m, train, test, -1.0),
+                                    torch.cuda.synchronize()), 5) * 1e3
+          for m in (mesh, one)}
+    say("16 parallel", case=label, mesh=mesh.shape,
+        ntr_nte_d=f"{ntr}x{nte}x{d}", slogl=f"{float(got):.4f}",
+        rel_err_vs_one_shard=f"{e_one:.3e}",
+        rel_err_vs_plain=f"{e_plain:.3e}", sharded_ms=f"{ms[mesh]:.4f}",
+        one_shard_ms=f"{ms[one]:.4f}", card=repr(card["smi"]))
+
+
+def sharded_nuts_check(torch, card):
+    """``sample_chains_sharded`` NUTS over 4 virtual shards of the card:
+    config6_scaling.py's density (:158-171: dim 8, 50 samples, 50 warmup,
+    max_depth 6), each shard against its own ``nuts_chains`` run; then
+    config 5's density, one chain a shard, timed beside ``sample_chains``
+    with its four chains batched at the same draws. Each timed call comes
+    after an untimed short call of the same kind, and holds its own
+    CUDA-graph captures: one for the batched chains, one a shard."""
+    from pybnesian_tpu_torch import CLGNetwork
+    from pybnesian_tpu_torch.inference import make_logdensity, sample_chains
+    from pybnesian_tpu_torch.inference.hmc import (_shard_draws, nuts_chains,
+                                                   sample_chains_sharded)
+    from pybnesian_tpu_torch.parallel import make_mesh
+
+    shards = C6_NUTS_SHARDS
+    mesh = make_mesh({"data": shards}, devices=[torch.device("cuda:0")]
+                     * shards)
+    dim, samples_n, warmup, depth = C6_NUTS
+    kw = dict(num_samples=samples_n, num_warmup=warmup, max_depth=depth)
+
+    def logdensity(theta):
+        return -0.5 * torch.sum(torch.square(theta - 1.0))
+
+    init = torch.zeros(dim, device="cuda")
+    short = dict(num_samples=5, num_warmup=5, max_depth=depth)
+    sample_chains_sharded(logdensity, init, 4, mesh, method="nuts", **short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = sample_chains_sharded(logdensity, init, 4, mesh,
+                                          method="nuts", **kw)
+    samples = samples.cpu()
+    wall = time.perf_counter() - t0
+    inits, seeds = _shard_draws(init, 4, shards, shards)
+    worst, same = 0.0, True
+    for s in range(shards):
+        gen = torch.Generator(device="cuda").manual_seed(seeds[s])
+        one, _ = nuts_chains(logdensity, inits[s: s + 1], gen, **kw)
+        one = one.cpu()
+        same &= bool(torch.equal(samples[s: s + 1], one))
+        worst = max(worst, float((samples[s: s + 1] - one).abs().max()))
+    if not (bool(torch.isfinite(samples).all()) and worst <= 1e-5):
+        raise AssertionError(f"sharded NUTS: a shard differs from its own "
+                             f"nuts_chains run by {worst}")
+    say("16 parallel", case="sample_chains_sharded config6", shards=shards,
+        dim=dim, samples=samples_n, warmup=warmup, max_depth=depth,
+        wall_s=f"{wall:.4f}", graph_captures=shards,
+        samples_per_s=f"{shards * samples_n / wall:.2f}",
+        mean_leapfrogs=repr(np.round(info["mean_leapfrogs"].cpu().numpy(),
+                                     2).tolist()),
+        max_abs_diff_vs_own_run=f"{worst:.3e}", bit_equal=same,
+        card=repr(card["smi"]))
+
+    model = CLGNetwork(["A", "X", "Y"], [("A", "X"), ("X", "Y")])
+    logp, _, init5 = make_logdensity(model, config5_frame(), dtype=np.float64)
+    runs = {
+        "sample_chains batched": lambda **k: sample_chains(
+            logp, init5, torch.Generator(device="cuda").manual_seed(2),
+            num_chains=shards, method="nuts", **k),
+        "sample_chains_sharded": lambda **k: sample_chains_sharded(
+            logp, init5, 2, mesh, method="nuts", **k)}
+    for label, draw in runs.items():
+        draw(num_samples=5, num_warmup=5, max_depth=NUTS_DEPTH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chains, cinfo = draw(num_samples=C5_SHARDED_SAMPLES,
+                             num_warmup=C5_SHARDED_WARMUP,
+                             max_depth=NUTS_DEPTH)
+        chains = chains.cpu()
+        wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(chains).all()):
+            raise AssertionError(f"{label} at config 5: a non-finite sample")
+        say("16 parallel", case=f"{label} config5", chains=shards,
+            samples=C5_SHARDED_SAMPLES, warmup=C5_SHARDED_WARMUP,
+            graph_captures=shards if "sharded" in label else 1,
+            wall_s=f"{wall:.4f}",
+            samples_per_s=f"{shards * C5_SHARDED_SAMPLES / wall:.2f}",
+            mean_leapfrogs=repr(np.round(
+                cinfo["mean_leapfrogs"].cpu().numpy(), 2).tolist()),
+            card=repr(card["smi"]))
+
+
+def nccl_check(torch, card):
+    """A one-rank NCCL process group on the card: an all-reduce through
+    it, then (c) on ``global_mesh`` of 8 virtual shards."""
+    import socket
+
+    from pybnesian_tpu_torch.runtime import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    if not distributed.initialize(f"127.0.0.1:{port}", 1, 0):
+        raise AssertionError("initialize did not start a process group")
+    try:
+        backend = torch.distributed.get_backend()
+        x = torch.arange(4.0, device="cuda")
+        torch.distributed.all_reduce(x)
+        if backend != "nccl" or x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+            raise AssertionError(f"one-rank group: backend {backend}, "
+                                 f"all_reduce gave {x.tolist()}")
+        summary = distributed.process_summary()
+        mesh = distributed.global_mesh(local_devices=["cuda:0"]
+                                       * MESH_SHARDS)
+        sharded_bic_check(torch, card, mesh,
+                          "(g) global_mesh bic + lg_fit")
+    finally:
+        distributed.shutdown()
+    say("16 parallel", case="(g) one-rank process group", backend=backend,
+        summary=repr(summary), wall_s=f"{time.perf_counter() - t0:.2f}")
+
+
+def phase_parallel(torch, card):
+    """The multi-device layer at config 6's sizes on virtual shards of the
+    card (a)-(g), and on the real mesh over every card (h) where there is
+    more than one. Returns the ``parallel`` path's launches (the sharded
+    calls and the dry run) and each kernel's largest error against its
+    plain version at the shapes launched."""
+    from pybnesian_tpu_torch.entry import dryrun_multichip
+    from pybnesian_tpu_torch.parallel import make_mesh
+    from pybnesian_tpu_torch.runtime import default_mesh, device_info
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    info = device_info()
+    mesh = default_mesh()
+    if info["backend"] != "cuda" or mesh.home != torch.device("cuda:0"):
+        raise AssertionError(f"device_info {info}, default mesh {mesh}")
+    say("16 parallel", case="(a)", device_info=repr(info),
+        default_mesh=repr(mesh))
+    counted = Counted(torch)
+    cuda0 = torch.device("cuda:0")
+    fam8 = make_mesh({"data": 1, "fam": MESH_SHARDS},
+                     devices=[cuda0] * MESH_SHARDS)
+    sharded_cv_check(torch, card, counted, fam8,
+                     config6_cv_inputs(torch, C6_FAMS_PER_SHARD
+                                       * MESH_SHARDS), "(b) config6 ckde_cv")
+    bench = make_data()
+    names = list(bench)
+    bench_cols = [[names.index(c) for c in (*ps, v)]
+                  for v, ps in families(len(names))]
+    fam5 = make_mesh({"data": 1, "fam": 5}, devices=[cuda0] * 5)
+    sharded_cv_check(torch, card, counted, fam5, fold_inputs(
+        torch, np.stack([bench[c] for c in names], 1), bench_cols, 10,
+        np.random.default_rng(0), pad=1), "(b) bench.py ckde_cv")
+    data8 = make_mesh({"data": MESH_SHARDS, "fam": 1},
+                      devices=[cuda0] * MESH_SHARDS)
+    sharded_bic_check(torch, card, data8, "(c) bic + lg_fit")
+    kde_slogl_check(torch, card, counted, data8, "(d) kde_slogl")
+    sharded_nuts_check(torch, card)
+    t0 = time.perf_counter()
+    counted.run(lambda: dryrun_multichip(MESH_SHARDS,
+                                         devices=[cuda0] * MESH_SHARDS))
+    say("16 parallel", case="(f) dryrun_multichip", n_devices=MESH_SHARDS,
+        virtual_shards_of="cuda:0", passed=True,
+        wall_s=f"{time.perf_counter() - t0:.2f}")
+    nccl_check(torch, card)
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        every = [torch.device("cuda", i) for i in range(cards)]
+        real = make_mesh({"data": 1, "fam": cards}, devices=every)
+        sharded_cv_check(torch, card, counted, real, config6_cv_inputs(
+            torch, C6_FAMS_PER_SHARD * cards), "(h) real-mesh ckde_cv")
+        real_data = make_mesh({"data": cards, "fam": 1}, devices=every)
+        sharded_bic_check(torch, card, real_data,
+                          "(h) real-mesh bic + lg_fit")
+        kde_slogl_check(torch, card, counted, real_data,
+                        "(h) real-mesh kde_slogl")
+    else:
+        say("16 parallel", case="(h) real mesh over every card",
+            run=False, reason=f"{cards} card visible")
+    for name in ("ckde_cv_pairs", "kde_logl"):
+        if counted.launches[name] == 0:
+            raise AssertionError(f"the parallel path did not launch {name}")
+    errs = hold_recorded(torch, counted.rec, counted.launches, "parallel",
+                         "16 parallel kernel")
+    say("16 parallel", launches=counted.launches,
+        wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return counted.launches, errs
+
+
 def main():
     import torch
 
@@ -2765,17 +3159,20 @@ def main():
     independence_launches, independence_errs = phase_independence(torch)
     phase_inference(torch)
     say("14-15", wall_s=f"{time.perf_counter() - t_new:.1f}")
+    parallel_launches, parallel_errs = phase_parallel(torch, card)
     paths = {"cv": cv_launches, "probe": probe_launches,
              "model": model_launches, "hc": hc_launches,
              "ucv": ucv_launches, "hybrid": hybrid_launches,
              "dynamic": dynamic_launches, "constraint": constraint_launches,
-             "independence": independence_launches}
+             "independence": independence_launches,
+             "parallel": parallel_launches}
     for name in ("ckde_cv_pairs", "kde_logl"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
-    # every launch of paths 11-14 was held at its shape (hold_recorded)
+    # every launch of paths 11-14 and 16 was held at its shape
+    # (hold_recorded)
     new_errs = (hybrid_errs, dynamic_errs, constraint_errs,
-                independence_errs)
+                independence_errs, parallel_errs)
     pairs = dict(pairs_cases["main-path-inputs"],
                  err=max([c["err"] for c in pairs_cases.values()]
                          + [hc_errs["ckde_cv_pairs"], ucv_err]

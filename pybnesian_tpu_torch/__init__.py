@@ -18,7 +18,10 @@ for what the port holds so far:
   and ``RCoT`` and ``KMutualInformation``, whose algebra runs on the GPU;
 - fitted-model evaluation: ``logl``, ``slogl``, ``sample``, ``cdf``;
 - posterior inference over CPD parameters (``inference``: the
-  log-density, HMC/NUTS, SMC, ADVI and diagnostics).
+  log-density, HMC/NUTS, SMC, ADVI and diagnostics);
+- the multi-device layer: meshes of devices and the sharded scores
+  (``parallel``), device discovery, process groups and checkpoints
+  (``runtime``), and the dry run of ``entry.py``.
 
 Plain tensor code is torch; the pairwise KDE logsumexps are hand-written
 CUDA kernels (``csrc/ckde_cv.cu``) that float32 tensors on the GPU launch.

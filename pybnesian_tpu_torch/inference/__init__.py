@@ -2,9 +2,8 @@
 
 NUTS/HMC, ADVI and SMC over CPD parameters (the reference defers inference,
 README.md:110-113; BASELINE.json config 5), on tensors of the device the
-caller's ``init`` lives on. Counterpart of ``pybnesian_tpu/inference``;
-sharding chains over several devices waits for the port's multi-device
-runtime.
+caller's ``init`` lives on (``sample_chains_sharded``: over the devices of
+a mesh). Counterpart of ``pybnesian_tpu/inference``.
 """
 
 from .advi import advi

@@ -12,7 +12,8 @@ sampler) U-turned? — and stops doubling there.
 Randomness: ``key`` is a ``torch.Generator`` on ``init``'s device, or an
 ``int`` seed for one. Every draw comes from it; the chains of
 :func:`nuts_chains` and :func:`sample_chains` draw batched tensors from
-the one generator.
+the one generator, and :func:`sample_chains_sharded` seeds one generator
+per shard from it.
 """
 
 from __future__ import annotations
@@ -491,10 +492,57 @@ def sample_chains(logdensity, init, key, num_chains: int = 4,
     return samples, info
 
 
+def _shard_draws(init, key, num_chains, n_shards):
+    """The draws of :func:`sample_chains_sharded` from ``key`` (see its
+    rule): the jittered (num_chains, dim) inits and one seed per shard."""
+    gen = _generator(key, init.device)
+    jitter = 0.1 * torch.randn((num_chains, init.shape[0]), generator=gen,
+                               dtype=init.dtype, device=init.device)
+    seeds = torch.randint(0, 2**62, (n_shards,), generator=gen,
+                          device=init.device)
+    return init[None, :] + jitter, seeds.tolist()
+
+
 def sample_chains_sharded(logdensity, init, key, mesh, axis: str = "data",
                           chains_per_device: int = 1, method: str = "hmc",
                           **kwargs):
-    """Chains sharded over several devices: not in the port yet."""
-    raise NotImplementedError(
-        "sample_chains_sharded comes to the torch port with its multi-device "
-        "runtime (ROADMAP Queue 1 item 8); on one device use sample_chains")
+    """Chains sharded over a mesh axis: ``num_chains = mesh.shape[axis] ×
+    chains_per_device``, shard s holding chains s·cpd to (s+1)·cpd − 1.
+
+    The seeding rule: from ``key``'s generator (an int seeds one on
+    ``init``'s device), the inits are ``init + 0.1·randn(num_chains, dim)``
+    as in :func:`sample_chains`, then one ``randint(0, 2**62)`` seed per
+    shard; shard s runs on its device (the first of this process along the
+    other axes) with ``torch.Generator(device).manual_seed(seed_s)``:
+    :func:`nuts_chains` over its chains for ``method="nuts"``, :func:`hmc`
+    once per chain, one after another, for ``"hmc"``. So each shard equals
+    that call on its own. Shards run one after another on the host (a NUTS
+    transition reads its device once per doubling level). On a mesh that
+    spans processes each process runs its shards and the results are
+    all-gathered. Returns samples (num_chains, num_samples, dim) and the
+    per-chain info fields."""
+    from ..parallel import all_gather_data, local_shards
+
+    n_shards = mesh.shape[axis]
+    inits, seeds = _shard_draws(init, key, n_shards * chains_per_device,
+                                n_shards)
+    runs = []
+    for s, device in local_shards(mesh, axis):
+        chains = inits[s * chains_per_device: (s + 1) * chains_per_device]
+        chains = chains.to(device)
+        gen = torch.Generator(device=device).manual_seed(seeds[s])
+        if method == "nuts":
+            runs.append(nuts_chains(logdensity, chains, gen, **kwargs))
+            continue
+        one = [hmc(logdensity, c, gen, **kwargs) for c in chains]
+        runs.append((torch.stack([x for x, _ in one]), {
+            k: torch.stack([torch.as_tensor(inf[k]) for _, inf in one])
+            for k in one[0][1]}))
+
+    def gather(parts):
+        out = all_gather_data(mesh, parts)
+        return out.reshape((-1,) + tuple(out.shape[2:]))
+
+    samples = gather([x for x, _ in runs])
+    info = {k: gather([inf[k] for _, inf in runs]) for k in runs[0][1]}
+    return samples, info

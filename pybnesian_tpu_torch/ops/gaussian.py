@@ -2,6 +2,7 @@
 
 Port of ``pybnesian_tpu/ops/gaussian.py`` as far as the scores need it:
 :func:`batched_lg_cv_loglik` (CV likelihood),
+:func:`lg_logl` (one fitted family's per-row log-likelihood),
 :func:`batched_lg_holdout_loglik` (holdout likelihood), :func:`batched_bic`
 (BIC) and their helpers. Candidate families are the unit of batching, as in
 the JAX package:
@@ -38,6 +39,7 @@ __all__ = [
     "batched_bic",
     "batched_lg_cv_loglik",
     "batched_lg_holdout_loglik",
+    "lg_logl",
 ]
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -144,6 +146,12 @@ def batched_bic(values, valid, var_idx, parent_idx, parent_mask):
     grams, n_eff = family_grams(values, valid, var_idx, parent_idx,
                                 parent_mask)
     return bic_from_gram(grams, parent_mask, n_eff)
+
+
+def lg_logl(y, X, beta, variance):
+    """Per-row log N(y | beta0 + X·beta[1:], variance)
+    (reference LinearGaussianCPD.cpp:93-119)."""
+    return _gaussian_ll(y, beta[0] + X @ beta[1:], variance)
 
 
 def _gaussian_ll(y, mean, variance):

@@ -23,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["default_device", "resolve_device", "use_device", "torch_dtype",
-           "numpy_dtype", "host_to_device"]
+__all__ = ["default_device", "resolve_device", "visible_devices",
+           "use_device", "torch_dtype", "numpy_dtype", "host_to_device"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -74,6 +74,17 @@ def default_device() -> torch.device:
             "point, or call pybnesian_tpu_torch.use_device('cpu') first"
         )
     return torch.device("cuda")
+
+
+def visible_devices() -> list[torch.device]:
+    """The devices a mesh spans by default: every visible GPU, or the one
+    device chosen with :func:`use_device` when that is not a GPU (the CPU).
+    Raises as :func:`default_device` does."""
+    device = default_device()
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def resolve_device(device=None) -> torch.device:

@@ -318,5 +318,14 @@ def test_clg_posterior_nuts_concentrates_on_the_reference_mle():
 
 
 def test_sample_chains_sharded_waits_for_item_8():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tinf.sample_chains_sharded(_std_normal, _zeros(2), 0, mesh=None)
+    # item 8 (the multi-device runtime) has landed: the chains run sharded,
+    # here over two virtual CPU shards (tests/test_torch_parallel.py holds
+    # them to the reference's shapes and each shard to its own sampler)
+    from pybnesian_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    samples, info = tinf.sample_chains_sharded(
+        _std_normal, _zeros(2), 0, mesh, num_samples=10, num_warmup=10)
+    assert samples.shape == (2, 10, 2)
+    assert bool(torch.isfinite(samples).all())
+    assert info["step_size"].shape == (2,)

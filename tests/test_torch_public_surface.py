@@ -23,9 +23,6 @@ PORT_ONLY = {"use_device"}
 # modules of the JAX package with no counterpart in the port, by the
 # roadmap item that ports them
 OPEN_MODULES = {
-    "Queue 1 item 8 (multi-device and runtime)": {
-        "parallel/__init__.py", "runtime/checkpoint.py", "runtime/config.py",
-        "runtime/distributed.py"},
     # the Pallas kernels; their Hopper counterparts are csrc/ckde_cv.cu
     # with ops/ckde_cv_kernel.py and ops/kde_kernel.py
     "replaced by CUDA kernels": {"ops/pallas_kde.py"},
