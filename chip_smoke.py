@@ -15,8 +15,11 @@ the script exits non-zero and prints no result:
    bound: the bench shape, config3b's shape (G 4, 10k × 10k, dpad 2) and
    the main path's own inputs; each timed shape, and the CV path's shape at
    100,000 rows (G 150, 90,000 × 10,000, dpad 3), also timed with the train
-   axis split 1, 2, 4 and 8 ways, each output held against the planned
-   launch's;
+   axis split 1, 2, 4 and 8 ways, each output held bit-equal to the planned
+   launch's; program 0 of the bench shape and of the main path's inputs
+   (G 150) bit-equal alone (G 1) and run again; the main path's inputs
+   through two ``_scaled_dot_product_efficient_attention`` calls (the
+   library yardstick: time and error, not a gate);
 3. the port's ``flash_cv_selfcheck`` on the card;
 4. the CV path: ``CVLikelihood.local_score_batch`` on bench.py's workload
    (10,000 rows × 5 float32 columns, 15 CKDE families, 10 folds, normal
@@ -28,7 +31,8 @@ the script exits non-zero and prints no result:
 5. the KDE kernel (``kde_logl``) against its plain version: small ragged
    cases (G 1 and 2, d 1 to 20, an all-invalid first train tile) and the
    TPU kernel's own shape (10,240 × 10,240 rows, d 3), timed with its
-   launch plan and bound, and split 1, 2, 4 and 8 ways;
+   launch plan and bound, split 1, 2, 4 and 8 ways (bit-equal), bit-equal
+   alone and inside G 150, and one efficient-attention call beside it;
 6. the exp-chain probe (``exp_chain``) against its plain version and its
    accurate-``expf`` rate; then every timed kernel's bound (the larger of
    its exps over the SFU's 16 ``ex2`` per clock per SM at the max SM clock,
@@ -53,7 +57,9 @@ the script exits non-zero and prints no result:
    2,000); the float32 scores of the cache pass's families and of both
    validation routes against the float64 run's at :data:`SCORE_RTOL`, with
    their cross-batch difference (the cache pass's families in one batch,
-   then each alone) and two-route difference (the holdout batch against a
+   then each alone; for the one-parent CKDE families, which of the pairs
+   kernel's whitened inputs and outputs are not bit-equal alone and inside
+   the batch) and two-route difference (the holdout batch against a
    fitted factor per node); a ``score="cv-lik"`` search (no validation
    guard): its iterations and how many of its steps undo an earlier one;
    and BIC, the GaussianNetwork default, against float64, then its ``hc``;
@@ -66,7 +72,14 @@ the script exits non-zero and prints no result:
    float32 scores against a float64 score GIVEN THE SAME per-fold
    bandwidths at :data:`SCORE_RTOL`, the scores of the two searches' own
    bandwidths beside them, and the pairs kernel against its plain version
-   on these inputs (G = families × folds); (c) one family with a
+   on these inputs (G = families × folds); the UCV pair-sums kernel
+   (``ucv_pair_sums``, launched by the float32 searches and never by the
+   float64 ones) against its plain version at :data:`UCV_RTOL` on the
+   searches' own inputs and on an all-invalid problem, two invalid rows,
+   N 4,097, d 1 and d 20, one problem's sums bit-equal alone, inside 30
+   problems, padded with invalid rows and run again, and its times at
+   (10, 9,000, 3) with its bound and two efficient-attention calls beside
+   it; (c) one family with a
    user-defined selector (a scaled covariance); (d) ``KDE(vars,
    UCV()).fit`` and its ``logl`` through the KDE kernel. Every search's
    iterations per problem, objective evaluations and seconds are printed,
@@ -175,7 +188,9 @@ launch while the host issues the next, so that it holds no launch
 latency. Each path (4, 6, 7, 8, 9, 11, 12, 13, 14, 16) runs with every launch count
 set to 0 just before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
-version's time and its bound comes two lines before the last, then the
+version's time, its bound and its library yardstick's time (``library_ms``:
+the efficient-attention calls of phases 2, 5 and 9; none for the exp
+chain) comes two lines before the last, then the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 Needs CUDA; imports neither JAX nor the JAX package.
@@ -203,10 +218,16 @@ KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
                  "pybnesian_tpu/ops/pallas_kde.py:36"),
     "exp_chain": ("pybnesian_tpu_torch/csrc/exp_chain.cu",
                   "benchmarks/micro_exp_roofline.py:90"),
+    "ucv_pair_sums": ("pybnesian_tpu_torch/csrc/ucv_pairs.cu",
+                      "pybnesian_tpu/ops/kde.py:507 (XLA-fused, no Pallas "
+                      "kernel)"),
 }
 PAIR_TOL = 1e-3       # max abs difference per test row, kernel vs plain
 SCORE_RTOL = 1e-4     # float32 kernel route vs float64 plain route
 EXP_TOL = 1e-5        # max abs difference of the exp chain, kernel vs plain
+UCV_RTOL = 1e-5       # relative difference per UCV pair sum, kernel vs plain
+                      # (float32 terms summed in another order, float64
+                      # above a thread's 512 terms in both)
 ROW_TOL = 1e-3        # per-row logl: float32 kernel routes vs float64 plain,
                       # and the model's batched route vs its factors' routes
 TIMED_RUNS = 10
@@ -336,9 +357,10 @@ def counters():
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
     from pybnesian_tpu_torch.ops.exp_chain import exp_chain
     from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
+    from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_cuda
 
     return {"ckde_cv_pairs": ckde_cv_pairs, "kde_logl": kde_logl,
-            "exp_chain": exp_chain}
+            "exp_chain": exp_chain, "ucv_pair_sums": ucv_pair_sums_cuda}
 
 
 def reset_counts():
@@ -514,18 +536,18 @@ def time_kernel(torch, fn):
 def split_sweep(torch, launch, args, want, plan, phase, label):
     """Times ``launch`` (a kernel's uncounted launcher) on ``args`` with the
     plan's train axis forced to each split of :data:`SPLITS`, one launch
-    per window, each output held against ``want``, the planned launch's
-    output on the same inputs."""
+    per window, each output held bit-equal to ``want``, the planned
+    launch's output on the same inputs: the split only decides which block
+    sweeps which of the fixed leaves of the reduction."""
     times = {}
     for split in SPLITS:
         forced = (*plan[:2], split)
         got = launch(*args, forced)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not err <= PAIR_TOL:
-            raise AssertionError(f"{label} split {split}: max abs diff "
-                                 f"{err} > {PAIR_TOL} from the planned "
-                                 "launch")
+        if not torch.equal(got, want):
+            err = float((got - want).abs().max())
+            raise AssertionError(f"{label} split {split}: not bit-equal to "
+                                 f"the planned launch (max abs diff {err})")
         times[f"S{split}_ms"] = (
             f"{cuda_median_ms(torch, lambda: launch(*args, forced)):.4f}")
     say(phase, case=label, planned_S=plan[2], **times)
@@ -568,6 +590,86 @@ def compare_pairs(torch, args, label, card=None, phase="2 kernel",
     return result
 
 
+def hold_batch_independence(torch, wrapper, args, label, phase):
+    """Program 0 of a launch of ``wrapper`` on ``args`` (G programs) held
+    bit-equal to the same program launched alone (G 1), and the launch to
+    itself run again: a program's float32 result depends on its own inputs
+    only."""
+    together = wrapper(*args)
+    alone = wrapper(*[a[:1].contiguous() for a in args])
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(together[:1], alone) and torch.equal(together, again)):
+        raise AssertionError(f"{label}: program 0 alone, inside G "
+                             f"{args[0].shape[0]} and run again is not "
+                             "bit-equal")
+    say(phase, case=label, G=args[0].shape[0],
+        program0_bit_equal_alone_in_batch_and_rerun=True)
+
+
+def efficient_attention_lse(torch, q, k, scale=1.0):
+    """(B, M) natural-log logsumexp over keys of ``scale * q @ k.T`` from
+    ``torch.ops.aten._scaled_dot_product_efficient_attention`` (one head;
+    q (B, M, e), k (B, N, e) zero-padded to 8 columns). A yardstick only:
+    the port never calls it."""
+    e = -(-q.shape[-1] // 8) * 8
+    q = torch.nn.functional.pad(q, (0, e - q.shape[-1]))[:, None]
+    k = torch.nn.functional.pad(k, (0, e - k.shape[-1]))[:, None]
+    v = torch.zeros_like(k)
+    lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q.contiguous(), k.contiguous(), v, None, True, scale=scale)[1]
+    return lse[:, 0, : q.shape[2]]
+
+
+def padded_lse_operands(torch, te, tr, keep):
+    """q = [te, 1] and k = [tr, -|tr|^2 / 2 (-1e30 where not ``keep``)]:
+    q . k = -|te - tr|^2 / 2 + |te|^2 / 2 on the kept rows."""
+    ones = torch.ones_like(te[..., :1])
+    last = torch.where(keep, -0.5 * (tr * tr).sum(-1), -1e30)
+    return (torch.cat([te, ones], -1).contiguous(),
+            torch.cat([tr, last[..., None]], -1).contiguous())
+
+
+def library_pairs(torch, args):
+    """Kernel #1's function by two efficient-attention calls (the joint,
+    the marginal) on ``args``: ms of the two calls, and their result's max
+    abs error against the plain version."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs_reference
+
+    jtr, neg, ztr, jte, zte, no_ev, lm_const = args
+    qj, kj = padded_lse_operands(torch, jte, jtr, neg == 0)
+    # the marginal drops the variable: q = [te, 1, -zte],
+    # k = [tr, -|tr|^2 / 2 + ztr^2 / 2, ztr]
+    qm = torch.cat([qj, -zte[..., None]], -1)
+    km = torch.cat([kj[..., :-1], (kj[..., -1] + 0.5 * ztr * ztr)[..., None],
+                    ztr[..., None]], -1)
+
+    def calls():
+        return (efficient_attention_lse(torch, qj, kj),
+                efficient_attention_lse(torch, qm, km))
+
+    lj, lm = calls()
+    half = 0.5 * (jte * jte).sum(-1)
+    got = (lj - half) - torch.where(no_ev[:, None] > 0.5, lm_const[:, None],
+                                    lm - half + 0.5 * zte * zte)
+    err = float((got - ckde_cv_pairs_reference(*args)).abs().max())
+    return cuda_median_ms(torch, calls), err
+
+
+def library_kde(torch, args):
+    """Kernel #2's function by one efficient-attention call on ``args``:
+    its ms and its result's max abs error against the plain version."""
+    from pybnesian_tpu_torch.ops.kde_kernel import kde_logl_reference
+
+    train, valid, test, lognorm = args
+    q, k = padded_lse_operands(torch, test, train, valid > 0)
+    got = (efficient_attention_lse(torch, q, k)
+           - 0.5 * (test * test).sum(-1) + lognorm[:, None])
+    err = float((got - kde_logl_reference(*args)).abs().max())
+    return cuda_median_ms(torch, lambda: efficient_attention_lse(torch, q, k)
+                          ), err
+
+
 def phase_kernel(torch, main_args, card):
     """Small cases, then the timed shapes; returns the timed cases'
     results by label."""
@@ -580,20 +682,31 @@ def phase_kernel(torch, main_args, card):
     # (b) the bench shape: 150 (family, fold) programs, 9000 × 1000 rows;
     # (c) config3b's model.slogl shape; (d) the main path's own inputs:
     # the whitened parts of its first batch
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+
+    bench_args = pair_inputs(torch, 150, 9000, 1000, 4, seed=7)
     cases = {
-        "bench-shape": compare_pairs(
-            torch, pair_inputs(torch, 150, 9000, 1000, 4, seed=7),
-            "bench-shape", card),
+        "bench-shape": compare_pairs(torch, bench_args, "bench-shape", card),
         "config3b-shape": compare_pairs(
             torch, pair_inputs(torch, *CONFIG3B_PAIRS_SHAPE, seed=8),
             "config3b-shape", card),
         "main-path-inputs": compare_pairs(torch, main_args,
                                           "main-path-inputs", card),
     }
+    hold_batch_independence(torch, ckde_cv_pairs, bench_args, "bench-shape",
+                            "2 kernel")
+    hold_batch_independence(torch, ckde_cv_pairs, main_args,
+                            "main-path-inputs", "2 kernel")
+    library_ms, library_err = library_pairs(torch, main_args)
+    cases["main-path-inputs"].update(library_ms=library_ms)
+    say("2 kernel", case="main-path-inputs",
+        library="2 calls of _scaled_dot_product_efficient_attention",
+        library_ms=f"{library_ms:.4f}",
+        library_max_abs_err=f"{library_err:.3e}",
+        kernel_ms=f"{cases['main-path-inputs']['ms']:.4f}")
     # (e) the CV path's shape at 100,000 rows, too large for the plain
     # version's timing: the forced splits against the planned launch
-    from pybnesian_tpu_torch.ops.ckde_cv_kernel import (
-        _launch, _launch_plan, ckde_cv_pairs)
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _launch, _launch_plan
 
     args = pair_inputs(torch, *CV_100K_PAIRS_SHAPE, seed=9)
     want = ckde_cv_pairs(*args)
@@ -781,9 +894,22 @@ def phase_kde_kernel(torch, card):
             args = kde_inputs(torch, G, 600, 77, d, seed=10 * G + d)
             args[1][0, :256] = 0.0  # an all-invalid first train tile
             errs.append(compare_kde(torch, args, f"small-G{G}-d{d}")["err"])
-    result = compare_kde(torch, kde_inputs(torch, *KDE_TPU_SHAPE, seed=1),
-                         "tpu-docstring-shape", card)
+    from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
+
+    args = kde_inputs(torch, *KDE_TPU_SHAPE, seed=1)
+    result = compare_kde(torch, args, "tpu-docstring-shape", card)
     result["err"] = max(errs + [result["err"]])
+    # the same program inside G 150 (the CV path's program count)
+    hold_batch_independence(
+        torch, kde_logl, [a.expand(150, *a.shape[1:]).contiguous()
+                          for a in args],
+        "tpu-docstring-shape", "5 kde kernel")
+    result["library_ms"], library_err = library_kde(torch, args)
+    say("5 kde kernel", case="tpu-docstring-shape",
+        library="_scaled_dot_product_efficient_attention",
+        library_ms=f"{result['library_ms']:.4f}",
+        library_max_abs_err=f"{library_err:.3e}",
+        kernel_ms=f"{result['ms']:.4f}")
     return result
 
 
@@ -1106,12 +1232,37 @@ def cv_lik_search(torch, frame):
             "cv_lik_reversals": reversals(recorder)}
 
 
-def cross_batch(score, score64, model):
+def batch_sources(torch, engine, fams):
+    """Where a CKDE family's float32 CV score can pick up its batch: the
+    pairs kernel's inputs (the whitened folds) of each of ``fams`` built
+    inside one batch of all of them and built alone, and the kernel's
+    per-row outputs on each, compared bit for bit. The kernel itself is
+    held batch-independent in phases 2 and 5."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+
+    K = len(engine.folds)
+    together = engine_pair_inputs(torch, engine, fams)
+    rows = ckde_cv_pairs(*together)
+    unequal_inputs, unequal_rows = set(), 0
+    names = ("jtr", "neg", "zv_tr", "jte", "zv_te", "no_ev", "lm_const")
+    for f, fam in enumerate(fams):
+        alone = engine_pair_inputs(torch, engine, [fam])
+        part = slice(f * K, (f + 1) * K)
+        unequal_inputs |= {n for n, t, a in zip(names, together, alone)
+                           if not torch.equal(t[part], a)}
+        unequal_rows += not torch.equal(rows[part], ckde_cv_pairs(*alone))
+    return {"batch_source_families": len(fams),
+            "whitened_inputs_not_bit_equal": repr(sorted(unequal_inputs)),
+            "kernel_rows_not_bit_equal_families": unequal_rows}
+
+
+def cross_batch(torch, score, score64, model):
     """The float32 CV scores of the cache pass's families — each node alone
     (linear-Gaussian and CKDE) and each one-parent family (linear-Gaussian,
     and CKDE as a CKDE node's update scores it) — in one batch, held against
     the float64 score's on the same folds, then scored each in a batch of
-    its own: max abs and relative difference of the two float32 batchings."""
+    its own: max abs and relative difference of the two float32 batchings;
+    then :func:`batch_sources` on the one-parent CKDE families."""
     from pybnesian_tpu_torch import CKDEType, LinearGaussianCPDType
 
     nodes = model.nodes()
@@ -1127,7 +1278,9 @@ def cross_batch(score, score64, model):
     diff = np.abs(together - alone)
     rel = diff / np.abs(alone)
     ckde = np.array([f[2] == CKDEType() for f in fams])
-    return {"cross_batch_families": len(fams),
+    one_parent = [(v, ps) for v, ps, nt in fams if ps and nt == CKDEType()]
+    return {**batch_sources(torch, score.cv_lik._engine, one_parent),
+            "cross_batch_families": len(fams),
             "cache_pass_max_rel_vs_f64": f"{rel64:.3e}",
             "cross_batch_max_abs": f"{diff.max():.3e}",
             "cross_batch_max_rel": f"{rel_alone:.3e}",
@@ -1308,7 +1461,7 @@ def phase_hc(torch):
     errs = hc_kernel_cases(torch, score, model)
     before = ckde_cv_pairs.launches
     start, score64 = recorder.models[0], run64[1]
-    fields = cross_batch(score, score64, start)
+    fields = cross_batch(torch, score, score64, start)
     fields.update(two_routes(score, score64, start, "start"))
     fields.update(two_routes(score, score64, model, "learned"))
     if ckde_cv_pairs.launches == before:
@@ -1449,11 +1602,178 @@ def add_counts(*counts):
     return {name: sum(c[name] for c in counts) for name in counts[0]}
 
 
-def phase_ucv(torch, frame32, frame64, k):
+class UcvRecording:
+    """While active, every launch of the UCV kernel through ``ops/kde.py``
+    (``ucv_pair_sums_batch``) is counted and the first launch's arguments
+    of each shape copied, as :class:`Recording` does for the KDE
+    kernels."""
+
+    def __enter__(self):
+        from pybnesian_tpu_torch.ops import kde as kde_ops
+
+        self._ops, self._wrapper = kde_ops, kde_ops.ucv_pair_sums_cuda
+        self.launches, self.first = 0, {}
+
+        def recording(white, valid=None):
+            shape = (tuple(white.shape), valid is not None)
+            self.launches += 1
+            if shape not in self.first:
+                self.first[shape] = (white.clone(), None if valid is None
+                                     else valid.clone())
+            return self._wrapper(white, valid)
+
+        kde_ops.ucv_pair_sums_cuda = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.ucv_pair_sums_cuda = self._wrapper
+
+
+def ucv_work(white, valid):
+    """(exps, FP32 ops, bytes) of one ucv_pair_sums call: one exp per valid
+    pair i < j; per pair a subtraction and an FMA per column and an add and
+    an FMA for the two sums (3 d + 3 operations, an FMA counted 2); the
+    rows (and the mask) read once, two sums a problem written."""
+    B, N, d = white.shape
+    n = (np.full(B, float(N)) if valid is None
+         else (valid > 0).sum(1).double().cpu().numpy())
+    pairs = float((n * (n - 1) / 2).sum())
+    nbytes = 4 * B * N * d + (0 if valid is None else 4 * B * N) + 8 * B
+    return pairs, pairs * (3 * d + 3), nbytes
+
+
+def ucv_rel_err(got, want):
+    """Max relative difference per sum (NaN where one side is NaN and the
+    other is not), and the max absolute difference."""
+    rel, err = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.double().cpu(), w.double().cpu()
+        nan = g.isnan() | w.isnan()
+        if not bool((g.isnan() == w.isnan()).all()):
+            return math.nan, math.nan
+        diff = (g - w)[~nan].abs()
+        if len(diff):
+            rel = max(rel, float((diff / w[~nan].abs().clamp_min(1e-30))
+                                 .max()))
+            err = max(err, float(diff.max()))
+    return rel, err
+
+
+def library_ucv(torch, white):
+    """The UCV sums of every-row-valid ``white`` by two efficient-attention
+    calls (scales 1/2 and 1 for the 2H and H terms; each row's sum over
+    all j less its own term 1, halved): ms of the two calls, and the
+    results' max relative error against the plain version."""
+    from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_reference
+
+    keep = torch.ones(white.shape[:2], dtype=torch.bool, device=white.device)
+    q, k = padded_lse_operands(torch, white, white, keep)
+
+    def calls():
+        return (efficient_attention_lse(torch, q, k, scale=0.5),
+                efficient_attention_lse(torch, q, k, scale=1.0))
+
+    half = 0.5 * (white * white).sum(-1).double()
+    n = white.shape[1]
+    got = [((torch.exp(lse.double() - s * half).sum(1) - n) / 2)
+           for lse, s in zip(calls(), (0.5, 1.0))]
+    rel, _err = ucv_rel_err(got, ucv_pair_sums_reference(white))
+    return cuda_median_ms(torch, calls), rel
+
+
+def ucv_kernel_check(torch, card, recorded):
+    """The UCV kernel against its plain version on the inputs of every
+    shape the searches launched it at (``recorded``), and on edge cases
+    cut from the widest of them: an all-invalid problem, one with exactly
+    two invalid rows, N odd and not a multiple of the tile, d 1 and d 20;
+    one problem's sums bit-equal alone, inside a 30-problem batch, padded
+    with invalid rows, and run again; the kernel timed at the widest
+    search shape with its bound, plain version and library yardstick."""
+    from pybnesian_tpu_torch.ops.ucv_kernel import (
+        ucv_pair_sums_cuda, ucv_pair_sums_reference)
+
+    def hold(white, valid, label):
+        got = ucv_pair_sums_cuda(white, valid)
+        want = ucv_pair_sums_reference(white, valid)
+        torch.cuda.synchronize()
+        rel, err = ucv_rel_err(got, want)
+        if not rel <= UCV_RTOL:
+            raise AssertionError(f"ucv {label}: relative diff {rel} > "
+                                 f"{UCV_RTOL} (kernel {got}, plain {want})")
+        say("9 ucv kernel", case=label, B_N_d="x".join(map(str, white.shape)),
+            masked=valid is not None, max_rel_err=f"{rel:.3e}",
+            max_abs_err=f"{err:.3e}")
+        errs.append(err)
+        return got
+
+    if not recorded:
+        raise AssertionError("the UCV searches recorded no kernel launch")
+    errs = []
+    for w, v in recorded.values():
+        hold(w, v, f"search-inputs-{w.shape[2]}d")
+    white, _ = max(recorded.values(), key=lambda wv: wv[0].shape[2])
+    B, N, d = white.shape
+    three = white[:3].contiguous()
+    valid = torch.ones((3, N), dtype=torch.float32, device="cuda")
+    valid[0] = 0.0                       # all invalid
+    valid[1, [7, N // 2]] = 0.0          # exactly two invalid rows
+    got = hold(three, valid, "invalid-rows")
+    if not (float(got[0][0]) == 0.0 and float(got[1][0]) == 0.0):
+        raise AssertionError(f"ucv all-invalid problem gave {got}")
+    odd = 4097                           # odd, not a multiple of 256
+    hold(white[:2, :odd].contiguous(), None, f"N{odd}")
+    hold(white[:2, :, :1].contiguous(), None, "d1")
+    rng = np.random.default_rng(9)
+    wide = torch.as_tensor(rng.normal(0, 0.3, (2, 3001, 20)), device="cuda",
+                           dtype=torch.float32)
+    hold(wide, None, "d20")
+
+    # one problem alone, inside 30, padded with invalid rows, run twice
+    batch = torch.cat([white, 0.5 * white, 2.0 * white])[:30].contiguous()
+    alone = ucv_pair_sums_cuda(white[:1].contiguous())
+    inside = ucv_pair_sums_cuda(batch)
+    again = ucv_pair_sums_cuda(batch)
+    pad = torch.cat([white[:1], torch.zeros((1, 1000, d), device="cuda")], 1)
+    pad_valid = torch.ones(pad.shape[:2], device="cuda")
+    pad_valid[:, N:] = 0.0
+    padded = ucv_pair_sums_cuda(pad.contiguous(), pad_valid)
+    torch.cuda.synchronize()
+    same = all(torch.equal(alone[i], inside[i][:1])
+               and torch.equal(inside[i], again[i])
+               and torch.equal(alone[i], padded[i]) for i in range(2))
+    if not same:
+        raise AssertionError("ucv: problem 0 alone, inside 30, padded and "
+                             "run again is not bit-equal")
+    say("9 ucv kernel", case="problem 0", batch=len(batch),
+        bit_equal_alone_in_batch_padded_and_rerun=True)
+
+    result = {"err": max(errs),
+              **time_kernel(torch, lambda: ucv_pair_sums_cuda(white)),
+              "plain_ms": cuda_median_ms(
+                  torch, lambda: ucv_pair_sums_reference(white)),
+              "work": ucv_work(white, None), "plan": None}
+    result["library_ms"], library_rel = library_ucv(torch, white)
+    bound_ms, by = bound(card, *result["work"])
+    say("9 ucv kernel", case=f"search-inputs-{d}d",
+        B_N_d="x".join(map(str, white.shape)),
+        kernel_ms=f"{result['ms']:.4f}",
+        kernel_batched_ms=f"{result['batched_ms']:.4f}",
+        plain_ms=f"{result['plain_ms']:.4f}",
+        library="2 calls of _scaled_dot_product_efficient_attention",
+        library_ms=f"{result['library_ms']:.4f}",
+        library_max_rel_err=f"{library_rel:.3e}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=by,
+        bound_share=f"{bound_ms / result['ms']:.4f}",
+        batched_bound_share=f"{bound_ms / result['batched_ms']:.4f}")
+    return result
+
+
+def phase_ucv(torch, frame32, frame64, k, card):
     """UCV and custom bandwidth selectors on the card. Returns the
     launches of its path — the entry points of (b) in float32, (c) and
-    (d), each driven with the counts at 0 and read just after — and the
-    pairs kernel's error on the UCV-scored inputs."""
+    (d), each driven with the counts at 0 and read just after — the pairs
+    kernel's error on the UCV-scored inputs, and the UCV kernel's checked
+    and timed case (:func:`ucv_kernel_check`)."""
     from pybnesian_tpu_torch import (
         KDE, UCV, Arguments, BandwidthSelector, CKDEType, CVLikelihood,
         DataFrame, KDENetwork, Kwargs)
@@ -1473,15 +1793,25 @@ def phase_ucv(torch, frame32, frame64, k):
               for tag, frame in frames.items()}
     own, walls, counted = {}, {}, {}
     for tag, score in scores.items():
-        reset_counts()
-        t0 = time.perf_counter()
-        own[tag] = score.local_score_batch(model, typed)
-        walls[tag] = time.perf_counter() - t0
-        counted[tag] = read_counts()
+        with UcvRecording() as rec:
+            reset_counts()
+            t0 = time.perf_counter()
+            own[tag] = score.local_score_batch(model, typed)
+            walls[tag] = time.perf_counter() - t0
+            counted[tag] = read_counts()
+        if tag == "f32":
+            recorded = rec
     launches_b = counted["f32"]
-    if launches_b["ckde_cv_pairs"] == 0:
-        raise AssertionError("the UCV-selected families did not launch the "
-                             "pairs kernel")
+    for name in ("ckde_cv_pairs", "ucv_pair_sums"):
+        if launches_b[name] == 0:
+            raise AssertionError(f"the UCV-selected families did not launch "
+                                 f"{name}")
+    if recorded.launches != launches_b["ucv_pair_sums"]:
+        raise AssertionError(f"ucv_pair_sums counted "
+                             f"{launches_b['ucv_pair_sums']} launches, "
+                             f"recorded {recorded.launches}")
+    if counted["f64"]["ucv_pair_sums"] != 0:
+        raise AssertionError("the float64 searches launched the UCV kernel")
     if not all(np.all(np.isfinite(v)) for v in own.values()):
         raise AssertionError(f"non-finite UCV scores {own}")
     # reported, not held to a tolerance: the two searches stop at
@@ -1522,6 +1852,7 @@ def phase_ucv(torch, frame32, frame64, k):
     err = compare_pairs(
         torch, ucv_pair_inputs(torch, scores["f32"]._engine, fams, given),
         "ucv-cv-families", phase="9 ucv kernel")["err"]
+    ucv = ucv_kernel_check(torch, card, recorded.first)
     say("9 ucv", path="CVLikelihood+UCV", scoring_s_f32=f"{scoring_s:.4f}",
         scores_f32=repr([round(float(x), 3) for x in s32]),
         same_bandwidths_max_rel_vs_f64=f"{rel_given:.3e}",
@@ -1582,7 +1913,7 @@ def phase_ucv(torch, frame32, frame64, k):
         fit_s=f"{fit_s:.4f}", iterations=int(search.iterations[0]),
         evaluations=search.evaluations,
         logl_max_abs_vs_f64=f"{err_kde:.3e}", launches=launches_d)
-    return add_counts(launches_b, launches_c, launches_d), err
+    return add_counts(launches_b, launches_c, launches_d), err, ucv
 
 
 def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0, fresh=0.3):
@@ -3148,7 +3479,7 @@ def main():
     })
     model_launches = phase_model_path(torch)
     hc_launches, hc_errs = phase_hc(torch)
-    ucv_launches, ucv_err = phase_ucv(torch, frame32, frame64, k)
+    ucv_launches, ucv_err, ucv = phase_ucv(torch, frame32, frame64, k, card)
     phase_discrete(torch)
     t_new = time.perf_counter()
     hybrid_launches, hybrid_errs = phase_hybrid(torch)
@@ -3166,7 +3497,7 @@ def main():
              "dynamic": dynamic_launches, "constraint": constraint_launches,
              "independence": independence_launches,
              "parallel": parallel_launches}
-    for name in ("ckde_cv_pairs", "kde_logl"):
+    for name in ("ckde_cv_pairs", "kde_logl", "ucv_pair_sums"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
     # every launch of paths 11-14 and 16 was held at its shape
@@ -3181,7 +3512,8 @@ def main():
     kde = dict(kde, err=max([kde["err"], hc_errs["kde_logl"]]
                             + [e["kde_logl"] for e in new_errs
                                if "kde_logl" in e]))
-    results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe}
+    results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe,
+               "ucv_pair_sums": ucv}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {p: counts[name] for p, counts in paths.items()
@@ -3197,8 +3529,9 @@ def main():
             "ms": result["ms"], "batched_ms": result["batched_ms"],
             "plain_ms": result["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes" if by == "bytes" else "operations",
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
+            # one efficient-attention call (#2) or two (#1, the UCV sums):
+            # their logsumexp output; nothing computes the exp chain
+            "library_ms": result.get("library_ms"),
         })
     say("all phases", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,13 +54,20 @@
 //   rows in shared memory column by column, so that one float4 load gives
 //   one coordinate of 4 train rows, which serves 8 pairs, and every step of
 //   a group's distances is 2 * T independent updates.
-// - The train axis split across a thread-block cluster. When the programs
-//   and test tiles give too few blocks to fill the card, the launch plan
-//   (chosen by the Python wrapper) splits each program's train rows over S
-//   blocks of one cluster. Each block sweeps its share for the same test
-//   tile; the blocks then merge their (m, s) pairs through distributed
-//   shared memory, each finishing 1/S of the tile's rows. No scratch buffer
-//   and no second launch.
+// - A fixed reduction tree. A program's train rows fall into P leaves, P a
+//   power of two that depends on ntr alone (reduction_leaves); each leaf is
+//   swept from a fresh (m, s) pair, and the P leaf pairs of a test row are
+//   merged in a balanced binary tree. So the float32 result of a (program,
+//   test row) is a function of its own inputs, ntr and d: not of G, of the
+//   other programs, or of the launch plan.
+// - The leaves split across a thread-block cluster. When the programs and
+//   test tiles give too few blocks to fill the card, the launch plan
+//   (chosen by the Python wrapper) spreads each program's leaves over S
+//   blocks of one cluster. Each block sweeps its leaves for the same test
+//   tile and keeps each leaf's (m, s) pairs in shared memory; the blocks
+//   then merge the leaves through distributed shared memory in the tree's
+//   order, each finishing 1/S of the tile's rows. S only decides which
+//   block sweeps which leaf. No scratch buffer and no second launch.
 //
 // Wider KDE programs (d up to 256) take a runtime-width kernel with the
 // same exps, invalid-row staging and lazy max-then-sum, over groups of 32:
@@ -280,11 +287,47 @@ __device__ __forceinline__ float finish(const PairsArgs& a, int g, bool marg,
   }
 }
 
+// Leaves of a program's train rows for the templated widths: the largest
+// power of two up to kMaxSplit that leaves each leaf a full tile, 1 below
+// two tiles. Leaf q holds rows [q * size, min(ntr, (q + 1) * size)) for
+// size = ceil(ntr / leaves). A function of ntr alone, so that a test row's
+// reduction tree is the same in every launch.
+__host__ __device__ __forceinline__ int reduction_leaves(int ntr) {
+  int leaves = 1;
+  while (2 * leaves <= kMaxSplit && 2 * leaves * kTile <= ntr) leaves *= 2;
+  return leaves;
+}
+
+// The first leaf of cluster rank q of `split`: rank q sweeps leaves
+// [first_leaf(q), first_leaf(q + 1)), none when split exceeds the leaves.
+__device__ __forceinline__ int first_leaf(int q, int leaves, int split) {
+  return q * leaves / split;
+}
+
+// Merges the P leaf pairs v[0..P) of one test row in a balanced binary
+// tree, into v[0]: ((v0 v1) (v2 v3)) ((v4 v5) (v6 v7)). P is a power of
+// two up to kMaxSplit; the marginal's pairs only when `marg`.
+__device__ __forceinline__ void merge_tree(float4 (&v)[kMaxSplit], int P,
+                                           bool marg) {
+#pragma unroll
+  for (int w = 1; w < kMaxSplit; w *= 2) {
+#pragma unroll
+    for (int b = 0; b + w < kMaxSplit; b += 2 * w) {
+      if (b + w < P) {
+        lse_merge(v[b].x, v[b].y, v[b + w].x, v[b + w].y);
+        if (marg) lse_merge(v[b].z, v[b].w, v[b + w].z, v[b + w].w);
+      }
+    }
+  }
+}
+
 // Grid (tiles * split, G), clusters of `split` blocks along x. Block x
 // serves test rows [tile * 128R, (tile + 1) * 128R) of program g, thread t
-// rows tile * 128R + r * 128 + t, and the train rows of its cluster rank.
-// The minimum of kMinBlocks blocks per SM caps a thread at 168 registers;
-// without it ptxas held some widths to 64 or 128 and spilled.
+// rows tile * 128R + r * 128 + t, and the leaves of its cluster rank. Each
+// leaf's (mj, sj, mm, sm) per test row goes to a slot of the dynamic shared
+// memory s_leaf (slots x kRows float4). The minimum of kMinBlocks blocks
+// per SM caps a thread at 168 registers; without it ptxas held some widths
+// to 64 or 128 and spilled.
 template <int D, int R, bool kCv>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     pairs_kernel(const PairsArgs a) {
@@ -292,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   constexpr int kRows = kThreads * R;
   static_assert(kTile % T == 0, "a tile holds whole groups");
   __shared__ __align__(16) float s_tr[(D + (kCv ? 1 : 0)) * kTile];
-  __shared__ float4 s_part[kRows];  // (mj, sj, mm, sm) per row, for merging
+  extern __shared__ float4 s_leaf[];
 
   const int g = blockIdx.y;
   const int split = a.split;
@@ -314,69 +357,73 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     zte[r] = (kCv && active) ? kScale * a.zte[row] : 0.0f;
   }
 
-  // (m, s) pairs of the joint and the marginal in log2 units: every value
-  // is <= 0, so the reference starts at 0 (see lse_lazy)
-  float mj[R], sj[R], mm[R], sm[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    mj[r] = 0.0f, sj[r] = 0.0f, mm[r] = 0.0f, sm[r] = 0.0f;
-  }
-  // this rank's contiguous share of the program's train rows
-  const int share = (a.ntr + split - 1) / split;
-  const int lo = min(a.ntr, rank * share);
-  const int hi = min(a.ntr, lo + share);
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    const int rows = min(kTile, hi - t0);
-    const int padded = (rows + T - 1) / T * T;
-    stage_tile<D, kCv>(a, g, t0, rows, padded, s_tr);
-    __syncthreads();
-    if (marg) {
-      if constexpr (kCv) {
-        sweep_tile<D, R, true>(s_tr, padded, te, zte, mj, sj, mm, sm);
-      }
-    } else {
-      sweep_tile<D, R, false>(s_tr, padded, te, zte, mj, sj, mm, sm);
-    }
-    __syncthreads();
-  }
-
-  if (split == 1) {
+  const int leaves = reduction_leaves(a.ntr);
+  const int size = (a.ntr + leaves - 1) / leaves;
+  const int lo_leaf = first_leaf(rank, leaves, split);
+  const int hi_leaf = first_leaf(rank + 1, leaves, split);
+  for (int leaf = lo_leaf; leaf < hi_leaf; ++leaf) {
+    // (m, s) pairs of the joint and the marginal in log2 units: every value
+    // is <= 0, so the reference starts at 0 (see lse_lazy)
+    float mj[R], sj[R], mm[R], sm[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int i = i0 + r * kThreads + threadIdx.x;
-      if (i < a.nte) {
-        a.out[static_cast<size_t>(g) * a.nte + i] =
-            finish<kCv>(a, g, marg, mj[r], sj[r], mm[r], sm[r]);
-      }
+      mj[r] = 0.0f, sj[r] = 0.0f, mm[r] = 0.0f, sm[r] = 0.0f;
     }
-    return;
-  }
-  // Merge the cluster's partial pairs: rank q finishes rows
-  // [q * per, (q + 1) * per) of the tile from every rank's shared memory.
-  cg::cluster_group cluster = cg::this_cluster();
+    const int lo = min(a.ntr, leaf * size);
+    const int hi = min(a.ntr, lo + size);
+    for (int t0 = lo; t0 < hi; t0 += kTile) {
+      const int rows = min(kTile, hi - t0);
+      const int padded = (rows + T - 1) / T * T;
+      stage_tile<D, kCv>(a, g, t0, rows, padded, s_tr);
+      __syncthreads();
+      if (marg) {
+        if constexpr (kCv) {
+          sweep_tile<D, R, true>(s_tr, padded, te, zte, mj, sj, mm, sm);
+        }
+      } else {
+        sweep_tile<D, R, false>(s_tr, padded, te, zte, mj, sj, mm, sm);
+      }
+      __syncthreads();
+    }
+    float4* slot = s_leaf + (leaf - lo_leaf) * kRows;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {  // an empty sum's reference means nothing
-    s_part[r * kThreads + threadIdx.x] =
-        make_float4(sj[r] == 0.0f ? kInit : mj[r], sj[r],
-                    sm[r] == 0.0f ? kInit : mm[r], sm[r]);
+    for (int r = 0; r < R; ++r) {  // an empty sum's reference means nothing
+      slot[r * kThreads + threadIdx.x] =
+          make_float4(sj[r] == 0.0f ? kInit : mj[r], sj[r],
+                      sm[r] == 0.0f ? kInit : mm[r], sm[r]);
+    }
   }
-  cluster.sync();
+
+  // Merge the leaves: rank q finishes rows [q * per, (q + 1) * per) of the
+  // tile from every rank's shared memory (with no split, thread t its own
+  // rows r * 128 + t, from its own slots).
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
   const int per = (kRows + split - 1) / split;
   const int end = min(kRows, (rank + 1) * per);
   for (int q = rank * per + threadIdx.x; q < end; q += kThreads) {
-    float4 p = cluster.map_shared_rank(s_part, 0)[q];
-    for (int b = 1; b < split; ++b) {
-      const float4 o = cluster.map_shared_rank(s_part, b)[q];
-      lse_merge(p.x, p.y, o.x, o.y);
-      if (kCv && marg) lse_merge(p.z, p.w, o.z, o.w);
+    float4 v[kMaxSplit];
+#pragma unroll
+    for (int l = 0; l < kMaxSplit; ++l) {
+      if (l < leaves) {
+        const int owner = ((l + 1) * split - 1) / leaves;
+        const float4* base =
+            split > 1 ? cluster.map_shared_rank(s_leaf, owner) : s_leaf;
+        v[l] = base[(l - first_leaf(owner, leaves, split)) * kRows + q];
+      }
     }
+    merge_tree(v, leaves, kCv && marg);
     const int i = i0 + q;
     if (i < a.nte) {
       a.out[static_cast<size_t>(g) * a.nte + i] =
-          finish<kCv>(a, g, marg, p.x, p.y, p.z, p.w);
+          finish<kCv>(a, g, marg, v[0].x, v[0].y, v[0].z, v[0].w);
     }
   }
-  cluster.sync();  // no block leaves while another reads its shared memory
+  if (split > 1) cluster.sync();  // no block leaves while another reads it
 }
 
 // Any width d: the block's test coordinates live in shared memory as
@@ -444,7 +491,17 @@ kde_logl_wide_kernel(const PairsArgs a, int d) {
 template <int D, int R, bool kCv>
 cudaError_t launch_pairs(const PairsArgs& a, int G, cudaStream_t stream) {
   constexpr int kRows = kThreads * R;
+  constexpr size_t kStatic = sizeof(float) * (D + (kCv ? 1 : 0)) * kTile;
   const int tiles = (a.nte + kRows - 1) / kRows;
+  const int leaves = reduction_leaves(a.ntr);
+  const int slots = (leaves + a.split - 1) / a.split;  // most leaves a block
+  const size_t bytes = sizeof(float4) * kRows * slots;
+  if (kStatic + bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pairs_kernel<D, R, kCv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchAttribute attr = {};
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = a.split;
@@ -453,6 +510,7 @@ cudaError_t launch_pairs(const PairsArgs& a, int G, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * a.split, G);
   cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = a.split > 1 ? 1 : 0;

@@ -11,7 +11,7 @@ where LSE is logsumexp over the program's train rows, ``neg_j`` is 0 or
 −inf (padding / null rows), and the marginal term is the constant
 ``lm_const[g]`` (= log n_eff) for evidence-free programs (``no_ev[g]``).
 
-Three things live here:
+What lives here:
 
 - :func:`ckde_cv_pairs_reference`, the plain torch version;
 - :func:`ckde_cv_pairs`, the wrapper: plain version for CPU tensors, the
@@ -20,6 +20,8 @@ Three things live here:
 - :func:`_launch_plan`, the launch plan of both kernels of that source
   (this one and ``kde_logl``'s): test rows per thread, train rows per
   group, and the split of the train axis across a thread-block cluster;
+  :func:`reduction_leaves`, the fixed leaves of the train axis that the
+  split spreads over the cluster;
 - the ctypes binding of that kernel (built at first use by
   :mod:`.cuda_build`).
 """
@@ -52,7 +54,7 @@ GROUP = 16
 WIDE_GROUP = 32
 #: most blocks of one cluster, the portable limit (kMaxSplit)
 MAX_SPLIT = 8
-#: train rows per shared-memory tile (kTile): the least a split block sweeps
+#: train rows per shared-memory tile (kTile): the least a leaf holds
 TILE = 256
 #: blocks per SM that the plan aims for, splitting the train axis to get
 #: them. Measured on the H100 (chip_smoke.py's split sweep, PERF.md): the
@@ -95,26 +97,47 @@ def ckde_cv_pairs_reference(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
     return out
 
 
+def reduction_leaves(ntr, d):
+    """P, the leaves of one program's train rows in the kernels of
+    ``csrc/ckde_cv.cu`` (``reduction_leaves`` there): each leaf is swept
+    from a fresh logsumexp pair, and a test row's P leaf pairs merge in a
+    balanced binary tree. Widths up to :data:`MAX_DPAD` take the largest
+    power of two up to :data:`MAX_SPLIT` that leaves each leaf a full
+    :data:`TILE`; wider programs (the KDE kernel's runtime-width variant)
+    one leaf. A function of (ntr, d) alone: the reduction order of a
+    (program, test row), and so its float32 result, does not depend on G,
+    on the other programs of the launch, or on the split."""
+    if d > MAX_DPAD:
+        return 1
+    leaves = 1
+    while 2 * leaves <= MAX_SPLIT and 2 * leaves * TILE <= ntr:
+        leaves *= 2
+    return leaves
+
+
 def _launch_plan(G, ntr, nte, d, sm_count):
     """``(R, T, S)`` for one launch of a kernel of ``csrc/ckde_cv.cu`` on G
     programs of ntr train and nte test rows of width d, on a card with
     ``sm_count`` SMs: R test rows per thread, T train rows per group, and
-    S blocks of a thread-block cluster sharing each test tile's train rows
-    (S = 1: no split).
+    S blocks of a thread-block cluster sharing each test tile's
+    :func:`reduction_leaves` (S = 1: no split).
 
     Widths up to :data:`MAX_DPAD` take R = :data:`ROWS_PER_THREAD` and
-    T = :data:`GROUP`; the train axis is split until the grid holds
-    :data:`TARGET_BLOCKS_PER_SM` blocks per SM, over at most
-    :data:`MAX_SPLIT` blocks each with at least one :data:`TILE` of train
-    rows, so no split is empty. Wider programs (the KDE kernel's
-    runtime-width variant) take one row per thread, T = :data:`WIDE_GROUP`
-    and no split."""
+    T = :data:`GROUP`; S is the least power of two that gives the grid
+    :data:`TARGET_BLOCKS_PER_SM` blocks per SM, at most the leaves, so that
+    every block sweeps as many leaves as the others. S only decides which
+    block sweeps which leaf: the result is the same at every S. Wider
+    programs (the KDE kernel's runtime-width variant) take one row per
+    thread, T = :data:`WIDE_GROUP` and no split."""
     if d > MAX_DPAD:
         return 1, WIDE_GROUP, 1
     tiles = max(1, G * -(-nte // (THREADS * ROWS_PER_THREAD)))
-    target = TARGET_BLOCKS_PER_SM * sm_count
-    split = min(MAX_SPLIT, -(-target // tiles), ntr // TILE)
-    return ROWS_PER_THREAD, GROUP, max(1, split)
+    need = -(-TARGET_BLOCKS_PER_SM * sm_count // tiles)
+    leaves = reduction_leaves(ntr, d)
+    split = 1
+    while split < need and split < leaves:
+        split *= 2
+    return ROWS_PER_THREAD, GROUP, split
 
 
 @functools.cache

@@ -29,7 +29,7 @@ _NVCC_FLAGS = [
 ]
 
 #: every kernel source of the port, by file name under ``csrc/``
-SOURCES = ("ckde_cv.cu", "exp_chain.cu")
+SOURCES = ("ckde_cv.cu", "exp_chain.cu", "ucv_pairs.cu")
 
 
 def nvcc() -> str:

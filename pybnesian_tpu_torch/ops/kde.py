@@ -33,7 +33,9 @@ JAX's ``vmap`` over families and folds is written out as leading (F, K)
 axes; its ``lax.map`` over test chunks is a Python loop.
 
 :func:`ucv_pair_sums_batch` holds the pair sums of the UCV bandwidth
-objective (plain torch on every device, as in the JAX package).
+objective: on a GPU in float32 the hand-written kernel of
+:func:`~.ucv_kernel.ucv_pair_sums_cuda` (the JAX package leaves this
+function to XLA), elsewhere its plain torch version.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import torch
 from .ckde_cv_kernel import ckde_cv_pairs
 from .kde_kernel import kde_logl
 from .linalg import cholesky_or_nan
+from .ucv_kernel import ucv_pair_sums_cuda, ucv_pair_sums_reference
 
 __all__ = [
     "kernel_route",
@@ -403,12 +406,6 @@ def flash_cv_selfcheck(rule: str = "nr", atol: float = 5e-2,
     return ok, diff
 
 
-# elements of one (problems, row block, column span) pair block of the UCV
-# sums: 2**25 keeps each of its three live temporaries at 128 MiB in
-# float32, and a 9,000-row problem in a few dozen blocks
-_UCV_BLOCK = 1 << 25
-
-
 def ucv_pair_sums_batch(white, valid=None):
     """The UCV pair sums of B problems at once: ``white`` (B, N, d) whitened
     training rows, ``valid`` (B, N) 1.0 on the rows that count (a problem
@@ -417,55 +414,21 @@ def ucv_pair_sums_batch(white, valid=None):
 
         s2h = Σ_{i<j} exp(−¼‖wᵢ−wⱼ‖²),   sh = Σ_{i<j} exp(−½‖wᵢ−wⱼ‖²)
 
-    over the valid pairs of each problem — the leave-one-out terms of the
-    UCV objective for bandwidths 2H and H (reference kde/UCV.cpp,
-    KDE.cl.src:471-565) from ONE exp per pair: the second term is the square
-    of the first.
+    over the valid pairs of each problem (reference kde/UCV.cpp,
+    KDE.cl.src:471-565), from one exp per pair.
 
-    Plain torch on every device (the JAX package has no hand-written kernel
-    here either). Only the upper triangle is walked: a block of rows
-    [a, a+blk) meets the columns [a, N), so the i ≥ j half of each diagonal
-    block is the only waste; N need not be a multiple of the block, the
-    last block is just shorter. ``blk`` is chosen so that one (B, blk, N)
-    temporary stays at ``_UCV_BLOCK`` elements. The i < j mask touches
-    only the block's first ``blk`` columns, the validity mask only runs
-    when ``valid`` is given: every pass over a pair block costs as much as
-    its exp.
-
-    Distances are DIRECT differences, Σ_k (w_ik − w_jk)², one pass per
-    column, not the ‖a‖² − 2a·b + ‖b‖² matmul form of the dense KDE paths:
-    the sums are dominated by the closest pairs, which is where that form
-    cancels worst in float32 (its error is ε·‖w‖², the distance itself may be
-    smaller), and the UCV objective is a small difference of the two sums.
-    d is a handful of columns, so the matmul would save little. A block's
-    rows are summed in the data's dtype (a tree sum over at most N terms);
-    the row sums, and the blocks, in float64 (asking the big reduction for
-    float64 made torch copy the whole block to float64 first: a fifth of
-    the call on an H100)."""
-    B, N, d = white.shape
-    dtype, device = white.dtype, white.device
-    s2h = torch.zeros(B, dtype=torch.float64, device=device)
-    sh = torch.zeros(B, dtype=torch.float64, device=device)
-    blk = max(1, min(N, _UCV_BLOCK // max(B * N, 1)))
-    upper = torch.triu(torch.ones((blk, blk), dtype=dtype, device=device),
-                       diagonal=1)
-    wt = white.transpose(1, 2).contiguous()                    # (B, d, N)
-    if valid is not None:
-        valid = (valid > 0).to(dtype)
-    for a in range(0, N, blk):
-        b = min(a + blk, N)
-        e = wt[:, 0, a:b, None] - wt[:, 0, None, a:]
-        e.square_()
-        for k in range(1, d):
-            diff = wt[:, k, a:b, None] - wt[:, k, None, a:]
-            e.addcmul_(diff, diff)
-        torch.exp_(e.mul_(-0.25))
-        e[:, :, : b - a].mul_(upper[: b - a, : b - a])
+    Routed by :func:`kernel_route`, as kernels #1 and #2 are: a float32
+    batch on a GPU goes to the hand-written kernel
+    (:func:`~.ucv_kernel.ucv_pair_sums_cuda`; ``white`` made contiguous,
+    ``valid`` float32), whose sums of one problem are the same bits alone
+    and in any batch; every other batch (float64, so a float64 search, or
+    CPU tensors) to the plain torch version
+    (:func:`~.ucv_kernel.ucv_pair_sums_reference`)."""
+    if kernel_route(white):
         if valid is not None:
-            e.mul_(valid[:, a:b, None]).mul_(valid[:, None, a:])
-        s2h += torch.sum(e, dim=2).sum(dim=1, dtype=torch.float64)
-        sh += torch.sum(e.square_(), dim=2).sum(dim=1, dtype=torch.float64)
-    return s2h.to(dtype), sh.to(dtype)
+            valid = valid.to(torch.float32).contiguous()
+        return ucv_pair_sums_cuda(white.contiguous(), valid)
+    return ucv_pair_sums_reference(white, valid)
 
 
 def ucv_pair_sums(train_white, valid=None):

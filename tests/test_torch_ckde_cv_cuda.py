@@ -212,3 +212,27 @@ def test_wrapper_rejects_mixed_devices(cuda):
     args[6] = args[6].cpu()
     with pytest.raises(ValueError, match="lm_const"):
         ckde_cv_pairs(*args)
+
+
+@pytest.mark.parametrize("ntr,nte,dpad", [(9000, 1000, 3), (600, 77, 8)],
+                         ids=["cv-shape", "small"])
+def test_program_bit_equal_alone_and_in_a_batch(cuda, ntr, nte, dpad):
+    """A program's rows are the same bits alone (G 1), inside G 150 and in
+    a second run: the reduction order depends on (ntr, dpad) only, not on
+    the split that G makes the plan choose."""
+    args = _inputs(cuda, dpad, G=150, ntr=ntr, nte=nte, seed=ntr)
+    together = ckde_cv_pairs(*args)
+    alone = ckde_cv_pairs(*[a[:1].contiguous() for a in args])
+    torch.cuda.synchronize()
+    assert torch.equal(together[:1], alone)
+    assert torch.equal(ckde_cv_pairs(*args), together)
+
+
+@pytest.mark.parametrize("ntr", [700, 1500, 9000])
+def test_every_split_gives_the_same_bits(cuda, ntr):
+    """Forced splits 1 to 8, powers of two or not, only spread the fixed
+    leaves over the cluster: every one gives the planned launch's bits."""
+    args = _inputs(cuda, 3, G=3, ntr=ntr, nte=300, seed=ntr)
+    want = ckde_cv_pairs(*args)
+    for split in range(1, ckde_cv_kernel.MAX_SPLIT + 1):
+        assert torch.equal(_run(args, (2, 16, split)), want), split

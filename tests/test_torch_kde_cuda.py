@@ -232,3 +232,25 @@ def test_fitted_model_routes_launch_the_kernels(cuda):
     assert ckde_cv_pairs.launches == before + 1
     want = tkde.batched_ckde_logl(*(t(a, torch.float64) for a in args))
     torch.testing.assert_close(got.double(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("ntr,nte,d", [(10_240, 10_240, 3), (600, 77, 20)],
+                         ids=["tpu-shape", "wide"])
+def test_kde_program_bit_equal_alone_and_in_a_batch(cuda, ntr, nte, d):
+    """A program's rows are the same bits alone (G 1), inside G 150 and in
+    a second run: the reduction order depends on (ntr, d) only."""
+    args = _inputs(cuda, d, G=1, ntr=ntr, nte=nte, seed=d)
+    batch = [a.expand(150, *a.shape[1:]).contiguous() for a in args]
+    alone = kde_logl(*args)
+    together = kde_logl(*batch)
+    torch.cuda.synchronize()
+    assert torch.equal(together[:1], alone)
+    assert torch.equal(kde_logl(*batch), together)
+
+
+@pytest.mark.parametrize("ntr", [700, 9000])
+def test_kde_every_split_gives_the_same_bits(cuda, ntr):
+    args = _inputs(cuda, 3, G=2, ntr=ntr, nte=300, seed=ntr)
+    want = kde_logl(*args)
+    for split in range(1, 9):
+        assert torch.equal(_run(args, (2, 16, split)), want), split

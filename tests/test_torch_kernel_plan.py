@@ -4,8 +4,11 @@ in ``pybnesian_tpu_torch/ops/ckde_cv_kernel.py``), on the CPU.
 The plan is pure Python: (R, T, S) = test rows per thread, train rows per
 group, and blocks of a thread-block cluster that split each program's
 train rows. These tests hold it to what the CUDA entry points accept (the
-limits are read from the source itself) and to the split the kernel makes
-(each cluster rank sweeps a contiguous share of ceil(ntr / S) rows).
+limits are read from the source itself) and to the split the kernel makes:
+a program's train rows fall into P = ``reduction_leaves(ntr, d)`` leaves of
+ceil(ntr / P) rows, whose logsumexp pairs merge in a fixed tree, and
+cluster rank q of S sweeps leaves [q P / S, (q + 1) P / S). The leaves, and
+so the float32 result of a (program, test row), do not depend on G.
 """
 
 import re
@@ -55,11 +58,26 @@ def _accepted(d, rows, group, split):
             and 1 <= split <= c["kMaxSplit"])
 
 
-def _shares(ntr, split):
+def _leaf_rows(ntr, d):
+    """[lo, hi) train rows of each leaf, as the kernel splits them."""
+    leaves = ck.reduction_leaves(ntr, d)
+    size = -(-ntr // leaves)
+    return [(min(ntr, q * size), min(ntr, (q + 1) * size))
+            for q in range(leaves)]
+
+
+def _rank_leaves(ntr, d, split):
+    """The leaves each cluster rank sweeps (first_leaf in the source)."""
+    leaves = ck.reduction_leaves(ntr, d)
+    return [list(range(q * leaves // split, (q + 1) * leaves // split))
+            for q in range(split)]
+
+
+def _shares(ntr, split, d=3):
     """Train rows of each cluster rank, as the kernel splits them."""
-    share = -(-ntr // split)
-    return [max(0, min(ntr, lo + share) - lo)
-            for lo in (min(ntr, r * share) for r in range(split))]
+    rows = _leaf_rows(ntr, d)
+    return [sum(rows[leaf][1] - rows[leaf][0] for leaf in ranks)
+            for ranks in _rank_leaves(ntr, d, split)]
 
 
 def test_python_limits_mirror_the_source():
@@ -96,7 +114,7 @@ def test_plan_is_accepted_and_no_split_is_empty(shape, sms):
     rows, group, split = ck._launch_plan(G, ntr, nte, d, sms)
     assert _accepted(d, rows, group, split)
     assert 1 <= split <= ck.MAX_SPLIT
-    shares = _shares(ntr, split)
+    shares = _shares(ntr, split, d)
     assert sum(shares) == ntr
     if split > 1:
         assert min(shares) >= ck.TILE  # every split sweeps a full tile
@@ -137,10 +155,12 @@ def test_split_reaches_the_target_or_a_limit(shape, sms):
     split = ck._launch_plan(G, ntr, nte, d, sms)[2]
     tiles = G * -(-nte // (ck.THREADS * ck.ROWS_PER_THREAD))
     target = ck.TARGET_BLOCKS_PER_SM * sms
-    assert (tiles * split >= target or split == ck.MAX_SPLIT
-            or split == max(1, ntr // ck.TILE))
-    # one split fewer would not reach the target
-    assert split == 1 or tiles * (split - 1) < target
+    leaves = ck.reduction_leaves(ntr, d)
+    # a power of two up to the leaves, so every rank sweeps as many leaves
+    assert split & (split - 1) == 0 and leaves % split == 0
+    assert tiles * split >= target or split == leaves
+    # half the split would not reach the target
+    assert split == 1 or tiles * (split // 2) < target
 
 
 def test_split_needs_a_tile_of_train_rows():
@@ -151,3 +171,45 @@ def test_split_needs_a_tile_of_train_rows():
 
 def test_wide_kde_takes_one_row_per_thread():
     assert ck._launch_plan(1, 10_000, 10_000, 17, H100_SMS) == (1, 32, 1)
+
+
+@pytest.mark.parametrize("ntr,d", [(9000, 3), (10_240, 3), (10_000, 2),
+                                   (90_000, 3), (600, 8), (2047, 16),
+                                   (255, 1), (5000, 12), (300, 17)],
+                         ids=lambda v: str(v))
+def test_reduction_layout_is_the_same_at_every_g(ntr, d):
+    """The leaves of a (ntr, d) and their merge tree are one layout for
+    every G and card; the plan's split only spreads those leaves over the
+    ranks of a cluster, each leaf to exactly one rank, in order."""
+    layout = _leaf_rows(ntr, d)
+    assert layout[0][0] == 0 and layout[-1][1] == ntr
+    assert all(a[1] == b[0] for a, b in zip(layout, layout[1:]))
+    leaves = len(layout)
+    assert leaves & (leaves - 1) == 0 and leaves <= ck.MAX_SPLIT
+    for G in (1, 2, 10, 150, 1000, 65535):
+        for sms in SM_COUNTS:
+            split = ck._launch_plan(G, ntr, 1000, d, sms)[2]
+            assert ck.reduction_leaves(ntr, d) == leaves
+            ranks = _rank_leaves(ntr, d, split)
+            assert sum(ranks, []) == list(range(leaves))
+    # every split the entry point takes, forced ones too, covers the leaves
+    for split in range(1, ck.MAX_SPLIT + 1):
+        assert sum(_rank_leaves(ntr, d, split), []) == list(range(leaves))
+
+
+def test_reduction_leaves_mirror_the_source():
+    """The source's reduction_leaves doubles the leaves while two more
+    still hold a full tile each and stay within the cluster limit, as the
+    Python mirror does."""
+    text = SOURCE.read_text()
+    body = re.search(r"int reduction_leaves\(int ntr\) \{(.*?)\n\}", text,
+                     re.S).group(1)
+    assert ("while (2 * leaves <= kMaxSplit && 2 * leaves * kTile <= ntr) "
+            "leaves *= 2;") in body
+    assert "first_leaf(rank, leaves, split)" in text
+    for ntr in (0, 1, 255, 511, 512, 1023, 1024, 2047, 2048, 10**6):
+        want = 1
+        while 2 * want <= 8 and 2 * want * 256 <= ntr:
+            want *= 2
+        assert ck.reduction_leaves(ntr, 3) == want
+    assert ck.reduction_leaves(10**6, ck.MAX_DPAD + 1) == 1

@@ -21,6 +21,7 @@ from pybnesian_tpu.ops.kde import ucv_pair_sums as jax_pair_sums
 from pybnesian_tpu_torch import interop
 from pybnesian_tpu_torch.kde import ucv as tucv
 from pybnesian_tpu_torch.ops import kde as tkde
+from pybnesian_tpu_torch.ops import ucv_kernel
 
 from data_gen import normal_chain_data
 from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
@@ -39,7 +40,7 @@ def test_pair_sums_match_jax_and_brute_force(n, d, block, monkeypatch):
     rng = np.random.default_rng(n)
     W = rng.normal(size=(n, d))
     valid = (rng.random(n) > 0.15).astype(np.float64)
-    monkeypatch.setattr(tkde, "_UCV_BLOCK", block)   # ragged row blocks
+    monkeypatch.setattr(ucv_kernel, "_UCV_BLOCK", block)  # ragged row blocks
     s2h, sh = tkde.ucv_pair_sums(torch.as_tensor(W), torch.as_tensor(valid))
     np.testing.assert_allclose([float(s2h), float(sh)], _brute(W, valid),
                                rtol=1e-10)
