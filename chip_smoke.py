@@ -26,8 +26,14 @@ the script exits non-zero and prints no result:
    reference bandwidth) — one warm call and 3 calls through the kernel
    whose scores are held against the port's float64 path (their mean rate
    printed), then 30 timed calls (their median rate), the family set
-   rotated throughout — then a semiparametric mix of linear-Gaussian and
-   CKDE families;
+   rotated throughout, each call launching the whitening, pairs and
+   fold-reduce kernels — then a semiparametric mix of linear-Gaussian and
+   CKDE families; then the whitening kernel (``ckde_cv_whiten``) and the
+   fold-reduce kernel (``ckde_cv_fold_reduce``) against their plain
+   versions on the first batch's inputs (G 150, 9,000 × 1,000, dpad 3),
+   timed with their bounds, and stage 1's device operations and device
+   time by the plain torch route and by the kernel, beside the whole
+   float32 CV call's (``torch.profiler``);
 5. the KDE kernel (``kde_logl``) against its plain version: small ragged
    cases (G 1 and 2, d 1 to 20, an all-invalid first train tile) and the
    TPU kernel's own shape (10,240 × 10,240 rows, d 3), timed with its
@@ -48,19 +54,21 @@ the script exits non-zero and prints no result:
    over 10,000 float32 rows of the same 8-column chain, with the default
    ValidatedLikelihood (holdout 0.2, 10 folds) and operators (arcs and
    node types), one warm run and one timed run, every CKDE family through
-   the pairs kernel (CV and holdout channels) and every validation update
-   of a CKDE node through the KDE kernel; held against a float64 run of the
-   same call on the card (plain routes): the same operators, or a first
-   differing pair whose float64 deltas are within :data:`TIE_ATOL`; both
-   kernels against their plain versions on the inputs the run's score
-   builds at the run's shapes (CV folds 7,200 × 800, holdout 8,000 ×
-   2,000); the float32 scores of the cache pass's families and of both
-   validation routes against the float64 run's at :data:`SCORE_RTOL`, with
-   their cross-batch difference (the cache pass's families in one batch,
-   then each alone; for the one-parent CKDE families, which of the pairs
-   kernel's whitened inputs and outputs are not bit-equal alone and inside
-   the batch) and two-route difference (the holdout batch against a
-   fitted factor per node); a ``score="cv-lik"`` search (no validation
+   the whitening, pairs and fold-reduce kernels (CV and holdout channels)
+   and every validation update of a CKDE node through the KDE kernel; held
+   against a float64 run of the same call on the card (plain routes): the
+   same operators, or a first differing pair whose float64 deltas are
+   within :data:`TIE_ATOL`; the four kernels against their plain versions
+   on the inputs the run's score builds at the run's shapes (CV folds
+   7,200 × 800, holdout 8,000 × 2,000); the float32 scores of the cache
+   pass's families and of both validation routes against the float64
+   run's at :data:`SCORE_RTOL`, with their cross-batch difference (the
+   cache pass's families in one batch, then each alone; a gate: every CKDE
+   family's score is the same bits, and for the one-parent CKDE families
+   the whitening kernel's outputs and the pairs kernel's rows too; the
+   linear-Gaussian families' gap printed beside it, not held) and
+   two-route difference (the holdout batch against a fitted factor per
+   node); a ``score="cv-lik"`` search (no validation
    guard): its iterations and how many of its steps undo an earlier one;
    and BIC, the GaussianNetwork default, against float64, then its ``hc``;
 9. UCV bandwidths at 10,000 float32 rows of the bench data, 10 folds: (a)
@@ -71,8 +79,9 @@ the script exits non-zero and prints no result:
    (through ``Arguments``) on one family each of 0, 1 and 2 parents: the
    float32 scores against a float64 score GIVEN THE SAME per-fold
    bandwidths at :data:`SCORE_RTOL`, the scores of the two searches' own
-   bandwidths beside them, and the pairs kernel against its plain version
-   on these inputs (G = families × folds); the UCV pair-sums kernel
+   bandwidths beside them, and the whitening (its given-bandwidths
+   route), pairs and fold-reduce kernels against their plain versions on
+   these inputs (G = families × folds); the UCV pair-sums kernel
    (``ucv_pair_sums``, launched by the float32 searches and never by the
    float64 ones) against its plain version at :data:`UCV_RTOL` on the
    searches' own inputs and on an all-invalid problem, two invalid rows,
@@ -190,7 +199,8 @@ set to 0 just before it and read just after. A JSON object with each kernel's la
 on those paths, its error against its plain version, its times, its plain
 version's time, its bound and its library yardstick's time (``library_ms``:
 the efficient-attention calls of phases 2, 5 and 9; none for the exp
-chain) comes two lines before the last, then the
+chain, the CV whitening and the fold sums) comes two lines before the
+last, then the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 Needs CUDA; imports neither JAX nor the JAX package.
@@ -221,6 +231,12 @@ KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
     "ucv_pair_sums": ("pybnesian_tpu_torch/csrc/ucv_pairs.cu",
                       "pybnesian_tpu/ops/kde.py:507 (XLA-fused, no Pallas "
                       "kernel)"),
+    "ckde_cv_whiten": ("pybnesian_tpu_torch/csrc/cv_whiten.cu",
+                       "pybnesian_tpu/ops/kde.py:303 (XLA-fused, no Pallas "
+                       "kernel)"),
+    "ckde_cv_fold_reduce": ("pybnesian_tpu_torch/csrc/cv_whiten.cu",
+                            "pybnesian_tpu/ops/kde.py:404 (XLA-fused, no "
+                            "Pallas kernel)"),
 }
 PAIR_TOL = 1e-3       # max abs difference per test row, kernel vs plain
 SCORE_RTOL = 1e-4     # float32 kernel route vs float64 plain route
@@ -228,6 +244,15 @@ EXP_TOL = 1e-5        # max abs difference of the exp chain, kernel vs plain
 UCV_RTOL = 1e-5       # relative difference per UCV pair sum, kernel vs plain
                       # (float32 terms summed in another order, float64
                       # above a thread's 512 terms in both)
+WHITEN_TOL = {        # the CV whitening, kernel vs plain, per output
+    "jtr": 2e-6, "zv_tr": 2e-6, "jte": 2e-6, "zv_te": 2e-6,  # relative and
+    # absolute: one float32 rounding of a float64 value formed in another
+    # order on each side, so at most an ulp apart
+    "lndiff": 1e-12,  # relative, float64 on both sides
+    "lm_const": 2e-7,  # relative, one rounding of a float64 log
+}                     # neg, wte, no_ev, ok and every NaN: exactly
+REDUCE_RTOL = 2e-7    # the fold sums, kernel vs plain: float64 sums of the
+                      # same float32 rows in another order, rounded once
 ROW_TOL = 1e-3        # per-row logl: float32 kernel routes vs float64 plain,
                       # and the model's batched route vs its factors' routes
 TIMED_RUNS = 10
@@ -311,6 +336,7 @@ CV_100K_PAIRS_SHAPE = (150, 90_000, 10_000, 3)
 # published peaks of one H100 SXM (NVIDIA's data sheet; PERF.md)
 SFU_EX2_PER_CLOCK_PER_SM = 16
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -355,12 +381,16 @@ def config3b_data(n, seed, d=8):
 
 def counters():
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ckde_cv_fold_reduce, ckde_cv_whiten)
     from pybnesian_tpu_torch.ops.exp_chain import exp_chain
     from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
     from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_cuda
 
     return {"ckde_cv_pairs": ckde_cv_pairs, "kde_logl": kde_logl,
-            "exp_chain": exp_chain, "ucv_pair_sums": ucv_pair_sums_cuda}
+            "exp_chain": exp_chain, "ucv_pair_sums": ucv_pair_sums_cuda,
+            "ckde_cv_whiten": ckde_cv_whiten,
+            "ckde_cv_fold_reduce": ckde_cv_fold_reduce}
 
 
 def reset_counts():
@@ -405,15 +435,17 @@ def phase_environment(torch):
     return {"smi": smi, "sms": sms, "max_sm_hz": max_mhz * 1e6}
 
 
-def bound(card, exps, ops, nbytes):
+def bound(card, exps, ops, nbytes, f64_ops=0.0):
     """(ms, what bounds it): the least time the card could take for work of
-    ``exps`` SFU exps, ``ops`` FP32 operations (an FMA is 2) and ``nbytes``
-    bytes, each input read once and each output written once."""
+    ``exps`` SFU exps, ``ops`` FP32 operations (an FMA is 2), ``nbytes``
+    bytes, each input read once and each output written once, and
+    ``f64_ops`` FP64 operations."""
     times = {
         "sfu": exps / (card["sms"] * SFU_EX2_PER_CLOCK_PER_SM
                        * card["max_sm_hz"]),
         "fp32": ops / FP32_OPS_PER_S,
         "bytes": nbytes / HBM_BYTES_PER_S,
+        "fp64": f64_ops / FP64_OPS_PER_S,
     }
     by = max(times, key=times.get)
     return times[by] * 1e3, by
@@ -449,14 +481,16 @@ def kde_work(args):
 
 
 def timing_fields(card, case):
-    """The timed case's fields: times, launch plan, bound and shares."""
+    """The timed case's fields: times, launch plan (where the kernel has
+    one), bound and shares."""
     bound_ms, by = bound(card, *case["work"])
-    rows, group, split = case["plan"]
-    return {"kernel_ms": f"{case['ms']:.4f}",
-            "kernel_batched_ms": f"{case['batched_ms']:.4f}",
-            "plain_ms": f"{case['plain_ms']:.4f}",
-            "plan_R_T_S": f"{rows},{group},{split}", "cluster": split,
-            "bound_ms": f"{bound_ms:.4f}", "bound_by": by,
+    fields = {"kernel_ms": f"{case['ms']:.4f}",
+              "kernel_batched_ms": f"{case['batched_ms']:.4f}",
+              "plain_ms": f"{case['plain_ms']:.4f}"}
+    if "plan" in case:
+        rows, group, split = case["plan"]
+        fields.update(plan_R_T_S=f"{rows},{group},{split}", cluster=split)
+    return {**fields, "bound_ms": f"{bound_ms:.4f}", "bound_by": by,
             "bound_share": f"{bound_ms / case['ms']:.4f}",
             "batched_bound_share": f"{bound_ms / case['batched_ms']:.4f}"}
 
@@ -607,6 +641,165 @@ def hold_batch_independence(torch, wrapper, args, label, phase):
         program0_bit_equal_alone_in_batch_and_rerun=True)
 
 
+WHITEN_NAMES = ("jtr", "neg", "zv_tr", "jte", "zv_te", "no_ev", "lm_const",
+                "wte", "lndiff", "ok")
+
+
+def whiten_work(args, bandwidths=None):
+    """(exps, FP32 ops, bytes, FP64 ops) of one ckde_cv_whiten call on
+    ``args``: each input read once (the data, its null mask, the folds'
+    indices and masks, the family columns, the bandwidths), each output
+    written once ((ntr + nte) × (dpad + 2) floats a program and four
+    scalars); per program and row of width d, 2d + 2 float64 operations
+    for the mean, 3d + d(d + 1) for the covariance (rule bandwidths only)
+    and 2d² + 2d for the whitening, d the family's own width."""
+    data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask = (
+        args)
+    n, D = data.shape
+    F, dpad = col_idx.shape
+    K, ntr = tr_idx.shape
+    nte = te_idx.shape[1]
+    G = F * K
+    nbytes = (8 * n * D + 12 * F * dpad + 12 * K * (ntr + nte)
+              + (0 if bandwidths is None else 4 * G * dpad * dpad)
+              + 4 * G * (ntr + nte) * (dpad + 2) + 20 * G)
+    d = col_mask.double().sum(1).cpu()
+    per_row = 2 * d + 2 + 2 * d * d + 2 * d
+    if bandwidths is None:
+        per_row += 3 * d + d * (d + 1)
+    f64_ops = K * float(((ntr + nte) * per_row).sum())
+    return 0.0, 0.0, nbytes, f64_ops
+
+
+def reduce_work(args):
+    """(exps, FP32 ops, bytes, FP64 ops) of one ckde_cv_fold_reduce call:
+    the rows and weights read once (4 bytes each), lndiff and ok, the F
+    results; 3 float64 operations a test row."""
+    out = args[0]
+    F, K, nte = out.shape
+    return (0.0, 0.0, 8 * F * K * nte + 12 * F * K + 4 * F,
+            3.0 * F * K * nte)
+
+
+def compare_whiten(torch, args, label, card=None, phase="4 main path",
+                   quiet=False, rule="nr", bandwidths=None):
+    """The whitening kernel against its plain version on ``args``: each
+    output at its :data:`WHITEN_TOL` (exactly where it has none), every NaN
+    in the same place; timed, with its bound, when ``card`` is given;
+    printed unless ``quiet``. ``err`` is the largest difference of a
+    whitened value."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ckde_cv_whiten, ckde_cv_whiten_reference)
+
+    kw = {"rule": rule, "bandwidths": bandwidths}
+    got = ckde_cv_whiten(*args, **kw)
+    want = ckde_cv_whiten_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(WHITEN_NAMES, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label} {name}: {g.dtype} {tuple(g.shape)}"
+                                 f" against {w.dtype} {tuple(w.shape)}")
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{label} {name}: NaN in other places")
+        tol = WHITEN_TOL.get(name, 0.0)
+        try:
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol,
+                                       equal_nan=True)
+        except AssertionError as e:
+            raise AssertionError(f"{label} {name}: {e}") from None
+        if name in ("jtr", "zv_tr", "jte", "zv_te"):
+            diff = (g.double() - w.double()).abs()
+            diff = diff[torch.isfinite(diff)]
+            if diff.numel():
+                err = max(err, float(diff.max()))
+    F, dpad = args[2].shape
+    K, ntr = args[4].shape
+    fields = {"case": label, "F_K_ntr_nte_dpad":
+              f"{F}x{K}x{ntr}x{args[6].shape[1]}x{dpad}",
+              "route": "rule " + str(rule) if bandwidths is None
+              else "given bandwidths",
+              "max_abs_err": f"{err:.3e}",
+              "nan_programs": int(torch.isnan(got[8]).sum())}
+    result = {"err": err}
+    if card is not None:
+        result.update(
+            time_kernel(torch, lambda: ckde_cv_whiten(*args, **kw)),
+            plain_ms=cuda_median_ms(
+                torch, lambda: ckde_cv_whiten_reference(*args, **kw)),
+            work=whiten_work(args, bandwidths))
+        fields.update(timing_fields(card, result))
+    if not quiet:
+        say(phase, kernel="ckde_cv_whiten", **fields)
+    return result
+
+
+def reduce_inputs(torch, parts):
+    """The fold reduce's arguments after a whitening call's ``parts``: the
+    pairs kernel's rows on them, then wte, lndiff and ok."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+
+    wte, lndiff, ok = parts[7:]
+    return [ckde_cv_pairs(*parts[:7]).reshape(wte.shape), wte, lndiff, ok]
+
+
+def compare_reduce(torch, args, label, card=None, phase="4 main path",
+                   quiet=False):
+    """The fold-reduce kernel against its plain version's float64 sums of
+    the same float32 rows at :data:`REDUCE_RTOL`; timed, with its bound,
+    when ``card`` is given; printed unless ``quiet``."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ckde_cv_fold_reduce, ckde_cv_fold_reduce_reference)
+
+    out, wte, lndiff, ok = args
+    got = ckde_cv_fold_reduce(*args)
+    want = ckde_cv_fold_reduce_reference(out.double(), wte.double(), lndiff,
+                                         ok.double())
+    torch.cuda.synchronize()
+    try:
+        torch.testing.assert_close(got.double(), want, rtol=REDUCE_RTOL,
+                                   atol=0, equal_nan=True)
+    except AssertionError as e:
+        raise AssertionError(f"{label} fold reduce: {e}") from None
+    diff = (got.double() - want).abs()
+    diff = diff[torch.isfinite(diff)]
+    err = float(diff.max()) if diff.numel() else 0.0
+    F, K, nte = out.shape
+    fields = {"case": label, "F_K_nte": f"{F}x{K}x{nte}",
+              "max_abs_err": f"{err:.3e}",
+              "nan_families": int(torch.isnan(got).sum())}
+    result = {"err": err}
+    if card is not None:
+        result.update(
+            time_kernel(torch, lambda: ckde_cv_fold_reduce(*args)),
+            plain_ms=cuda_median_ms(
+                torch, lambda: ckde_cv_fold_reduce_reference(*args)),
+            work=reduce_work(args))
+        fields.update(timing_fields(card, result))
+    if not quiet:
+        say(phase, kernel="ckde_cv_fold_reduce", **fields)
+    return result
+
+
+def device_kernels(torch, fn):
+    """(device operations, their summed device ms, names) of one call of
+    ``fn`` after a warm one, under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    ms = sum(e.time_range.end - e.time_range.start for e in ops) / 1e3
+    return len(ops), ms, [e.name for e in ops]
+
+
 def efficient_attention_lse(torch, q, k, scale=1.0):
     """(B, M) natural-log logsumexp over keys of ``scale * q @ k.T`` from
     ``torch.ops.aten._scaled_dot_product_efficient_attention`` (one head;
@@ -726,24 +919,30 @@ def main_path_pair_inputs(torch, frame32, k):
                               families(frame32.num_columns))
 
 
-def engine_pair_inputs(torch, engine, fams):
-    """The kernel's arguments for the (variable, parents) families ``fams``
-    under the normal reference rule, built by a score's own fold engine
-    (its device cache) and the flash route's own helpers."""
+def engine_whiten_inputs(torch, engine, fams):
+    """The whitening kernel's arguments and keywords for the (variable,
+    parents) families ``fams`` under the normal reference rule, built by a
+    score's own fold engine (its device cache) as the score builds them."""
     from pybnesian_tpu_torch.learning.scores.likelihood import _family_columns
-    from pybnesian_tpu_torch.ops.kde import (
-        ckde_cv_pair_args, ckde_cv_whitened_parts)
 
     pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask = (
         engine._device_cv_cache()
     )
     col_idx, col_mask = _family_columns(fams, pos)
-    col_mask = torch.as_tensor(col_mask, dtype=torch.float32, device="cuda")
-    parts = ckde_cv_whitened_parts(
-        data, null_mask, torch.as_tensor(col_idx, device="cuda"), col_mask,
-        tr_idx, tr_mask, te_idx, te_mask, rule="nr",
-    )
-    return list(ckde_cv_pair_args(*parts[:5], col_mask))
+    return [data, null_mask, torch.as_tensor(col_idx, device="cuda"),
+            torch.as_tensor(col_mask, dtype=torch.float32, device="cuda"),
+            tr_idx, tr_mask, te_idx, te_mask], {"rule": "nr"}
+
+
+def engine_pair_inputs(torch, engine, fams):
+    """The pairs kernel's arguments for the (variable, parents) families
+    ``fams`` under the normal reference rule: the route's own whitened
+    parts, the whitening kernel's outputs on
+    :func:`engine_whiten_inputs`."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
+
+    args, kw = engine_whiten_inputs(torch, engine, fams)
+    return list(ckde_cv_whiten(*args, **kw)[:7])
 
 
 def phase_selfcheck():
@@ -764,11 +963,19 @@ def check_scores(got, want, label):
     return rel
 
 
-def phase_main_path(torch, frame32, frame64, k):
+def phase_main_path(torch, frame32, frame64, k, card):
+    """The CV path at bench.py's workload; then the whitening and
+    fold-reduce kernels held to their plain versions on its first batch's
+    inputs and timed, with stage 1's device operations by the plain torch
+    route and by the kernel. Returns the path's launches and the two
+    kernels' checked and timed cases."""
     from pybnesian_tpu_torch import (
         CKDEType, CVLikelihood, KDENetwork, LinearGaussianCPDType,
         SemiparametricBN)
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ckde_cv_fold_reduce, ckde_cv_whiten, ckde_cv_whiten_reference)
+    from pybnesian_tpu_torch.ops.kde import ckde_cv_alldevice_flash
 
     cols = frame32.column_names()
     d = len(cols)
@@ -784,17 +991,19 @@ def phase_main_path(torch, frame32, frame64, k):
     shifts = [1 + c % (d - 2) for c in range(4 + CV_RUNS)]
     batches = [[(v, ps, ckde) for v, ps in families(d, s)] for s in shifts]
     results, elapsed, grew = [], [], []
+    stages = (ckde_cv_whiten, ckde_cv_pairs, ckde_cv_fold_reduce)
     reset_counts()
     for batch in batches:
-        before = ckde_cv_pairs.launches
+        before = [w.launches for w in stages]
         t0 = time.perf_counter()
         results.append(score.local_score_batch(model, batch))
         elapsed.append(time.perf_counter() - t0)
-        grew.append(ckde_cv_pairs.launches - before)
+        grew.append(tuple(w.launches - b for w, b in zip(stages, before)))
     launches = read_counts()
-    if not all(g > 0 for g in grew):
-        raise AssertionError(f"kernel launches per call {grew}: a call "
-                             "did not go through the kernel")
+    if not all(min(g) > 0 for g in grew):
+        raise AssertionError(f"whitening, pairs and reduce launches per "
+                             f"call {grew}: a call did not go through the "
+                             "three kernels")
     rel = max(
         check_scores(got, reference.local_score_batch(model, batch),
                      f"kde shift {s}")
@@ -831,7 +1040,32 @@ def phase_main_path(torch, frame32, frame64, k):
         lg=sum(1 for _, _, t in mix if t == lg),
         ckde=sum(1 for _, _, t in mix if t == ckde),
         max_rel_vs_f64=f"{rel:.3e}")
-    return launches
+
+    # the whitening and fold reduce on the first batch's inputs (G 150):
+    # against their plain versions, timed; stage 1 on the card by the plain
+    # torch route (the route before its kernel, its statistics now
+    # float64) and by the kernel, and the whole float32 CV call
+    args, kw = engine_whiten_inputs(torch, score._engine,
+                                    [(v, ps) for v, ps, _ in batches[0]])
+    whiten = compare_whiten(torch, args, "main-path-inputs", card, **kw)
+    parts = ckde_cv_whiten(*args, **kw)
+    reduce = compare_reduce(torch, reduce_inputs(torch, parts),
+                            "main-path-inputs", card)
+    plain_ops, plain_ms, _ = device_kernels(
+        torch, lambda: ckde_cv_whiten_reference(*args, **kw))
+    kernel_ops, kernel_ms, _ = device_kernels(
+        torch, lambda: ckde_cv_whiten(*args, **kw))
+    call_ops, call_ms, names = device_kernels(
+        torch, lambda: ckde_cv_alldevice_flash(*args, **kw))
+    say("4 main path", stage="1 whitening", programs=parts[0].shape[0],
+        plain_route_device_ops=plain_ops,
+        plain_route_device_ms=f"{plain_ms:.4f}",
+        kernel_device_ops=kernel_ops, kernel_device_ms=f"{kernel_ms:.4f}",
+        cv_call_device_ops=call_ops, cv_call_device_ms=f"{call_ms:.4f}",
+        cv_call_ops=repr([n[:40] for n in names]),
+        median_call_ms=f"{statistics.median(timed) * 1e3:.4f}",
+        card=repr(card["smi"]))
+    return launches, whiten, reduce
 
 
 def kde_inputs(torch, G, ntr, nte, d, seed, scale=2.0):
@@ -1234,23 +1468,28 @@ def cv_lik_search(torch, frame):
 
 def batch_sources(torch, engine, fams):
     """Where a CKDE family's float32 CV score can pick up its batch: the
-    pairs kernel's inputs (the whitened folds) of each of ``fams`` built
-    inside one batch of all of them and built alone, and the kernel's
-    per-row outputs on each, compared bit for bit. The kernel itself is
-    held batch-independent in phases 2 and 5."""
+    route's own whitened parts (the whitening kernel's outputs: the pairs
+    kernel's inputs and the fold reduce's) of each of ``fams`` built inside
+    one batch of all of them and built alone, and the pairs kernel's
+    per-row outputs on each, compared bit for bit. The pairs kernel itself
+    is held batch-independent in phases 2 and 5."""
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
 
     K = len(engine.folds)
-    together = engine_pair_inputs(torch, engine, fams)
-    rows = ckde_cv_pairs(*together)
+    args, kw = engine_whiten_inputs(torch, engine, fams)
+    together = ckde_cv_whiten(*args, **kw)
+    rows = ckde_cv_pairs(*together[:7])
     unequal_inputs, unequal_rows = set(), 0
-    names = ("jtr", "neg", "zv_tr", "jte", "zv_te", "no_ev", "lm_const")
     for f, fam in enumerate(fams):
-        alone = engine_pair_inputs(torch, engine, [fam])
+        args, kw = engine_whiten_inputs(torch, engine, [fam])
+        alone = ckde_cv_whiten(*args, **kw)
         part = slice(f * K, (f + 1) * K)
-        unequal_inputs |= {n for n, t, a in zip(names, together, alone)
-                           if not torch.equal(t[part], a)}
-        unequal_rows += not torch.equal(rows[part], ckde_cv_pairs(*alone))
+        mine = [t[part] for t in together[:7]] + [t[f:f + 1]
+                                                   for t in together[7:]]
+        unequal_inputs |= {n for n, t, a in zip(WHITEN_NAMES, mine, alone)
+                           if not torch.equal(t, a)}
+        unequal_rows += not torch.equal(rows[part], ckde_cv_pairs(*alone[:7]))
     return {"batch_source_families": len(fams),
             "whitened_inputs_not_bit_equal": repr(sorted(unequal_inputs)),
             "kernel_rows_not_bit_equal_families": unequal_rows}
@@ -1261,8 +1500,11 @@ def cross_batch(torch, score, score64, model):
     (linear-Gaussian and CKDE) and each one-parent family (linear-Gaussian,
     and CKDE as a CKDE node's update scores it) — in one batch, held against
     the float64 score's on the same folds, then scored each in a batch of
-    its own: max abs and relative difference of the two float32 batchings;
-    then :func:`batch_sources` on the one-parent CKDE families."""
+    its own: max abs and relative difference of the two float32 batchings,
+    and of their CKDE and linear-Gaussian families apart; then
+    :func:`batch_sources` on the one-parent CKDE families. A gate: every
+    CKDE family's score is the same bits alone and in the batch, and its
+    whitened parts too (the linear-Gaussian gap is recorded, not held)."""
     from pybnesian_tpu_torch import CKDEType, LinearGaussianCPDType
 
     nodes = model.nodes()
@@ -1279,13 +1521,22 @@ def cross_batch(torch, score, score64, model):
     rel = diff / np.abs(alone)
     ckde = np.array([f[2] == CKDEType() for f in fams])
     one_parent = [(v, ps) for v, ps, nt in fams if ps and nt == CKDEType()]
-    return {**batch_sources(torch, score.cv_lik._engine, one_parent),
+    sources = batch_sources(torch, score.cv_lik._engine, one_parent)
+    ckde_gap = float(diff[ckde].max())
+    if ckde_gap != 0.0 or sources["whitened_inputs_not_bit_equal"] != "[]":
+        raise AssertionError(
+            f"a CKDE score moves with its batch: cross_batch_ckde_max_abs "
+            f"{ckde_gap:.3e}, whitened_inputs_not_bit_equal "
+            f"{sources['whitened_inputs_not_bit_equal']}")
+    return {**sources,
             "cross_batch_families": len(fams),
             "cache_pass_max_rel_vs_f64": f"{rel64:.3e}",
             "cross_batch_max_abs": f"{diff.max():.3e}",
             "cross_batch_max_rel": f"{rel_alone:.3e}",
-            "cross_batch_ckde_max_abs": f"{diff[ckde].max():.3e}",
-            "cross_batch_ckde_max_rel": f"{rel[ckde].max():.3e}"}
+            "cross_batch_ckde_max_abs": f"{ckde_gap:.3e}",
+            "cross_batch_ckde_max_rel": f"{rel[ckde].max():.3e}",
+            "cross_batch_lg_max_abs": f"{diff[~ckde].max():.3e}",
+            "cross_batch_lg_max_rel": f"{rel[~ckde].max():.3e}"}
 
 
 def two_routes(score, score64, model, label):
@@ -1347,28 +1598,43 @@ def hc_kde_inputs(torch, score, model):
 
 
 def hc_kernel_cases(torch, score, model):
-    """Both kernels against their plain versions at the shapes ``hc`` gives
-    them, on inputs that the run's own score builds: the pairs kernel on
-    the CV channel's folds and on the holdout split, for every node alone
-    (the cache pass's node-type families), for ``model``'s families, and
-    for its widest family alone; the KDE kernel on each validation update
-    of a CKDE node of ``model``. Returns each kernel's largest error."""
+    """The kernels against their plain versions at the shapes ``hc`` gives
+    them, on inputs that the run's own score builds: the whitening, pairs
+    and fold-reduce kernels on the CV channel's folds and on the holdout
+    split, for every node alone (the cache pass's node-type families), for
+    ``model``'s families, and for its widest family alone; the KDE kernel
+    on each validation update of a CKDE node of ``model``. Returns each
+    kernel's largest error."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
+
     nodes = model.nodes()
     learned = [(v, model.parents(v)) for v in nodes]
     batches = {"nodes": [(v, []) for v in nodes], "learned": learned,
                "widest": [max(learned, key=lambda f: len(f[1]))]}
-    pairs = max(
-        compare_pairs(torch, engine_pair_inputs(torch, engine, fams),
-                      f"hc-{channel}-{label}", phase="8 hc kernel")["err"]
-        for channel, engine in (("cv", score.cv_lik._engine),
-                                ("holdout", score.holdout_lik._engine))
-        for label, fams in batches.items())
+    errs = dict.fromkeys(("ckde_cv_whiten", "ckde_cv_pairs",
+                          "ckde_cv_fold_reduce"), 0.0)
+    for channel, engine in (("cv", score.cv_lik._engine),
+                            ("holdout", score.holdout_lik._engine)):
+        for label, fams in batches.items():
+            case = f"hc-{channel}-{label}"
+            args, kw = engine_whiten_inputs(torch, engine, fams)
+            parts = ckde_cv_whiten(*args, **kw)
+            for name, err in (
+                    ("ckde_cv_whiten", compare_whiten(
+                        torch, args, case, phase="8 hc kernel", **kw)),
+                    ("ckde_cv_pairs", compare_pairs(
+                        torch, list(parts[:7]), case, phase="8 hc kernel")),
+                    ("ckde_cv_fold_reduce", compare_reduce(
+                        torch, reduce_inputs(torch, parts), case,
+                        phase="8 hc kernel"))):
+                errs[name] = max(errs[name], err["err"])
     cases = hc_kde_inputs(torch, score, model)
     if not cases:
         raise AssertionError("the learned model has no CKDE node with parents")
-    kde = max(compare_kde(torch, args, label, phase="8 hc kernel")["err"]
-              for label, args in cases)
-    return {"ckde_cv_pairs": pairs, "kde_logl": kde}
+    errs["kde_logl"] = max(
+        compare_kde(torch, args, label, phase="8 hc kernel")["err"]
+        for label, args in cases)
+    return errs
 
 
 def bic_check(torch, frame32, frame64):
@@ -1436,7 +1702,8 @@ def phase_hc(torch):
         raise AssertionError(f"{int((~np.isfinite(scores)).sum())} "
                              "non-finite scores in the float32 run")
     dag_order(model.nodes(), model.arcs())
-    for name in ("ckde_cv_pairs", "kde_logl"):
+    for name in ("ckde_cv_pairs", "kde_logl", "ckde_cv_whiten",
+                 "ckde_cv_fold_reduce"):
         if launches[name] == 0:
             raise AssertionError(f"hc did not launch {name}")
     t0 = time.perf_counter()
@@ -1571,26 +1838,24 @@ def ucv_selector_check(torch, frame32, frame64):
                 f32_vs_f64_max_rel=f"{rel:.3e}", **fields)
 
 
-def ucv_pair_inputs(torch, engine, fams, h_maps):
-    """The pairs kernel's arguments for (variable, parents) families
-    scored with the per-fold bandwidths ``h_maps``, built by the score's
-    own fold engine and the scoring path's own helpers."""
+def ucv_whiten_inputs(torch, engine, fams, h_maps):
+    """The whitening kernel's arguments and keywords for (variable,
+    parents) families scored with the per-fold bandwidths ``h_maps``,
+    built by the score's own fold engine and the scoring path's own
+    helpers."""
     from pybnesian_tpu_torch.learning.scores.likelihood import (
         _family_bandwidths)
-    from pybnesian_tpu_torch.ops.kde import (
-        ckde_cv_pair_args, ckde_cv_whitened_parts)
 
     pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask = (
         engine._device_cv_cache()
     )
     col_idx, col_mask, H = _family_bandwidths(fams, h_maps, pos)
-    col_mask = torch.as_tensor(col_mask, dtype=torch.float32, device="cuda")
-    parts = ckde_cv_whitened_parts(
-        data, null_mask, torch.as_tensor(col_idx, device="cuda"), col_mask,
-        tr_idx, tr_mask, te_idx, te_mask,
-        bandwidths=torch.as_tensor(H, dtype=torch.float32, device="cuda"),
-    )
-    return list(ckde_cv_pair_args(*parts[:5], col_mask))
+    return [data, null_mask, torch.as_tensor(col_idx, device="cuda"),
+            torch.as_tensor(col_mask, dtype=torch.float32, device="cuda"),
+            tr_idx, tr_mask, te_idx, te_mask], {
+        "rule": None,
+        "bandwidths": torch.as_tensor(H, dtype=torch.float32,
+                                      device="cuda")}
 
 
 def vech_width(nv):
@@ -1771,9 +2036,10 @@ def ucv_kernel_check(torch, card, recorded):
 def phase_ucv(torch, frame32, frame64, k, card):
     """UCV and custom bandwidth selectors on the card. Returns the
     launches of its path — the entry points of (b) in float32, (c) and
-    (d), each driven with the counts at 0 and read just after — the pairs
-    kernel's error on the UCV-scored inputs, and the UCV kernel's checked
-    and timed case (:func:`ucv_kernel_check`)."""
+    (d), each driven with the counts at 0 and read just after — the
+    whitening, pairs and fold-reduce kernels' errors on the UCV-scored
+    inputs (the given-bandwidths route), and the UCV kernel's checked and
+    timed case (:func:`ucv_kernel_check`)."""
     from pybnesian_tpu_torch import (
         KDE, UCV, Arguments, BandwidthSelector, CKDEType, CVLikelihood,
         DataFrame, KDENetwork, Kwargs)
@@ -1802,7 +2068,8 @@ def phase_ucv(torch, frame32, frame64, k, card):
         if tag == "f32":
             recorded = rec
     launches_b = counted["f32"]
-    for name in ("ckde_cv_pairs", "ucv_pair_sums"):
+    for name in ("ckde_cv_pairs", "ucv_pair_sums", "ckde_cv_whiten",
+                 "ckde_cv_fold_reduce"):
         if launches_b[name] == 0:
             raise AssertionError(f"the UCV-selected families did not launch "
                                  f"{name}")
@@ -1849,9 +2116,20 @@ def phase_ucv(torch, frame32, frame64, k, card):
     if not np.allclose(s32, own["f32"], rtol=SCORE_RTOL):
         raise AssertionError("the float32 search is not reproducible: "
                              f"{s32} vs {own['f32']}")
-    err = compare_pairs(
-        torch, ucv_pair_inputs(torch, scores["f32"]._engine, fams, given),
-        "ucv-cv-families", phase="9 ucv kernel")["err"]
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
+
+    wargs, wkw = ucv_whiten_inputs(torch, scores["f32"]._engine, fams, given)
+    parts = ckde_cv_whiten(*wargs, **wkw)
+    errs = {
+        "ckde_cv_whiten": compare_whiten(torch, wargs, "ucv-cv-families",
+                                         phase="9 ucv kernel", **wkw)["err"],
+        "ckde_cv_pairs": compare_pairs(torch, list(parts[:7]),
+                                       "ucv-cv-families",
+                                       phase="9 ucv kernel")["err"],
+        "ckde_cv_fold_reduce": compare_reduce(
+            torch, reduce_inputs(torch, parts), "ucv-cv-families",
+            phase="9 ucv kernel")["err"],
+    }
     ucv = ucv_kernel_check(torch, card, recorded.first)
     say("9 ucv", path="CVLikelihood+UCV", scoring_s_f32=f"{scoring_s:.4f}",
         scores_f32=repr([round(float(x), 3) for x in s32]),
@@ -1913,7 +2191,7 @@ def phase_ucv(torch, frame32, frame64, k, card):
         fit_s=f"{fit_s:.4f}", iterations=int(search.iterations[0]),
         evaluations=search.evaluations,
         logl_max_abs_vs_f64=f"{err_kde:.3e}", launches=launches_d)
-    return add_counts(launches_b, launches_c, launches_d), err, ucv
+    return add_counts(launches_b, launches_c, launches_d), errs, ucv
 
 
 def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0, fresh=0.3):
@@ -2181,14 +2459,16 @@ def launches_since(before):
 
 class Recording:
     """From :meth:`start` to :meth:`stop`, every launch of the two KDE
-    kernels through ``ops/kde.py`` (where the port calls both wrappers) is
-    recorded as it passes: per kernel, how many launches it made, and a
-    copy of the first launch's arguments of each shape of arguments.
+    kernels and of the CV whitening and fold-reduce kernels through
+    ``ops/kde.py`` (where the port calls all four wrappers) is recorded as
+    it passes: per kernel, how many launches it made, and a copy of the
+    first launch's arguments and keywords of each shape of arguments.
     The copies are made on the card's stream, once per new shape. A path
     runs between the two calls; a phase that fails ends the script, so
     nothing restores the wrappers then."""
 
-    NAMES = ("ckde_cv_pairs", "kde_logl")
+    NAMES = ("ckde_cv_pairs", "kde_logl", "ckde_cv_whiten",
+             "ckde_cv_fold_reduce")
 
     def __init__(self):
         self.launches = dict.fromkeys(self.NAMES, 0)
@@ -2210,12 +2490,19 @@ class Recording:
         return read_counts()
 
     def _recording(self, name, wrapper):
-        def recording(*args):
-            shape = tuple(tuple(a.shape) for a in args)
+        def clone(a):
+            return a.clone() if hasattr(a, "clone") else a
+
+        def recording(*args, **kwargs):
+            shape = (tuple(tuple(a.shape) for a in args),
+                     tuple((k, tuple(getattr(v, "shape", (repr(v),))))
+                           for k, v in sorted(kwargs.items())))
             self.launches[name] += 1
             if shape not in self.first[name]:
-                self.first[name][shape] = [a.clone() for a in args]
-            return wrapper(*args)
+                self.first[name][shape] = (
+                    [clone(a) for a in args],
+                    {k: clone(v) for k, v in kwargs.items()})
+            return wrapper(*args, **kwargs)
         return recording
 
 
@@ -2225,7 +2512,9 @@ def hold_recorded(torch, rec, counted, label, phase):
     ``counted`` is the path's launch counts over the same calls: every
     launch the counters saw must have been recorded. Returns each launched
     kernel's largest error."""
-    compare = {"ckde_cv_pairs": compare_pairs, "kde_logl": compare_kde}
+    compare = {"ckde_cv_pairs": compare_pairs, "kde_logl": compare_kde,
+               "ckde_cv_whiten": compare_whiten,
+               "ckde_cv_fold_reduce": compare_reduce}
     for name, n in rec.launches.items():
         if n != counted[name]:
             raise AssertionError(f"{label}: {name} counted {counted[name]} "
@@ -2235,8 +2524,8 @@ def hold_recorded(torch, rec, counted, label, phase):
         if not rec.first[name]:
             continue
         errs[name] = max(compare[name](torch, args, label, phase=phase,
-                                       quiet=True)["err"]
-                         for args in rec.first[name].values())
+                                       quiet=True, **kwargs)["err"]
+                         for args, kwargs in rec.first[name].values())
         say(phase, path=label, kernel=name, launches=counted[name],
             shapes_held=len(rec.first[name]),
             max_abs_err=f"{errs[name]:.3e}")
@@ -3470,7 +3759,8 @@ def main():
     pairs_args = main_path_pair_inputs(torch, frame32, k)
     pairs_cases = phase_kernel(torch, pairs_args, card)
     phase_selfcheck()
-    cv_launches = phase_main_path(torch, frame32, frame64, k)
+    cv_launches, whiten, reduce = phase_main_path(torch, frame32, frame64,
+                                                  k, card)
     kde = phase_kde_kernel(torch, card)
     probe, probe_launches = phase_exp_chain(torch, card, {
         "ckde_cv_pairs main-path-inputs": pairs_cases["main-path-inputs"],
@@ -3479,7 +3769,8 @@ def main():
     })
     model_launches = phase_model_path(torch)
     hc_launches, hc_errs = phase_hc(torch)
-    ucv_launches, ucv_err, ucv = phase_ucv(torch, frame32, frame64, k, card)
+    ucv_launches, ucv_errs, ucv = phase_ucv(torch, frame32, frame64, k,
+                                            card)
     phase_discrete(torch)
     t_new = time.perf_counter()
     hybrid_launches, hybrid_errs = phase_hybrid(torch)
@@ -3497,23 +3788,27 @@ def main():
              "dynamic": dynamic_launches, "constraint": constraint_launches,
              "independence": independence_launches,
              "parallel": parallel_launches}
-    for name in ("ckde_cv_pairs", "kde_logl", "ucv_pair_sums"):
+    for name in ("ckde_cv_pairs", "kde_logl", "ucv_pair_sums",
+                 "ckde_cv_whiten", "ckde_cv_fold_reduce"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
     # every launch of paths 11-14 and 16 was held at its shape
     # (hold_recorded)
-    new_errs = (hybrid_errs, dynamic_errs, constraint_errs,
-                independence_errs, parallel_errs)
-    pairs = dict(pairs_cases["main-path-inputs"],
-                 err=max([c["err"] for c in pairs_cases.values()]
-                         + [hc_errs["ckde_cv_pairs"], ucv_err]
-                         + [e["ckde_cv_pairs"] for e in new_errs
-                            if "ckde_cv_pairs" in e]))
-    kde = dict(kde, err=max([kde["err"], hc_errs["kde_logl"]]
-                            + [e["kde_logl"] for e in new_errs
-                               if "kde_logl" in e]))
+    new_errs = (hc_errs, ucv_errs, hybrid_errs, dynamic_errs,
+                constraint_errs, independence_errs, parallel_errs)
+
+    def worst(name, *errs):
+        return max([*errs] + [e[name] for e in new_errs if name in e])
+
+    pairs = dict(pairs_cases["main-path-inputs"], err=worst(
+        "ckde_cv_pairs", *(c["err"] for c in pairs_cases.values())))
+    kde = dict(kde, err=worst("kde_logl", kde["err"]))
     results = {"ckde_cv_pairs": pairs, "kde_logl": kde, "exp_chain": probe,
-               "ucv_pair_sums": ucv}
+               "ucv_pair_sums": ucv,
+               "ckde_cv_whiten": dict(whiten, err=worst("ckde_cv_whiten",
+                                                        whiten["err"])),
+               "ckde_cv_fold_reduce": dict(reduce, err=worst(
+                   "ckde_cv_fold_reduce", reduce["err"]))}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {p: counts[name] for p, counts in paths.items()
@@ -3530,7 +3825,8 @@ def main():
             "plain_ms": result["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes" if by == "bytes" else "operations",
             # one efficient-attention call (#2) or two (#1, the UCV sums):
-            # their logsumexp output; nothing computes the exp chain
+            # their logsumexp output; nothing computes the exp chain, the
+            # CV whitening or the fold sums
             "library_ms": result.get("library_ms"),
         })
     say("all phases", wall_s=f"{time.perf_counter() - t_start:.1f}")

@@ -1,0 +1,339 @@
+"""Stages 1 and 3 of the CV-CKDE score: the per-(family, fold) whitening
+before the pairs kernel, and the per-fold sums after it.
+
+Replaces ``ckde_cv_whitened_parts`` and ``_flash_reduce`` of
+``pybnesian_tpu/ops/kde.py``, which the JAX package runs as jitted XLA (no
+Pallas kernel). What lives here:
+
+- :func:`ckde_cv_whitened_parts` and :func:`ckde_cv_fold_reduce_reference`,
+  the plain torch versions, on any device and dtype; for float32 inputs they
+  take their statistics in float64 and round each output once, as the
+  kernels do;
+- :func:`ckde_cv_whiten_reference`, the whitening's plain version in the
+  kernel's output layout (G = F·K programs, kernel #1's arguments);
+- :func:`ckde_cv_whiten` and :func:`ckde_cv_fold_reduce`, the wrappers:
+  plain version for CPU tensors, the CUDA kernels ``ckde_cv_whiten_f32``
+  and ``ckde_cv_fold_reduce_f32`` (``pybnesian_tpu_torch/csrc/cv_whiten.cu``)
+  for CUDA tensors, with launch counters ``.launches``;
+- the ctypes binding of those kernels (built at first use by
+  :mod:`.cuda_build`).
+
+Both kernels sum in float64 in an order fixed by the shapes (ntr, nte, K)
+alone: one block per program or family, fixed row strides per thread, a
+fixed tree over the block, no atomics. So a family's whitened rows and CV
+score are the same bits alone and in any batch, and, since every sum is a
+column's or an entry's own, whatever the batch's widest family. The torch
+reductions of the plain version choose their order by shape and device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import cuda_build
+from .linalg import cholesky_or_nan
+
+__all__ = [
+    "ckde_cv_whiten",
+    "ckde_cv_whiten_reference",
+    "ckde_cv_whitened_parts",
+    "ckde_cv_fold_reduce",
+    "ckde_cv_fold_reduce_reference",
+    "MAX_DPAD",
+]
+
+LOG_2PI = math.log(2.0 * math.pi)
+#: widest family the whitening kernel takes (kernel #1's ``MAX_DPAD``)
+MAX_DPAD = 16
+_RULES = {"nr": 0, "scott": 1}
+
+
+def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
+                           tr_mask, te_idx, te_mask, rule="nr",
+                           bandwidths=None):
+    """Stage 1 of the CV-CKDE path: per (family, fold) gather, bandwidth,
+    Cholesky and whitening — everything *before* the pairwise part. The
+    bandwidth is the rule's (``rule``: normal reference "nr" or "scott")
+    unless ``bandwidths`` gives one matrix per (family, fold): (F, K, djmax,
+    djmax) in the family's column order (evidence first, variable last),
+    entries of padded columns ignored — the route of UCV-selected and
+    user-selected bandwidths.
+
+    data: (n, D) values (nulls zeroed); null_mask: (n, D) 1.0 where null;
+    col_idx/col_mask: (F, djmax) family columns, evidence first / variable
+    last; tr_idx/tr_mask: (K, ntr) fold train rows (shared across families);
+    te_idx/te_mask: (K, nte). Returns ``(jtr, neg, zv_tr, jte, zv_te, wte,
+    lndiff, ok)`` with leading (F, K) axes: jtr (F, K, ntr, djmax), neg and
+    zv_tr (F, K, ntr), jte (F, K, nte, djmax), zv_te and wte (F, K, nte),
+    lndiff and ok (F, K). A bandwidth that is not positive definite gives
+    NaN parts (:func:`cholesky_or_nan`); ``ok`` is 0 where a fold has too
+    few rows.
+
+    Every statistic is taken in float64: for float32 data each output is
+    one rounding of its float64 value, except ``lndiff``, which stays
+    float64 (the fold sums multiply it by the fold's test weight)."""
+    dtype = data.dtype
+    f64 = torch.float64
+    data = data.to(f64)
+    null_mask = null_mask.to(f64)
+    col_mask = col_mask.to(f64)
+    tr_mask = tr_mask.to(f64)
+    te_mask = te_mask.to(f64)
+    F, djmax = col_idx.shape
+    fam = data[:, col_idx].permute(1, 0, 2) * col_mask[:, None, :]
+    fam_null = torch.amax(
+        null_mask[:, col_idx].permute(1, 0, 2) * col_mask[:, None, :], dim=2
+    )
+    fvalid = 1.0 - fam_null                                    # (F, n)
+    d_eff = torch.sum(col_mask, dim=1)                         # (F,)
+    dim_ids = torch.arange(djmax, dtype=f64, device=data.device)
+    # one-hot of the variable position (= last valid column)
+    vsel = (dim_ids[None, :] == d_eff[:, None] - 1.0).to(f64) * col_mask
+
+    w = tr_mask[None] * fvalid[:, tr_idx]                      # (F, K, ntr)
+    train = fam[:, tr_idx]                                     # (F, K, ntr, d)
+    n_eff = torch.sum(w, dim=2)                                # (F, K)
+    d_col = d_eff[:, None]
+    if bandwidths is not None:
+        H = bandwidths.to(f64) * (
+            col_mask[:, :, None] * col_mask[:, None, :])[:, None]
+    else:
+        mean = torch.sum(train * w[..., None], dim=2) / n_eff[..., None]
+        xc = (train - mean[:, :, None, :]) * (
+            w[..., None] * col_mask[:, None, None, :]
+        )
+        cov = xc.mT @ xc / (n_eff - 1.0)[..., None, None]
+        if rule == "nr":
+            k = (4.0 / (n_eff * (d_col + 2.0))) ** (2.0 / (d_col + 4.0))
+        elif rule == "scott":
+            k = n_eff ** (-2.0 / (d_col + 4.0))
+        else:
+            raise ValueError(f"unknown bandwidth rule {rule!r}")
+        H = k[..., None, None] * cov
+    H = H + torch.diag_embed(1.0 - col_mask)[:, None]
+    L = cholesky_or_nan(H)
+    eye = torch.eye(djmax, dtype=f64, device=data.device).expand_as(L)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    logdiag = torch.log(torch.abs(torch.diagonal(L, dim1=-2, dim2=-1)))
+    # lndiff = jln − mln = −log|L_vv| − ½ log 2π (the n_eff terms cancel)
+    lndiff = -torch.sum(logdiag * vsel[:, None, :], dim=2) - 0.5 * LOG_2PI
+    jtr = train @ Linv.mT
+    jte = fam[:, te_idx] @ Linv.mT
+    zv_tr = torch.sum(jtr * vsel[:, None, None, :], dim=3)
+    zv_te = torch.sum(jte * vsel[:, None, None, :], dim=3)
+    neg = torch.where(w > 0, 0.0, -math.inf).to(f64)
+    wte = te_mask[None] * fvalid[:, te_idx]
+    ok = (n_eff > d_col).to(f64)
+    return (jtr.to(dtype), neg.to(dtype), zv_tr.to(dtype), jte.to(dtype),
+            zv_te.to(dtype), wte.to(dtype), lndiff, ok.to(dtype))
+
+
+def ckde_cv_whiten_reference(data, null_mask, col_idx, col_mask, tr_idx,
+                             tr_mask, te_idx, te_mask, rule="nr",
+                             bandwidths=None):
+    """Plain torch version of the whitening kernel, same arguments and
+    result as :func:`ckde_cv_whiten`, on any device: the parts of
+    :func:`ckde_cv_whitened_parts` with the (family, fold) pairs flattened
+    to G = F·K programs, contiguous, the first seven in
+    :func:`~.ckde_cv_kernel.ckde_cv_pairs`'s argument order. Evidence-free
+    families are flagged (``no_ev``): their marginal logsumexp is exactly
+    ``lm_const`` = log n_eff, so kernel #1 skips the whole marginal pass."""
+    jtr, neg, zv_tr, jte, zv_te, wte, lndiff, ok = ckde_cv_whitened_parts(
+        data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
+        rule=rule, bandwidths=bandwidths,
+    )
+    F, K, ntr, dpad = jtr.shape
+    nte = jte.shape[2]
+    no_ev = (torch.sum(col_mask, dim=1) <= 1.0)[:, None].expand(F, K)
+    n_valid = torch.sum((neg == 0.0).to(torch.float64), dim=2)
+    lm_const = torch.log(torch.clamp(n_valid, min=1.0))
+
+    def flat(t, *shape):
+        return t.reshape(F * K, *shape).to(data.dtype).contiguous()
+
+    return (flat(jtr, ntr, dpad), flat(neg, ntr), flat(zv_tr, ntr),
+            flat(jte, nte, dpad), flat(zv_te, nte), flat(no_ev),
+            flat(lm_const), wte.contiguous(), lndiff.contiguous(),
+            ok.contiguous())
+
+
+def ckde_cv_fold_reduce_reference(out, wte, lndiff, ok):
+    """(F,) CV log-likelihood from the (F, K, nte) per-test-row
+    ``logsumexp_joint − logsumexp_marg``; NaN marks a degenerate fold.
+    Summed in float64, returned in ``out``'s dtype."""
+    f64 = torch.float64
+    w = wte.to(f64)
+    rows = torch.where(wte > 0, out.to(f64), 0.0)
+    fold_ll = torch.sum(rows * w, dim=2) + lndiff.to(f64) * torch.sum(w, dim=2)
+    fold_ll = torch.where(ok > 0, fold_ll, math.nan)
+    return torch.sum(fold_ll, dim=1).to(out.dtype)
+
+
+def _check(tensors, dtypes, shapes, device):
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+
+
+def _check_whiten_args(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
+                       te_idx, te_mask, rule, bandwidths):
+    if not isinstance(data, torch.Tensor) or data.dim() != 2:
+        raise ValueError("data must be an (n, D) torch.Tensor")
+    if not isinstance(col_idx, torch.Tensor) or col_idx.dim() != 2:
+        raise ValueError("col_idx must be an (F, dpad) torch.Tensor")
+    for name, t in (("tr_idx", tr_idx), ("te_idx", te_idx)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 2:
+            raise ValueError(f"{name} must be a (K, rows) torch.Tensor")
+    n, D = data.shape
+    F, dpad = col_idx.shape
+    K, ntr = tr_idx.shape
+    nte = te_idx.shape[1]
+    tensors = {"data": data, "null_mask": null_mask, "col_idx": col_idx,
+               "col_mask": col_mask, "tr_idx": tr_idx, "tr_mask": tr_mask,
+               "te_idx": te_idx, "te_mask": te_mask}
+    shapes = {"data": (n, D), "null_mask": (n, D), "col_idx": (F, dpad),
+              "col_mask": (F, dpad), "tr_idx": (K, ntr), "tr_mask": (K, ntr),
+              "te_idx": (K, nte), "te_mask": (K, nte)}
+    if bandwidths is not None:
+        tensors["bandwidths"] = bandwidths
+        shapes["bandwidths"] = (F, K, dpad, dpad)
+    elif rule not in _RULES:
+        raise ValueError(f"unknown bandwidth rule {rule!r}")
+    dtypes = {name: torch.int64 if name.endswith("idx") else torch.float32
+              for name in tensors}
+    _check(tensors, dtypes, shapes, data.device)
+    if not 1 <= dpad <= MAX_DPAD:
+        raise ValueError(f"dpad {dpad} outside 1..{MAX_DPAD}")
+    return n, D, F, K, ntr, nte, dpad
+
+
+def ckde_cv_whiten(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
+                   te_idx, te_mask, rule="nr", bandwidths=None):
+    """The whitened parts of F families × K folds in the layout of the
+    pairs kernel: ``(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const, wte,
+    lndiff, ok)``, the first seven :func:`~.ckde_cv_kernel.ckde_cv_pairs`'s
+    arguments for G = F·K programs (jtr (G, ntr, dpad), neg, zv_tr (G, ntr),
+    jte (G, nte, dpad), zv_te (G, nte), no_ev, lm_const (G,)), then
+    :func:`ckde_cv_fold_reduce`'s: wte (F, K, nte), lndiff (F, K) float64,
+    ok (F, K).
+
+    Arguments as :func:`ckde_cv_whitened_parts`'s: float32 values and
+    masks, int64 indices, ``bandwidths`` float32 or None (then ``rule`` is
+    "nr" or "scott"), all contiguous and on one device, 1 ≤ dpad ≤
+    :data:`MAX_DPAD`. Indices must lie in range: the kernel reads NaN for
+    one that does not, the plain version raises.
+
+    CPU tensors take :func:`ckde_cv_whiten_reference`. CUDA tensors launch
+    the kernel, counted in ``ckde_cv_whiten.launches``, or raise."""
+    n, D, F, K, ntr, nte, dpad = _check_whiten_args(
+        data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
+        rule, bandwidths)
+    if data.device.type == "cpu":
+        return ckde_cv_whiten_reference(
+            data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx,
+            te_mask, rule=rule, bandwidths=bandwidths)
+    if data.device.type != "cuda":
+        raise ValueError(f"no ckde_cv_whiten kernel for {data.device}")
+    G = F * K
+    if G >= 2**31:
+        raise ValueError(f"{G} programs exceed the grid's 2**31 - 1")
+    device = data.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    outs = (empty(G, ntr, dpad), empty(G, ntr), empty(G, ntr),
+            empty(G, nte, dpad), empty(G, nte), empty(G), empty(G),
+            empty(F, K, nte), empty(F, K, dtype=torch.float64), empty(F, K))
+    if G == 0:
+        return outs
+    code = 2 if bandwidths is not None else _RULES[rule]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _load_library().ckde_cv_whiten_f32(
+            data.data_ptr(), null_mask.data_ptr(), col_idx.data_ptr(),
+            col_mask.data_ptr(), tr_idx.data_ptr(), tr_mask.data_ptr(),
+            te_idx.data_ptr(), te_mask.data_ptr(),
+            None if bandwidths is None else bandwidths.data_ptr(),
+            *(t.data_ptr() for t in outs), n, D, F, K, ntr, nte, dpad, code,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ckde_cv_whiten kernel launch failed (F {F}, K "
+                           f"{K}, dpad {dpad}): CUDA error {err}")
+    ckde_cv_whiten.launches += 1
+    return outs
+
+
+ckde_cv_whiten.launches = 0
+
+
+def ckde_cv_fold_reduce(out, wte, lndiff, ok):
+    """(F,) float32 CV log-likelihood of F families from the pairs kernel's
+    rows ``out`` (F, K, nte) float32, the test weights ``wte`` (F, K, nte)
+    float32, ``lndiff`` (F, K) float64 and ``ok`` (F, K) float32, all
+    contiguous: per fold Σ rows·wte + lndiff·Σ wte (rows where wte is 0
+    count 0), NaN where ``ok`` is 0, summed over the folds in order.
+
+    CPU tensors take :func:`ckde_cv_fold_reduce_reference`. CUDA tensors
+    launch the kernel, counted in ``ckde_cv_fold_reduce.launches``, or
+    raise."""
+    if not isinstance(out, torch.Tensor) or out.dim() != 3:
+        raise ValueError("out must be an (F, K, nte) torch.Tensor")
+    F, K, nte = out.shape
+    _check({"out": out, "wte": wte, "lndiff": lndiff, "ok": ok},
+           {"out": torch.float32, "wte": torch.float32,
+            "lndiff": torch.float64, "ok": torch.float32},
+           {"out": (F, K, nte), "wte": (F, K, nte), "lndiff": (F, K),
+            "ok": (F, K)}, out.device)
+    if out.device.type == "cpu":
+        return ckde_cv_fold_reduce_reference(out, wte, lndiff, ok)
+    if out.device.type != "cuda":
+        raise ValueError(f"no ckde_cv_fold_reduce kernel for {out.device}")
+    result = torch.empty(F, dtype=torch.float32, device=out.device)
+    if F == 0:
+        return result
+    if K == 0:
+        return result.zero_()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = _load_library().ckde_cv_fold_reduce_f32(
+            out.data_ptr(), wte.data_ptr(), lndiff.data_ptr(), ok.data_ptr(),
+            result.data_ptr(), F, K, nte, stream)
+    if err != 0:
+        raise RuntimeError(f"ckde_cv_fold_reduce kernel launch failed (F "
+                           f"{F}, K {K}, nte {nte}): CUDA error {err}")
+    ckde_cv_fold_reduce.launches += 1
+    return result
+
+
+ckde_cv_fold_reduce.launches = 0
+
+
+@functools.cache
+def _load_library():
+    lib = cuda_build.load("cv_whiten.cu")
+    fn = lib.ckde_cv_whiten_f32
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.ckde_cv_fold_reduce_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    return lib

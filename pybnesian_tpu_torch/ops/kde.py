@@ -14,13 +14,21 @@ and the plain forms chunk internally, so no caller pads.
 
 One CV call scores F CKDE families over K folds:
 
-1. :func:`ckde_cv_whitened_parts` — per (family, fold) row gather,
-   bandwidth (the normal reference or Scott rule, or matrices the caller
-   gives: UCV's, a user selector's), Cholesky and whitening;
+1. per (family, fold) row gather, bandwidth (the normal reference or Scott
+   rule, or matrices the caller gives: UCV's, a user selector's), Cholesky
+   and whitening — on a GPU the hand-written kernel behind
+   :func:`~.cv_whiten_kernel.ckde_cv_whiten`, elsewhere its plain version
+   :func:`ckde_cv_whitened_parts`;
 2. the pairwise joint-and-marginal logsumexp — on a GPU the hand-written
    kernel behind :func:`ckde_cv_pairs` (:func:`ckde_cv_alldevice_flash`),
    elsewhere the dense chunked form of :func:`ckde_cv_alldevice`;
-3. :func:`_flash_reduce` — the per-fold sums.
+3. the per-fold sums — on a GPU the kernel behind
+   :func:`~.cv_whiten_kernel.ckde_cv_fold_reduce`, elsewhere its plain
+   version :func:`_flash_reduce`.
+
+On a GPU in float32 the call is those three launches, and each sums in an
+order fixed by the shapes alone: a family's float32 score is the same bits
+alone and in any batch.
 
 Family columns are laid out EVIDENCE FIRST with the variable last. The
 Cholesky factor of the joint bandwidth is lower-triangular, so its leading
@@ -46,8 +54,13 @@ import numpy as np
 import torch
 
 from .ckde_cv_kernel import ckde_cv_pairs
+from .cv_whiten_kernel import (
+    ckde_cv_fold_reduce,
+    ckde_cv_whiten,
+    ckde_cv_whitened_parts,
+)
+from .cv_whiten_kernel import ckde_cv_fold_reduce_reference as _flash_reduce
 from .kde_kernel import kde_logl
-from .linalg import cholesky_or_nan
 from .ucv_kernel import ucv_pair_sums_cuda, ucv_pair_sums_reference
 
 __all__ = [
@@ -59,13 +72,10 @@ __all__ = [
     "ckde_cv_whitened_parts",
     "ckde_cv_alldevice",
     "ckde_cv_alldevice_flash",
-    "ckde_cv_pair_args",
     "flash_cv_selfcheck",
     "ucv_pair_sums",
     "ucv_pair_sums_batch",
 ]
-
-LOG_2PI = math.log(2.0 * math.pi)
 
 # elements of one (programs, test chunk, train rows) pair block in the
 # dense path: 2**24 keeps each of its few live temporaries at 64 MiB in
@@ -196,83 +206,6 @@ def batched_ckde_logl(jtr, jte, zv_tr, zv_te, trm, lndiff, no_ev=None):
     return _dense_pairs(jtr, neg, zv_tr, jte, zv_te) + lndiff[:, None]
 
 
-def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
-                           tr_mask, te_idx, te_mask, rule="nr",
-                           bandwidths=None):
-    """Stage 1 of the CV-CKDE path: per (family, fold) gather, bandwidth,
-    Cholesky and whitening — everything *before* the pairwise part. The
-    bandwidth is the rule's (``rule``: normal reference "nr" or "scott")
-    unless ``bandwidths`` gives one matrix per (family, fold): (F, K, djmax,
-    djmax) in the family's column order (evidence first, variable last),
-    entries of padded columns ignored — the route of UCV-selected and
-    user-selected bandwidths.
-
-    data: (n, D) values (nulls zeroed); null_mask: (n, D) 1.0 where null;
-    col_idx/col_mask: (F, djmax) family columns, evidence first / variable
-    last; tr_idx/tr_mask: (K, ntr) fold train rows (shared across families);
-    te_idx/te_mask: (K, nte). Returns ``(jtr, neg, zv_tr, jte, zv_te, wte,
-    lndiff, ok)`` with leading (F, K) axes: jtr (F, K, ntr, djmax), neg and
-    zv_tr (F, K, ntr), jte (F, K, nte, djmax), zv_te and wte (F, K, nte),
-    lndiff and ok (F, K). A bandwidth that is not positive definite gives
-    NaN parts (:func:`cholesky_or_nan`); ``ok`` is 0 where a fold has too
-    few rows."""
-    F, djmax = col_idx.shape
-    dtype = data.dtype
-    fam = data[:, col_idx].permute(1, 0, 2) * col_mask[:, None, :]
-    fam_null = torch.amax(
-        null_mask[:, col_idx].permute(1, 0, 2) * col_mask[:, None, :], dim=2
-    )
-    fvalid = 1.0 - fam_null                                    # (F, n)
-    d_eff = torch.sum(col_mask, dim=1)                         # (F,)
-    dim_ids = torch.arange(djmax, dtype=dtype, device=data.device)
-    # one-hot of the variable position (= last valid column)
-    vsel = (dim_ids[None, :] == d_eff[:, None] - 1.0).to(dtype) * col_mask
-
-    w = tr_mask[None] * fvalid[:, tr_idx]                      # (F, K, ntr)
-    train = fam[:, tr_idx]                                     # (F, K, ntr, d)
-    n_eff = torch.sum(w, dim=2)                                # (F, K)
-    d_col = d_eff[:, None]
-    if bandwidths is not None:
-        H = bandwidths * (col_mask[:, :, None] * col_mask[:, None, :])[:, None]
-    else:
-        mean = torch.sum(train * w[..., None], dim=2) / n_eff[..., None]
-        xc = (train - mean[:, :, None, :]) * (
-            w[..., None] * col_mask[:, None, None, :]
-        )
-        cov = xc.mT @ xc / (n_eff - 1.0)[..., None, None]
-        if rule == "nr":
-            k = (4.0 / (n_eff * (d_col + 2.0))) ** (2.0 / (d_col + 4.0))
-        elif rule == "scott":
-            k = n_eff ** (-2.0 / (d_col + 4.0))
-        else:
-            raise ValueError(f"unknown bandwidth rule {rule!r}")
-        H = k[..., None, None] * cov
-    H = H + torch.diag_embed(1.0 - col_mask)[:, None]
-    L = cholesky_or_nan(H)
-    eye = torch.eye(djmax, dtype=dtype, device=data.device).expand_as(L)
-    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    logdiag = torch.log(torch.abs(torch.diagonal(L, dim1=-2, dim2=-1)))
-    # lndiff = jln − mln = −log|L_vv| − ½ log 2π (the n_eff terms cancel)
-    lndiff = -torch.sum(logdiag * vsel[:, None, :], dim=2) - 0.5 * LOG_2PI
-    jtr = train @ Linv.mT
-    jte = fam[:, te_idx] @ Linv.mT
-    zv_tr = torch.sum(jtr * vsel[:, None, None, :], dim=3)
-    zv_te = torch.sum(jte * vsel[:, None, None, :], dim=3)
-    neg = torch.where(w > 0, 0.0, -math.inf).to(dtype)
-    wte = te_mask[None] * fvalid[:, te_idx]
-    ok = (n_eff > d_col).to(dtype)
-    return jtr, neg, zv_tr, jte, zv_te, wte, lndiff, ok
-
-
-def _flash_reduce(out, wte, lndiff, ok):
-    """(F,) CV log-likelihood from the (F, K, nte) per-test-row
-    ``logsumexp_joint − logsumexp_marg``; NaN marks a degenerate fold."""
-    out = torch.where(wte > 0, out, 0.0)
-    fold_ll = torch.sum(out * wte, dim=2) + lndiff * torch.sum(wte, dim=2)
-    fold_ll = torch.where(ok > 0, fold_ll, math.nan)
-    return torch.sum(fold_ll, dim=1)
-
-
 def _dense_pairs(jtr, neg, zv_tr, jte, zv_te):
     """(G, nte) ``logsumexp_joint − logsumexp_marg`` by dense test chunks:
     the pair distances of a chunk are ONE batched matmul,
@@ -327,40 +260,21 @@ def ckde_cv_alldevice(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
 def ckde_cv_alldevice_flash(data, null_mask, col_idx, col_mask, tr_idx,
                             tr_mask, te_idx, te_mask, rule="nr",
                             bandwidths=None):
-    """:func:`ckde_cv_alldevice` with the pairwise double logsumexp in the
-    streaming kernel of :func:`ckde_cv_pairs` — no (nte × ntr) intermediate
-    in device memory. Same arguments and result; float32 inputs. The F
-    families go to the kernel as they are, without padding: the kernel
-    masks its own ragged edges."""
-    jtr, neg, zv_tr, jte, zv_te, wte, lndiff, ok = ckde_cv_whitened_parts(
+    """:func:`ckde_cv_alldevice` through the hand-written kernels: the
+    whitening of :func:`~.cv_whiten_kernel.ckde_cv_whiten`, the streaming
+    pairwise double logsumexp of :func:`ckde_cv_pairs` — no (nte × ntr)
+    intermediate in device memory — and the fold sums of
+    :func:`~.cv_whiten_kernel.ckde_cv_fold_reduce`. Same arguments and
+    result; float32 values, masks and bandwidths, int64 indices. The F
+    families go to the kernels as they are, without padding: the kernels
+    mask their own ragged edges."""
+    parts = ckde_cv_whiten(
         data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
         rule=rule, bandwidths=bandwidths,
     )
-    out = ckde_cv_pairs(
-        *ckde_cv_pair_args(jtr, neg, zv_tr, jte, zv_te, col_mask)
-    ).reshape(wte.shape)
-    return _flash_reduce(out, wte, lndiff, ok)
-
-
-def ckde_cv_pair_args(jtr, neg, zv_tr, jte, zv_te, col_mask):
-    """The arguments of :func:`ckde_cv_pairs` for the first five (F, K)
-    parts of :func:`ckde_cv_whitened_parts`: the (family, fold) pairs
-    flattened to G = F·K programs, float32 and contiguous. Evidence-free
-    families are flagged (``no_ev``): their marginal logsumexp is exactly
-    ``lm_const`` = log n_eff, so the kernel skips the whole marginal
-    pass."""
-    F, K, ntr, dpad = jtr.shape
-    nte = jte.shape[2]
-    no_ev = (torch.sum(col_mask, dim=1) <= 1.0)[:, None].expand(F, K)
-    n_eff = torch.sum((neg == 0.0).to(torch.float32), dim=2)   # (F, K)
-    lm_const = torch.log(torch.clamp(n_eff, min=1.0))
-
-    def flat(t, *shape):
-        return t.reshape(F * K, *shape).to(torch.float32).contiguous()
-
-    return (flat(jtr, ntr, dpad), flat(neg, ntr), flat(zv_tr, ntr),
-            flat(jte, nte, dpad), flat(zv_te, nte), flat(no_ev),
-            flat(lm_const))
+    wte, lndiff, ok = parts[7:]
+    out = ckde_cv_pairs(*parts[:7]).reshape(wte.shape)
+    return ckde_cv_fold_reduce(out, wte, lndiff, ok)
 
 
 def flash_cv_selfcheck(rule: str = "nr", atol: float = 5e-2,

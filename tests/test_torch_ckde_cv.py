@@ -174,3 +174,199 @@ def test_flash_reduce_matches_jax():
     got = tkde._flash_reduce(*(torch.as_tensor(a) for a in args)).numpy()
     np.testing.assert_allclose(got, want, **F64)
     assert np.isnan(got[1]) and np.all(np.isfinite(got[[0, 2]]))
+
+
+PART_NAMES = ["jtr", "neg", "zv_tr", "jte", "zv_te", "wte", "lndiff", "ok"]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_whitened_parts_f32(case):
+    """The float32 plain version against the JAX package's float32 parts at
+    the port's float32 tolerance, and against its own float64 path on the
+    same float32 data: every statistic is float64, so each output is that
+    float64 value rounded once (``lndiff`` stays float64)."""
+    jargs, targs, rule = _args(case, np.float32)
+    want = jkde.ckde_cv_whitened_parts(*jargs, rule=rule)
+    got = tkde.ckde_cv_whitened_parts(*targs, rule=rule)
+    wide = [a.double() if a.is_floating_point() else a for a in targs]
+    f64 = tkde.ckde_cv_whitened_parts(*wide, rule=rule)
+    for name, g, w, d in zip(PART_NAMES, got, want, f64):
+        assert g.dtype == (torch.float64 if name == "lndiff"
+                           else torch.float32), name
+        np.testing.assert_allclose(g.double().numpy(), np.asarray(w), **F32,
+                                   err_msg=name)
+        torch.testing.assert_close(g, d.to(g.dtype), rtol=0, atol=0,
+                                   equal_nan=True, msg=name)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_whitened_parts_bandwidths(case):
+    """The bandwidths route (UCV's and a user selector's) in float64 against
+    the rule's own matrices: given the normal-reference bandwidths the rule
+    computes, the parts are the rule's to 1e-9."""
+    _, targs, rule = _args(case, np.float64)
+    data, null, col_idx, col_mask, tr_idx, tr_mask, _, _ = targs
+    F, djmax = col_idx.shape
+    K = tr_idx.shape[0]
+    fam = data[:, col_idx].permute(1, 0, 2) * col_mask[:, None, :]
+    fvalid = 1.0 - torch.amax(null[:, col_idx].permute(1, 0, 2)
+                              * col_mask[:, None, :], dim=2)
+    w = tr_mask[None] * fvalid[:, tr_idx]
+    train = fam[:, tr_idx]
+    n = w.sum(2)
+    mean = (train * w[..., None]).sum(2) / n[..., None]
+    xc = (train - mean[:, :, None]) * (w[..., None] * col_mask[:, None, None])
+    cov = xc.mT @ xc / (n - 1.0)[..., None, None]
+    d = col_mask.sum(1)[:, None]
+    k = ((4.0 / (n * (d + 2.0))) ** (2.0 / (d + 4.0)) if rule == "nr"
+         else n ** (-2.0 / (d + 4.0)))
+    H = k[..., None, None] * cov
+    assert H.shape == (F, K, djmax, djmax)
+    want = tkde.ckde_cv_whitened_parts(*targs, rule=rule)
+    got = tkde.ckde_cv_whitened_parts(*targs, rule=None, bandwidths=H)
+    for name, g, w_ in zip(PART_NAMES, got, want):
+        np.testing.assert_allclose(g.numpy(), w_.numpy(), **F64,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["nr", "degenerate"])
+def test_flash_reduce_f32(case):
+    """The float32 fold sums against the JAX package's at the float32
+    tolerance, and equal to the float64 sums of the same float32 rows
+    rounded once."""
+    jargs, targs, rule = _args(case, np.float32)
+    parts = tkde.ckde_cv_whitened_parts(*targs, rule=rule)
+    F, K, ntr, djmax = parts[0].shape
+    nte = parts[3].shape[2]
+    out = tkde._dense_pairs(
+        parts[0].reshape(F * K, ntr, djmax), parts[1].reshape(F * K, ntr),
+        parts[2].reshape(F * K, ntr), parts[3].reshape(F * K, nte, djmax),
+        parts[4].reshape(F * K, nte)).reshape(F, K, nte)
+    wte, lndiff, ok = parts[5:]
+    got = tkde._flash_reduce(out, wte, lndiff, ok)
+    assert got.dtype == torch.float32 and got.shape == (F,)
+    want = np.asarray(jkde._flash_reduce(
+        jnp.asarray(out.numpy()), jnp.asarray(wte.numpy()),
+        jnp.asarray(lndiff.numpy().astype(np.float32)),
+        jnp.asarray(ok.numpy())))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    f64 = tkde._flash_reduce(out.double(), wte.double(), lndiff, ok.double())
+    torch.testing.assert_close(got, f64.float(), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+def _wrapper_args(case="nr"):
+    _, targs, rule = _args(case, np.float32)
+    return [a.contiguous() for a in targs], rule
+
+
+def test_whiten_wrapper_on_the_cpu_takes_the_plain_version():
+    """CPU tensors take the plain version, in the kernel's layout (kernel
+    #1's seven arguments for G = F·K programs, then the fold reduce's
+    three), and launch nothing."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ckde_cv_fold_reduce, ckde_cv_whiten)
+
+    args, rule = _wrapper_args()
+    before = (ckde_cv_whiten.launches, ckde_cv_fold_reduce.launches)
+    got = ckde_cv_whiten(*args, rule=rule)
+    parts = tkde.ckde_cv_whitened_parts(*args, rule=rule)
+    F, K, ntr, djmax = parts[0].shape
+    nte = parts[3].shape[2]
+    G = F * K
+    want_shapes = [(G, ntr, djmax), (G, ntr), (G, ntr), (G, nte, djmax),
+                   (G, nte), (G,), (G,), (F, K, nte), (F, K), (F, K)]
+    assert [tuple(t.shape) for t in got] == want_shapes
+    assert all(t.is_contiguous() for t in got)
+    for g, w in zip(got[:5], parts[:5]):
+        torch.testing.assert_close(g, w.reshape(g.shape), rtol=0, atol=0,
+                                   equal_nan=True)
+    for g, w in zip(got[7:], parts[5:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    # family 0 is evidence-free; lm_const = log n_valid
+    no_ev = got[5].reshape(F, K)
+    assert torch.all(no_ev[0] == 1) and torch.all(no_ev[1:] == 0)
+    n_valid = (got[1] == 0).sum(1).double()
+    torch.testing.assert_close(got[6], torch.log(n_valid).float())
+    out = torch.zeros((F, K, nte))
+    reduced = ckde_cv_fold_reduce(out, *got[7:])
+    torch.testing.assert_close(reduced, tkde._flash_reduce(out, *got[7:]),
+                               rtol=0, atol=0)
+    assert (ckde_cv_whiten.launches, ckde_cv_fold_reduce.launches) == before
+
+
+def test_whiten_wrappers_raise_off_the_cpu_without_a_kernel():
+    """A device that is neither the CPU nor CUDA has no kernel and no
+    plain fall-back: both wrappers raise."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ckde_cv_fold_reduce, ckde_cv_whiten)
+
+    args, rule = _wrapper_args()
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="no ckde_cv_whiten kernel"):
+        ckde_cv_whiten(*meta, rule=rule)
+    F, K = 4, 3
+    with pytest.raises(ValueError, match="no ckde_cv_fold_reduce kernel"):
+        ckde_cv_fold_reduce(
+            torch.zeros((F, K, 5), device="meta"),
+            torch.zeros((F, K, 5), device="meta"),
+            torch.zeros((F, K), dtype=torch.float64, device="meta"),
+            torch.zeros((F, K), device="meta"))
+
+
+@pytest.mark.parametrize("bad", ["float64 data", "int32 index", "dpad 17",
+                                 "rule", "bandwidth shape", "mixed devices"])
+def test_whiten_wrapper_checks_its_arguments(bad):
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
+
+    args, rule = _wrapper_args()
+    kw = {"rule": rule}
+    if bad == "float64 data":
+        args[0], err = args[0].double(), TypeError
+    elif bad == "int32 index":
+        args[2], err = args[2].int(), TypeError
+    elif bad == "dpad 17":
+        args[2] = torch.zeros((4, 17), dtype=torch.int64)
+        args[3], err = torch.ones((4, 17)), ValueError
+    elif bad == "rule":
+        kw, err = {"rule": "silverman"}, ValueError
+    elif bad == "bandwidth shape":
+        kw, err = {"rule": None, "bandwidths": torch.ones((4, 3, 3, 3))}, \
+            ValueError
+    else:
+        args[1], err = args[1].to("meta"), ValueError
+    with pytest.raises(err):
+        ckde_cv_whiten(*args, **kw)
+
+
+def test_cv_whiten_source_matches_its_binding():
+    """The C entry points of csrc/cv_whiten.cu take their arguments in the
+    order the wrappers pass them (19 pointers, 8 ints and the stream for
+    the whitening; 5 pointers, 3 ints and the stream for the fold sums),
+    the kernel's widest family is the wrapper's, and nothing sums with
+    atomics: the order of every sum is fixed."""
+    import re
+    from pathlib import Path
+
+    from pybnesian_tpu_torch.ops import cv_whiten_kernel as cw
+
+    text = (Path(cw.__file__).resolve().parent.parent / "csrc"
+            / "cv_whiten.cu").read_text()
+
+    def params(fn):
+        found = re.search(rf"int {fn}\(([^)]*)\)", text).group(1)
+        return [p.split()[-1].lstrip("*") for p in found.split(",")]
+
+    assert params("ckde_cv_whiten_f32") == [
+        "data", "null_mask", "col_idx", "col_mask", "tr_idx", "tr_mask",
+        "te_idx", "te_mask", "bandwidths", "jtr", "neg", "zv_tr", "jte",
+        "zv_te", "no_ev", "lm_const", "wte", "lndiff", "ok", "n", "D", "F",
+        "K", "ntr", "nte", "dpad", "rule", "stream"]
+    assert params("ckde_cv_fold_reduce_f32") == [
+        "rows", "wte", "lndiff", "ok", "out", "F", "K", "nte", "stream"]
+    binding = Path(cw.__file__).read_text()
+    assert "[ctypes.c_void_p] * 19 + [ctypes.c_int] * 8" in binding
+    assert "[ctypes.c_void_p] * 5 + [ctypes.c_int] * 3" in binding
+    constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(constants["kMaxD"]) == cw.MAX_DPAD
+    assert "atomicAdd" not in text and "atomicCAS" not in text

@@ -1,0 +1,292 @@
+"""The CUDA kernels behind ``ckde_cv_whiten`` (the CV whitening) and
+``ckde_cv_fold_reduce`` (the per-fold sums) against their plain torch
+versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports neither JAX nor the JAX package, so it runs where only torch is
+installed (``--noconftest`` skips tests/conftest.py, which sets up JAX):
+
+    python -m pytest --noconftest tests/test_torch_cv_whiten_cuda.py -q
+
+Tolerances, per output of the whitening: the whitened rows and their
+variable coordinate within 2e-6 relative and absolute (each is one float32
+rounding of a float64 value that both versions form in another order, so
+they differ by at most an ulp); ``lndiff`` (float64) within 1e-12
+relative; ``lm_const`` within 2e-7 relative (one rounding of a float64
+log); ``neg``, ``wte``, ``no_ev``, ``ok`` and every NaN exactly. The fold
+sums: within 2e-7 relative of the plain version's float64 sums of the same
+float32 rows (one rounding). Bit-equality where the kernels promise it: a
+family's outputs and score alone, inside a batch of 56, with the families
+permuted, at another padded width and run again.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from pybnesian_tpu_torch.ops import kde as tkde
+from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
+from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+    MAX_DPAD,
+    ckde_cv_fold_reduce,
+    ckde_cv_fold_reduce_reference,
+    ckde_cv_whiten,
+    ckde_cv_whiten_reference,
+)
+
+pytestmark = pytest.mark.cuda
+NAMES = ("jtr", "neg", "zv_tr", "jte", "zv_te", "no_ev", "lm_const", "wte",
+         "lndiff", "ok")
+TOL = {"jtr": 2e-6, "zv_tr": 2e-6, "jte": 2e-6, "zv_te": 2e-6,
+       "lndiff": 1e-12, "lm_const": 2e-7}
+REDUCE_RTOL = 2e-7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; run chip_smoke.py)")
+    return torch.device("cuda")
+
+
+def _inputs(device, F=6, djmax=3, n=1001, K=3, null=0.1, seed=0,
+            widths=None):
+    """A CV call's arguments: n rows of max(djmax + 1, 6) correlated
+    columns with ``null`` of the cells null (zeroed), K ragged folds, F
+    families of ``widths`` columns (default 1 + f % djmax) on distinct
+    columns, evidence first, padded to djmax."""
+    rng = np.random.default_rng(seed)
+    D = max(djmax + 1, 6)
+    data = rng.normal(0, 1.5, (n, D))
+    for j in range(1, D):
+        data[:, j] += 0.6 * data[:, j - 1]
+    nulls = (rng.random((n, D)) < null).astype(np.float64)
+    data[nulls > 0] = 0.0
+    folds = np.array_split(rng.permutation(n), K)
+    ntr = max(n - len(f) for f in folds)
+    nte = max(len(f) for f in folds)
+    tr_idx = np.zeros((K, ntr), np.int64)
+    tr_mask = np.zeros((K, ntr))
+    te_idx = np.zeros((K, nte), np.int64)
+    te_mask = np.zeros((K, nte))
+    for k, te in enumerate(folds):
+        tr = np.concatenate([f for j, f in enumerate(folds) if j != k])
+        tr_idx[k, : len(tr)] = tr
+        tr_mask[k, : len(tr)] = 1.0
+        te_idx[k, : len(te)] = te
+        te_mask[k, : len(te)] = 1.0
+    widths = widths or [1 + f % djmax for f in range(F)]
+    col_idx = np.zeros((F, djmax), np.int64)
+    col_mask = np.zeros((F, djmax))
+    for f, w in enumerate(widths):
+        col_idx[f, :w] = rng.choice(D, w, replace=False)
+        col_mask[f, :w] = 1.0
+
+    def t(a):
+        dtype = torch.int64 if a.dtype == np.int64 else torch.float32
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    return [t(a) for a in (data, nulls, col_idx, col_mask, tr_idx, tr_mask,
+                           te_idx, te_mask)]
+
+
+def _check(args, rule="nr", bandwidths=None):
+    """Kernel against plain on ``args``; returns the kernel's outputs."""
+    before = ckde_cv_whiten.launches
+    got = ckde_cv_whiten(*args, rule=rule, bandwidths=bandwidths)
+    torch.cuda.synchronize()
+    assert ckde_cv_whiten.launches == before + 1
+    want = ckde_cv_whiten_reference(*args, rule=rule, bandwidths=bandwidths)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = TOL.get(name, 0.0)
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol, equal_nan=True,
+                                   msg=name)
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+    return got
+
+
+@pytest.mark.parametrize("djmax", range(1, MAX_DPAD + 1))
+def test_normal_reference_at_every_width(cuda, djmax):
+    got = _check(_inputs(cuda, djmax=djmax, seed=djmax))
+    assert torch.all(got[9] == 1)
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[3]).all()
+
+
+@pytest.mark.parametrize("djmax", [1, 3, 8])
+def test_scott(cuda, djmax):
+    _check(_inputs(cuda, djmax=djmax, seed=20 + djmax), rule="scott")
+
+
+def _spd_bandwidths(args, seed, scale=0.3):
+    F, djmax = args[2].shape
+    K = args[4].shape[0]
+    rng = np.random.default_rng(seed)
+    A = rng.normal(0, scale, (F, K, djmax, djmax))
+    H = A @ np.swapaxes(A, -1, -2) + 0.05 * np.eye(djmax)
+    return torch.as_tensor(H, dtype=torch.float32, device=args[0].device)
+
+
+@pytest.mark.parametrize("djmax", [1, 2, 5])
+def test_given_bandwidths(cuda, djmax):
+    args = _inputs(cuda, djmax=djmax, seed=30 + djmax)
+    _check(args, rule=None, bandwidths=_spd_bandwidths(args, djmax))
+
+
+def test_not_positive_definite_bandwidth_gives_nan_parts(cuda):
+    """A negative pivot in one (family, fold): its whitened rows and lndiff
+    are NaN in both versions, neg, wte and ok are not; the other programs
+    are untouched."""
+    args = _inputs(cuda, djmax=3, seed=40)
+    H = _spd_bandwidths(args, 40)
+    H[2, 1, 0, 0] = -1.0
+    got = _check(args, rule=None, bandwidths=H)
+    K = args[4].shape[0]
+    g = 2 * K + 1
+    assert torch.isnan(got[0][g]).all() and torch.isnan(got[3][g]).all()
+    assert torch.isnan(got[8][2, 1])
+    assert torch.isfinite(got[8]).sum() == got[8].numel() - 1
+    assert not torch.isnan(got[1][g]).any() and got[9][2, 1] == 1
+
+
+def test_fold_without_train_rows_gives_nan(cuda):
+    """Column 0 null except on fold 0's test rows: fold 0 of each family
+    that uses column 0 has no valid train row (a 0/0 mean), ok 0."""
+    args = _inputs(cuda, F=8, djmax=2, seed=50, null=0.0)
+    args[2][0, 0] = 0                      # family 0: column 0 alone
+    args[2][1] = torch.tensor([2, 0])      # family 1: column 0 its variable
+    data, nulls = args[0], args[1]
+    te0 = args[6][0][args[7][0] > 0]
+    nulls[:, 0] = 1.0
+    nulls[te0, 0] = 0.0
+    data[nulls > 0] = 0.0
+    got = _check(args)
+    K = args[4].shape[0]
+    uses0 = (args[2] == 0).logical_and(args[3] > 0).any(1)
+    assert uses0.any()
+    for f in torch.nonzero(uses0).flatten().tolist():
+        assert got[9][f, 0] == 0 and torch.isnan(got[8][f, 0])
+        assert torch.all(got[1][f * K] == -math.inf)
+
+
+def test_nan_cell_propagates(cuda):
+    """A NaN in a cell of a train row: every family whose columns hold it
+    gets NaN parts in the folds that train on that row, as the plain
+    version gives them."""
+    args = _inputs(cuda, F=6, djmax=3, seed=60, null=0.0)
+    row = int(args[4][0][0])
+    args[0][row, 1] = math.nan
+    got = _check(args)
+    uses1 = ((args[2] == 1) & (args[3] > 0)).any(1)
+    assert torch.equal(torch.isnan(got[8]).any(1), uses1)
+
+
+@pytest.mark.parametrize("n,K", [(257, 2), (1999, 5), (33, 10)])
+def test_odd_fold_sizes(cuda, n, K):
+    _check(_inputs(cuda, F=5, djmax=4, n=n, K=K, seed=n))
+
+
+def _batch(device, seed=70):
+    """56 families of 1 to 3 columns over 6 columns, 10 ragged folds."""
+    return _inputs(device, F=56, djmax=3, n=2000, K=10, seed=seed)
+
+
+def _family(args, f, width=None):
+    """Family f of ``args`` alone, padded to ``width`` columns (default:
+    its own)."""
+    col_idx, col_mask = args[2][f:f + 1], args[3][f:f + 1]
+    w = int(col_mask.sum()) if width is None else width
+    pad = w - col_idx.shape[1]
+    if pad > 0:
+        col_idx = torch.nn.functional.pad(col_idx, (0, pad))
+        col_mask = torch.nn.functional.pad(col_mask, (0, pad))
+    out = list(args)
+    out[2], out[3] = col_idx[:, :w].contiguous(), col_mask[:, :w].contiguous()
+    return out
+
+
+def _program_parts(parts, f, K, width):
+    """Family f's outputs of a whitening call, its first ``width``
+    columns."""
+    g = slice(f * K, (f + 1) * K)
+    return [parts[0][g, :, :width], parts[1][g], parts[2][g],
+            parts[3][g, :, :width], parts[4][g], parts[5][g], parts[6][g],
+            parts[7][f], parts[8][f], parts[9][f]]
+
+
+def test_a_family_is_the_same_bits_alone_in_a_batch_and_permuted(cuda):
+    args = _batch(cuda)
+    K = args[4].shape[0]
+    together = ckde_cv_whiten(*args)
+    again = ckde_cv_whiten(*args)
+    perm = torch.randperm(56, generator=torch.Generator().manual_seed(0))
+    permuted_args = list(args)
+    permuted_args[2] = args[2][perm.to(cuda)].contiguous()
+    permuted_args[3] = args[3][perm.to(cuda)].contiguous()
+    permuted = ckde_cv_whiten(*permuted_args)
+    torch.cuda.synchronize()
+    for a, b in zip(together, again):
+        assert torch.equal(a, b)
+    where = {int(p): i for i, p in enumerate(perm)}
+    for f in (0, 1, 2, 17, 55):
+        width = int(args[3][f].sum())
+        alone = ckde_cv_whiten(*_family(args, f))
+        wide = ckde_cv_whiten(*_family(args, f, width=MAX_DPAD))
+        mine = _program_parts(together, f, K, width)
+        for other in (_program_parts(alone, 0, K, width),
+                      _program_parts(wide, 0, K, width),
+                      _program_parts(permuted, where[f], K, width)):
+            for name, a, b in zip(NAMES, mine, other):
+                assert torch.equal(a, b), (f, name)
+
+
+def test_fold_reduce_against_the_float64_sums(cuda):
+    """The reduce kernel on the pairs kernel's rows (with −inf rows where
+    the weight is 0 and a degenerate fold) against the plain version's
+    float64 sums."""
+    args = _batch(cuda, seed=80)
+    parts = ckde_cv_whiten(*args)
+    wte, lndiff, ok = parts[7:]
+    rows = ckde_cv_pairs(*parts[:7]).reshape(wte.shape)
+    rows = torch.where(wte > 0, rows, -math.inf).contiguous()
+    ok = ok.clone()
+    ok[3, 4] = 0.0
+    before = ckde_cv_fold_reduce.launches
+    got = ckde_cv_fold_reduce(rows, wte, lndiff, ok)
+    torch.cuda.synchronize()
+    assert ckde_cv_fold_reduce.launches == before + 1
+    want = ckde_cv_fold_reduce_reference(rows.double(), wte.double(), lndiff,
+                                         ok.double())
+    assert got.dtype == torch.float32 and got.shape == (56,)
+    others = torch.ones(56, dtype=torch.bool, device=cuda)
+    others[3] = False
+    assert torch.isnan(got[3]) and torch.isfinite(got[others]).all()
+    torch.testing.assert_close(got.double(), want, rtol=REDUCE_RTOL, atol=0,
+                               equal_nan=True)
+    plain32 = ckde_cv_fold_reduce_reference(rows, wte, lndiff, ok)
+    torch.testing.assert_close(got, plain32, rtol=REDUCE_RTOL, atol=0,
+                               equal_nan=True)
+
+
+def test_cv_scores_are_the_same_bits_in_every_batch(cuda):
+    """The whole float32 route (whitening, pairs, fold sums: three
+    launches) against the plain route at flash_cv_selfcheck's tolerance
+    (the plain route's pair distances are float32 matmuls), and each
+    family's score the same bits alone, at another padded width and inside
+    the batch."""
+    args = _batch(cuda, seed=90)
+    counts = (ckde_cv_whiten.launches, ckde_cv_pairs.launches,
+              ckde_cv_fold_reduce.launches)
+    scores = tkde.ckde_cv_alldevice_flash(*args)
+    assert (ckde_cv_whiten.launches, ckde_cv_pairs.launches,
+            ckde_cv_fold_reduce.launches) == tuple(c + 1 for c in counts)
+    plain = tkde.ckde_cv_alldevice(*args)
+    torch.testing.assert_close(scores.double(), plain.double(), rtol=1e-4,
+                               atol=5e-2)
+    for f in range(0, 56, 5):
+        alone = tkde.ckde_cv_alldevice_flash(*_family(args, f))
+        wide = tkde.ckde_cv_alldevice_flash(*_family(args, f, width=7))
+        assert torch.equal(alone[0], scores[f]), f
+        assert torch.equal(wide[0], scores[f]), f

@@ -61,3 +61,42 @@ def test_no_import_statement_names_jax(path):
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert bad == []
+
+
+KERNEL_MODULES = ["ops/ckde_cv_kernel.py", "ops/kde_kernel.py",
+                  "ops/ucv_kernel.py", "ops/cv_whiten_kernel.py",
+                  "ops/exp_chain.py", "ops/cuda_build.py"]
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_modules_are_checked(module):
+    """Each module that binds a hand-written kernel is among the sources
+    both checks above read, and imports neither JAX nor the JAX package
+    at any depth of its imports within the port."""
+    path = PORT / module
+    assert path in SOURCES
+    seen, todo = set(), [path]
+    while todo:
+        p = todo.pop()
+        if p in seen:
+            continue
+        seen.add(p)
+        tree = ast.parse(p.read_text(), filename=str(p))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                assert not any(_forbidden(a.name) for a in node.names), p
+            elif isinstance(node, ast.ImportFrom):
+                if node.level == 0:
+                    assert not (node.module and _forbidden(node.module)), p
+                    continue
+                base = p.parent
+                for _ in range(node.level - 1):
+                    base = base.parent
+                parts = (node.module or "").split(".") if node.module else []
+                target = base.joinpath(*parts)
+                for cand in ([target.with_suffix(".py"),
+                              target / "__init__.py"]
+                             + [target / f"{a.name}.py" for a in node.names]):
+                    if cand.exists():
+                        todo.append(cand)
+    assert len(seen) >= 1

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Which step of the CV whitening makes a CKDE family's float32 kernel inputs
-differ between the family scored alone and inside a batch.
+"""Whether a CKDE family's float32 whitened CV parts differ between the
+family scored alone and inside a batch, and at which step.
 
     python3 tools/whiten_check.py
 
 Builds ``chip_smoke.py`` phase 8's CV folds (config3b's 8-column chain,
 the 8,000 training rows of its 10,000, 10 folds) and its 56 one-parent
-families, and runs the steps of ``ops/kde.py ckde_cv_whitened_parts``
-(normal-reference rule) one by one: the fold means, the centred rows, the
-covariances, the bandwidths, their Cholesky factors and inverses, and the
-whitened train and test rows. It prints, for each step, how many of the 56
-families get other bits inside the batch of 56 than alone, then which
-steps of family 0 stay bit-equal inside batches of 1 to 56 families.
+families (normal-reference rule), and measures two things:
 
-Runs on the card (float32); with no GPU it runs on the CPU, which says
-nothing about the card's reductions. Imports neither JAX nor the JAX
-package.
+1. ``steps``: the whitening as float32 torch ops, step by step — the fold
+   means, the centred rows, the covariances, the bandwidths, their
+   Cholesky factors and inverses, and the whitened train and test rows —
+   as the card route formed them before the whitening had a kernel (the
+   plain version, ``ops/cv_whiten_kernel.py ckde_cv_whitened_parts``, now
+   takes these statistics in float64). For each step, how many of the 56
+   families get other bits inside the batch of 56 than alone, then which
+   steps of family 0 stay bit-equal inside batches of 1 to 56 families.
+2. ``route``: the route's own parts, the outputs of
+   ``ckde_cv_whiten`` (on the card the whitening kernel of
+   ``csrc/cv_whiten.cu``): the same two counts over its ten outputs.
+
+Runs on the card (float32); with no GPU it runs on the CPU, where the
+route is the plain version and neither count says anything about the
+card's reductions. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ def main():
     from pybnesian_tpu_torch import CVLikelihood, DataFrame, use_device
     from pybnesian_tpu_torch.learning.scores.likelihood import (
         _family_columns)
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
 
     device = "cuda" if torch.cuda.is_available() else "cpu"
     if device == "cpu":
@@ -82,6 +90,15 @@ def main():
                                      device=device),
                      tr_idx, tr_mask, te_idx)
 
+    def route(fs):
+        """The route's parts of the families ``fs``: the ten outputs of
+        one ``ckde_cv_whiten`` call."""
+        col_idx, col_mask = _family_columns(fs, pos)
+        return ckde_cv_whiten(
+            dat, _null, torch.as_tensor(col_idx, device=device),
+            torch.as_tensor(col_mask, dtype=dat.dtype, device=device),
+            tr_idx, tr_mask, te_idx, _te_mask, rule="nr")
+
     together = run(fams)
     differ = dict.fromkeys(STEPS, 0)
     for f, fam in enumerate(fams):
@@ -89,14 +106,41 @@ def main():
         for name in STEPS:
             differ[name] += not torch.equal(together[name][f:f + 1],
                                             alone[name])
-    chip_smoke.say("whiten check", device=device, families=len(fams),
+    chip_smoke.say("whiten check", measures="steps", device=device,
+                   families=len(fams),
                    folds=len(engine.folds),
                    not_bit_equal_in_batch=repr(differ))
     first = run(fams[:1])
     for size in (2, 4, 8, 16, 32, 56):
         part = run(fams[:size])
-        chip_smoke.say("whiten check", family=0, batch=size, bit_equal=repr(
-            {n: bool(torch.equal(part[n][:1], first[n])) for n in STEPS}))
+        chip_smoke.say("whiten check", measures="steps", family=0,
+                       batch=size, bit_equal=repr(
+                           {n: bool(torch.equal(part[n][:1], first[n]))
+                            for n in STEPS}))
+
+    K = len(engine.folds)
+
+    def program(parts, f):
+        """Family f's ten outputs of a ``ckde_cv_whiten`` call."""
+        g = slice(f * K, (f + 1) * K)
+        return [t[g] for t in parts[:7]] + [t[f:f + 1] for t in parts[7:]]
+
+    together = route(fams)
+    differ = dict.fromkeys(chip_smoke.WHITEN_NAMES, 0)
+    for f, fam in enumerate(fams):
+        for name, a, b in zip(chip_smoke.WHITEN_NAMES,
+                              program(together, f), route([fam])):
+            differ[name] += not torch.equal(a, b)
+    chip_smoke.say("whiten check", measures="route", device=device,
+                   families=len(fams), not_bit_equal_in_batch=repr(differ))
+    first = program(route(fams[:1]), 0)
+    for size in range(1, len(fams) + 1):
+        part = program(route(fams[:size]), 0)
+        unequal = [n for n, a, b in zip(chip_smoke.WHITEN_NAMES, part, first)
+                   if not torch.equal(a, b)]
+        if size in (1, 2, 4, 8, 16, 32, 56) or unequal:
+            chip_smoke.say("whiten check", measures="route", family=0,
+                           batch=size, not_bit_equal=repr(unequal))
 
 
 if __name__ == "__main__":
