@@ -28,7 +28,10 @@ the script exits non-zero and prints no result:
    printed), then 30 timed calls (their median rate), the family set
    rotated throughout, each call launching the whitening, pairs and
    fold-reduce kernels — then a semiparametric mix of linear-Gaussian and
-   CKDE families; then the whitening kernel (``ckde_cv_whiten``) and the
+   CKDE families (its linear-Gaussian families through the LG kernel,
+   ``lg_cv_stats``), the LG kernel held to its plain version on the mix's
+   and every one-parent linear-Gaussian family (:func:`compare_lg`); then
+   the whitening kernel (``ckde_cv_whiten``) and the
    fold-reduce kernel (``ckde_cv_fold_reduce``) against their plain
    versions on the first batch's inputs (G 150, 9,000 × 1,000, dpad 3),
    timed with their bounds, and stage 1's device operations and device
@@ -54,21 +57,28 @@ the script exits non-zero and prints no result:
    over 10,000 float32 rows of the same 8-column chain, with the default
    ValidatedLikelihood (holdout 0.2, 10 folds) and operators (arcs and
    node types), one warm run and one timed run, every CKDE family through
-   the whitening, pairs and fold-reduce kernels (CV and holdout channels)
-   and every validation update of a CKDE node through the KDE kernel; held
+   the whitening, pairs and fold-reduce kernels (CV and holdout channels),
+   every linear-Gaussian family through the LG kernel, and every validation
+   update of a CKDE node through the KDE kernel; held
    against a float64 run of the same call on the card (plain routes): the
    same operators, or a first differing pair whose float64 deltas are
-   within :data:`TIE_ATOL`; the four kernels against their plain versions
+   within :data:`TIE_ATOL`; the five kernels against their plain versions
    on the inputs the run's score builds at the run's shapes (CV folds
-   7,200 × 800, holdout 8,000 × 2,000); the float32 scores of the cache
-   pass's families and of both validation routes against the float64
-   run's at :data:`SCORE_RTOL`, with their cross-batch difference (the
-   cache pass's families in one batch, then each alone; a gate: every CKDE
-   family's score is the same bits, and for the one-parent CKDE families
+   7,200 × 800, holdout 8,000 × 2,000; the LG kernel on both channels at
+   F 1–56, and on degenerate inputs, within :data:`LG_RTOL` with the
+   −inf/NaN pattern exact, timed at the CV channel's 56 one-parent
+   families); the float32 scores of the cache pass's families and of both
+   validation routes against the float64 run's at :data:`SCORE_RTOL`,
+   with their cross-batch difference (the cache pass's families in one
+   batch, then each alone; a gate: every family's score, CKDE and
+   linear-Gaussian, is the same bits, and for the one-parent CKDE families
    the whitening kernel's outputs and the pairs kernel's rows too; the
-   linear-Gaussian families' gap printed beside it, not held) and
-   two-route difference (the holdout batch against a fitted factor per
-   node); a ``score="cv-lik"`` search (no validation
+   same gate for the float32 BIC batch and the holdout channel's
+   linear-Gaussian batch) and two-route difference (the holdout batch
+   against a fitted factor per node; a gate: the validation cache that
+   ``hc`` seeds holds every node's ``vlocal_score`` bit for bit, on the
+   start and the learned model); one LG CV call's host ms on both routes;
+   a ``score="cv-lik"`` search (no validation
    guard): its iterations and how many of its steps undo an earlier one;
    and BIC, the GaussianNetwork default, against float64, then its ``hc``;
 9. UCV bandwidths at 10,000 float32 rows of the bench data, 10 folds: (a)
@@ -84,8 +94,12 @@ the script exits non-zero and prints no result:
    these inputs (G = families × folds); the UCV pair-sums kernel
    (``ucv_pair_sums``, launched by the float32 searches and never by the
    float64 ones) against its plain version at :data:`UCV_RTOL` on the
-   searches' own inputs and on an all-invalid problem, two invalid rows,
-   N 4,097, d 1 and d 20, one problem's sums bit-equal alone, inside 30
+   searches' own inputs (per shape the first launch, and from an untimed
+   rerun the last and the one of the smallest bandwidth, with the range
+   of bandwidths visited printed beside :data:`UCV_FACTORS_CHECKED`) and
+   on an all-invalid problem, two invalid rows,
+   N 4,097 and 100, d 1, 16, 17 and 20 and a NaN row, one problem's sums
+   bit-equal alone, inside 30
    problems, padded with invalid rows and run again, and its times at
    (10, 9,000, 3) with its bound and two efficient-attention calls beside
    it; (c) one family with a
@@ -124,7 +138,8 @@ the script exits non-zero and prints no result:
    the tie rule; (c) a CLGNetwork's fit and logl against float64, and its
    ``hc`` with ``score="validated-lik"``; then both kernels against their
    plain versions on the inputs that (a) to (c) gave them, the first
-   launch of each shape (:class:`Recording`), with the launches of each
+   launch of each shape (:class:`Recording`, which also requires every
+   call of a wrapper to launch once), with the launches of each
    entry point (one ``HCKDE.logl``, one ``model.logl``, the ``slogl``
    calls, Σ ``cpd.logl``, each configuration's CKDE, ``hc``);
 12. dynamic networks on an AR(2) series of 5 variables with cross-lags,
@@ -198,8 +213,9 @@ latency. Each path (4, 6, 7, 8, 9, 11, 12, 13, 14, 16) runs with every launch co
 set to 0 just before it and read just after. A JSON object with each kernel's launches
 on those paths, its error against its plain version, its times, its plain
 version's time, its bound and its library yardstick's time (``library_ms``:
-the efficient-attention calls of phases 2, 5 and 9; none for the exp
-chain, the CV whitening and the fold sums) comes two lines before the
+the efficient-attention calls of phases 2, 5 and 9, a ``torch.einsum`` of
+the LG kernel's Gram stage; none for the exp chain, the CV whitening and
+the fold sums) comes two lines before the
 last, then the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -237,13 +253,20 @@ KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
     "ckde_cv_fold_reduce": ("pybnesian_tpu_torch/csrc/cv_whiten.cu",
                             "pybnesian_tpu/ops/kde.py:404 (XLA-fused, no "
                             "Pallas kernel)"),
+    "lg_cv_stats": ("pybnesian_tpu_torch/csrc/lg_cv.cu",
+                    "pybnesian_tpu/ops/gaussian.py:118 and :44 (XLA-fused, "
+                    "no Pallas kernel)"),
 }
 PAIR_TOL = 1e-3       # max abs difference per test row, kernel vs plain
 SCORE_RTOL = 1e-4     # float32 kernel route vs float64 plain route
 EXP_TOL = 1e-5        # max abs difference of the exp chain, kernel vs plain
 UCV_RTOL = 1e-5       # relative difference per UCV pair sum, kernel vs plain
                       # (float32 terms summed in another order, float64
-                      # above a thread's 512 terms in both)
+                      # above a thread's 1,024 terms in both)
+UCV_DOT_D = 16        # widest d of the UCV kernel's dot form (ucv_pairs.cu)
+UCV_FACTORS_CHECKED = (1.25, 1.0, 0.5, 0.25, 0.125, 0.0625)  # bandwidths as
+# factors of the normal reference, at which tools/ucv_dot_form_error.py
+# emulates the dot form's error on the CPU
 WHITEN_TOL = {        # the CV whitening, kernel vs plain, per output
     "jtr": 2e-6, "zv_tr": 2e-6, "jte": 2e-6, "zv_te": 2e-6,  # relative and
     # absolute: one float32 rounding of a float64 value formed in another
@@ -251,6 +274,9 @@ WHITEN_TOL = {        # the CV whitening, kernel vs plain, per output
     "lndiff": 1e-12,  # relative, float64 on both sides
     "lm_const": 2e-7,  # relative, one rounding of a float64 log
 }                     # neg, wte, no_ev, ok and every NaN: exactly
+LG_RTOL = 2e-7        # the LG kernel vs its plain version run in float64 on
+                      # the same float32 inputs: one float32 rounding of a
+                      # float64 score, BIC or Gram entry
 REDUCE_RTOL = 2e-7    # the fold sums, kernel vs plain: float64 sums of the
                       # same float32 rows in another order, rounded once
 ROW_TOL = 1e-3        # per-row logl: float32 kernel routes vs float64 plain,
@@ -385,12 +411,14 @@ def counters():
         ckde_cv_fold_reduce, ckde_cv_whiten)
     from pybnesian_tpu_torch.ops.exp_chain import exp_chain
     from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_cv_stats
     from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_cuda
 
     return {"ckde_cv_pairs": ckde_cv_pairs, "kde_logl": kde_logl,
             "exp_chain": exp_chain, "ucv_pair_sums": ucv_pair_sums_cuda,
             "ckde_cv_whiten": ckde_cv_whiten,
-            "ckde_cv_fold_reduce": ckde_cv_fold_reduce}
+            "ckde_cv_fold_reduce": ckde_cv_fold_reduce,
+            "lg_cv_stats": lg_cv_stats}
 
 
 def reset_counts():
@@ -781,6 +809,176 @@ def compare_reduce(torch, args, label, card=None, phase="4 main path",
     return result
 
 
+def lg_inputs_cv(engine, fams):
+    """``lg_cv_stats``'s arguments for (variable, parents) families ``fams``
+    on a CV engine's folds, as its ``lg_batch`` builds them."""
+    pos = {c: i for i, c in enumerate(engine.df.continuous_columns())}
+    values, valid, train, test, vi, pi, pm = engine.lg_inputs(
+        [(pos[v], [pos[p] for p in ps]) for v, ps in fams])
+    return [values, valid, train, vi, pi, pm, values, valid, test]
+
+
+def lg_inputs_holdout(holdout, fams):
+    """``lg_cv_stats``'s arguments for (variable, parents) families ``fams``
+    on a HoldoutLikelihood's split, as its ``local_score_batch`` builds
+    them: one fold of every training row, every test row."""
+    from pybnesian_tpu_torch.ops.gaussian import family_tensors
+
+    train, test = holdout.training_data(), holdout.test_data()
+    cont = train.continuous_columns()
+    pos = {c: i for i, c in enumerate(cont)}
+    tv, tvalid = train.device_matrix(cont, device=holdout.device)
+    sv, svalid = test.device_matrix(cont, device=holdout.device)
+    fam_t = family_tensors([(pos[v], [pos[p] for p in ps]) for v, ps in fams],
+                           np.float32, holdout.device)
+    return [tv, tvalid, None, *fam_t, sv, svalid, None]
+
+
+def lg_edge_inputs(torch, args):
+    """Degenerate inputs cut from CV ``args``: column 0 constant (0.0), a
+    NaN cell in column 1, fold 0 with two training rows; families with
+    column 0 only as their variable (a constant parent would make the
+    Cholesky's verdict a matter of rounding)."""
+    from pybnesian_tpu_torch.ops.gaussian import family_tensors
+
+    values, valid, train, test = (args[0].clone(), args[1], args[2].clone(),
+                                  args[8])
+    values[:, 0] = 0.0
+    values[5, 1] = math.nan
+    keep = torch.nonzero(train[0])[:2, 0]
+    train[0] = 0.0
+    train[0, keep] = 1.0
+    fams = [(0, []), (0, [2]), (1, []), (1, [2]), (2, [3]), (3, [2, 4]),
+            (4, [])]
+    fam_t = family_tensors(fams, np.float32, values.device)
+    return [values, valid, train, *fam_t, values, valid, test]
+
+
+def lg_work(args):
+    """(exps, FP32 ops, bytes, FP64 ops) of one ``lg_cv_stats`` call: each
+    input read once (the values and validity of both frames, the fold
+    masks, the family tensors), each output written once (the Grams, BICs,
+    fold sums and scores); per program, each train row of
+    its fold W (W + 1) + W float64 operations for the Gram (an FMA counted
+    2) and each test row 2 (k + 1) + 8 for its mean and log-likelihood,
+    W = k + 2 for the family's own k parents."""
+    tr_values, _, train, _, parent_idx, parent_mask, te_values, _, test = (
+        args)
+    n, D = tr_values.shape
+    F, P = parent_idx.shape
+    K = 1 if train is None else train.shape[0]
+    G, W = F * K, P + 2
+    k = parent_mask.double().sum(1).cpu()
+    w = k + 2.0
+    rows_tr = float(n * K if train is None else (train > 0).sum())
+    f64_ops = rows_tr * float((w * (w + 1.0) + w).sum())
+    nbytes = (8 * n * D + (0 if train is None else 4 * K * n) + 8 * F
+              + 12 * F * P + 8 * G * (W * W + 1))
+    if te_values is not None:
+        m = te_values.shape[0]
+        rows_te = float(m * K if test is None else (test > 0).sum())
+        f64_ops += rows_te * float((2.0 * (k + 1.0) + 8.0).sum())
+        nbytes += ((0 if te_values is tr_values else 8 * m * D)
+                   + (0 if test is None else 4 * K * m) + 8 * G + 4 * F)
+    return 0.0, 0.0, nbytes, f64_ops
+
+
+def lg_rel(got, want, label):
+    """(max relative, max absolute) difference of ``got`` against the
+    float64 ``want`` over want's finite entries; raises unless every
+    non-finite entry (−inf, +inf, NaN) and every zero is the same in
+    both."""
+    g = got.double().cpu().flatten()
+    w = want.double().cpu().flatten()
+    fin = w.isfinite()
+    odd = ~fin & ~w.isnan()
+    if not (bool((g.isfinite() == fin).all())
+            and bool((g.isnan() == w.isnan()).all())
+            and bool((g[odd] == w[odd]).all())):
+        raise AssertionError(f"{label}: the -inf/NaN pattern differs from "
+                             "the plain version's")
+    g, w = g[fin], w[fin]
+    zero = w == 0
+    if not bool((g[zero] == 0).all()):
+        raise AssertionError(f"{label}: a zero of the plain version is not "
+                             "zero")
+    if not len(w):
+        return 0.0, 0.0
+    diff = (g - w).abs()
+    return (float((diff[~zero] / w[~zero].abs()).max()) if bool((~zero).any())
+            else 0.0), float(diff.max())
+
+
+def lg_library_ms(torch, args):
+    """One ``torch.einsum`` of the Gram stage alone, float32, on the same
+    inputs (the weights and design built beforehand, untimed): the library
+    yardstick of the LG kernel."""
+    from pybnesian_tpu_torch.ops.gaussian import _family_design
+
+    tr_values, tr_valid, train, vi, pi, pm = args[:6]
+    design, w = _family_design(tr_values, tr_valid, vi, pi, pm)
+    wtr = w[:, None, :] if train is None else w[:, None, :] * train[None]
+    return cuda_median_ms(torch, lambda: torch.einsum(
+        "fkn,fni,fnj->fkij", wtr, design, design))
+
+
+def compare_lg(torch, args, label, card=None, phase="8 hc lg kernel",
+               quiet=False):
+    """The LG kernel (``lg_cv_stats``) against its plain version run in
+    float64 on the same float32 inputs, on the card: every score, every
+    (family, fold) BIC and Gram entry, and ``family_grams``'s Grams and row
+    counts over the training rows, each within :data:`LG_RTOL` relative
+    (one float32 rounding), the −inf/NaN pattern and the zeros exact. Timed,
+    with its bound, plain version and library yardstick, when ``card`` is
+    given. ``err``: the largest absolute difference of a score or BIC."""
+    from pybnesian_tpu_torch.ops.gaussian import family_grams, lg_fold_stats
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_cv_stats
+
+    got = lg_cv_stats(*args)
+    f64 = [a.double() if a is not None and a.is_floating_point() else a
+           for a in args]
+    want = lg_fold_stats(*f64)
+    grams32 = family_grams(*args[:2], *args[3:6])
+    grams64 = family_grams(*f64[:2], *f64[3:6])
+    torch.cuda.synchronize()
+    rels, errs = {}, []
+    pairs = {"bic": (got.bic.float(), want.bic),
+             "gram": (got.gram.float(), want.gram),
+             "family_grams": (grams32[0], grams64[0]),
+             "family_n_eff": (grams32[1], grams64[1])}
+    if want.scores is not None:
+        pairs["score"] = (got.scores, want.scores)
+    for name, (g, w) in pairs.items():
+        rels[name], err = lg_rel(g, w, f"lg {label} {name}")
+        if name in ("bic", "score"):
+            errs.append(err)
+        if not rels[name] <= LG_RTOL:
+            raise AssertionError(f"lg {label} {name}: relative diff "
+                                 f"{rels[name]} > {LG_RTOL}")
+    F, P = args[4].shape
+    K = 1 if args[2] is None else args[2].shape[0]
+    n_te = 0 if args[6] is None else args[6].shape[0]
+    fields = {"case": label,
+              "F_K_P_ntr_nte": f"{F}x{K}x{P}x{args[0].shape[0]}x{n_te}",
+              **{f"{k}_max_rel": f"{v:.3e}" for k, v in rels.items()},
+              "neg_inf_scores": (int((want.scores == -math.inf).sum())
+                                 if want.scores is not None else None),
+              "max_abs_err": f"{max(errs):.3e}"}
+    result = {"err": max(errs)}
+    if card is not None:
+        result.update(time_kernel(torch, lambda: lg_cv_stats(*args)),
+                      plain_ms=cuda_median_ms(
+                          torch, lambda: lg_fold_stats(*args)),
+                      work=lg_work(args),
+                      library_ms=lg_library_ms(torch, args))
+        fields.update(timing_fields(card, result),
+                      library="torch.einsum of the Gram stage, float32",
+                      library_ms=f"{result['library_ms']:.4f}")
+    if not quiet:
+        say(phase, **fields)
+    return result
+
+
 def device_kernels(torch, fn):
     """(device operations, their summed device ms, names) of one call of
     ``fn`` after a warm one, under ``torch.profiler``."""
@@ -964,11 +1162,14 @@ def check_scores(got, want, label):
 
 
 def phase_main_path(torch, frame32, frame64, k, card):
-    """The CV path at bench.py's workload; then the whitening and
-    fold-reduce kernels held to their plain versions on its first batch's
-    inputs and timed, with stage 1's device operations by the plain torch
-    route and by the kernel. Returns the path's launches and the two
-    kernels' checked and timed cases."""
+    """The CV path at bench.py's workload, then a semiparametric mix (its
+    linear-Gaussian families through the LG kernel); the LG kernel held to
+    its plain version on the mix's and every one-parent linear-Gaussian
+    family; then the whitening and fold-reduce kernels held to their plain
+    versions on its first batch's inputs and timed, with stage 1's device
+    operations by the plain torch route and by the kernel. Returns the
+    path's launches (the CKDE calls and the mix), the two kernels' checked
+    and timed cases and the LG kernel's largest error."""
     from pybnesian_tpu_torch import (
         CKDEType, CVLikelihood, KDENetwork, LinearGaussianCPDType,
         SemiparametricBN)
@@ -976,6 +1177,7 @@ def phase_main_path(torch, frame32, frame64, k, card):
     from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
         ckde_cv_fold_reduce, ckde_cv_whiten, ckde_cv_whiten_reference)
     from pybnesian_tpu_torch.ops.kde import ckde_cv_alldevice_flash
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_cv_stats
 
     cols = frame32.column_names()
     d = len(cols)
@@ -999,7 +1201,6 @@ def phase_main_path(torch, frame32, frame64, k, card):
         results.append(score.local_score_batch(model, batch))
         elapsed.append(time.perf_counter() - t0)
         grew.append(tuple(w.launches - b for w, b in zip(stages, before)))
-    launches = read_counts()
     if not all(min(g) > 0 for g in grew):
         raise AssertionError(f"whitening, pairs and reduce launches per "
                              f"call {grew}: a call did not go through the "
@@ -1022,24 +1223,35 @@ def phase_main_path(torch, frame32, frame64, k, card):
         timed_calls=len(timed),
         median_call_ms=f"{statistics.median(timed) * 1e3:.4f}",
         family_scores_per_s_median30=f"{median_rate:.2f}",
-        max_rel_vs_f64=f"{rel:.3e}", launches=launches)
+        max_rel_vs_f64=f"{rel:.3e}")
 
     # semiparametric mix: linear-Gaussian and CKDE families in one batch
     lg = LinearGaussianCPDType()
     spbn = SemiparametricBN(cols)
     mix = [(v, ps, lg if f % 2 else ckde)
            for f, (v, ps) in enumerate(families(d, 1))]
-    before = ckde_cv_pairs.launches
+    before = (ckde_cv_pairs.launches, lg_cv_stats.launches)
     got = score.local_score_batch(spbn, mix)
-    if ckde_cv_pairs.launches == before:
-        raise AssertionError("the semiparametric batch did not launch "
-                             "the kernel")
+    if (ckde_cv_pairs.launches, lg_cv_stats.launches) == before:
+        raise AssertionError("the semiparametric batch did not launch the "
+                             "pairs and LG kernels")
+    launches = read_counts()
     rel = check_scores(got, reference.local_score_batch(spbn, mix),
                        "semiparametric mix")
     say("4 main path", network="SemiparametricBN", families=len(mix),
         lg=sum(1 for _, _, t in mix if t == lg),
         ckde=sum(1 for _, _, t in mix if t == ckde),
-        max_rel_vs_f64=f"{rel:.3e}")
+        max_rel_vs_f64=f"{rel:.3e}", launches=launches)
+    # the LG kernel on the mix's linear-Gaussian families at phase 4's
+    # size (10,000 rows, 10 folds), then on every one-parent family
+    lg_fams = [(v, ps) for v, ps, t in mix if t == lg]
+    lg_err = max(
+        compare_lg(torch, lg_inputs_cv(score._engine, fams), label,
+                   phase="4 main path")["err"]
+        for label, fams in (
+            ("main-path-lg-families", lg_fams),
+            ("main-path-one-parent", [(v, [p]) for v in cols for p in cols
+                                      if p != v])))
 
     # the whitening and fold reduce on the first batch's inputs (G 150):
     # against their plain versions, timed; stage 1 on the card by the plain
@@ -1065,7 +1277,7 @@ def phase_main_path(torch, frame32, frame64, k, card):
         cv_call_ops=repr([n[:40] for n in names]),
         median_call_ms=f"{statistics.median(timed) * 1e3:.4f}",
         card=repr(card["smi"]))
-    return launches, whiten, reduce
+    return launches, whiten, reduce, lg_err
 
 
 def kde_inputs(torch, G, ntr, nte, d, seed, scale=2.0):
@@ -1503,8 +1715,8 @@ def cross_batch(torch, score, score64, model):
     its own: max abs and relative difference of the two float32 batchings,
     and of their CKDE and linear-Gaussian families apart; then
     :func:`batch_sources` on the one-parent CKDE families. A gate: every
-    CKDE family's score is the same bits alone and in the batch, and its
-    whitened parts too (the linear-Gaussian gap is recorded, not held)."""
+    family's score, CKDE and linear-Gaussian, is the same bits alone and in
+    the batch, and the CKDE families' whitened parts too."""
     from pybnesian_tpu_torch import CKDEType, LinearGaussianCPDType
 
     nodes = model.nodes()
@@ -1523,10 +1735,13 @@ def cross_batch(torch, score, score64, model):
     one_parent = [(v, ps) for v, ps, nt in fams if ps and nt == CKDEType()]
     sources = batch_sources(torch, score.cv_lik._engine, one_parent)
     ckde_gap = float(diff[ckde].max())
-    if ckde_gap != 0.0 or sources["whitened_inputs_not_bit_equal"] != "[]":
+    lg_gap = float(diff[~ckde].max())
+    if (ckde_gap != 0.0 or lg_gap != 0.0
+            or sources["whitened_inputs_not_bit_equal"] != "[]"):
         raise AssertionError(
-            f"a CKDE score moves with its batch: cross_batch_ckde_max_abs "
-            f"{ckde_gap:.3e}, whitened_inputs_not_bit_equal "
+            f"a score moves with its batch: cross_batch_ckde_max_abs "
+            f"{ckde_gap:.3e}, cross_batch_lg_max_abs {lg_gap:.3e}, "
+            f"whitened_inputs_not_bit_equal "
             f"{sources['whitened_inputs_not_bit_equal']}")
     return {**sources,
             "cross_batch_families": len(fams),
@@ -1544,11 +1759,23 @@ def two_routes(score, score64, model, label):
     holdout batch (``vlocal_score_batch``, CKDE nodes through the pairs
     kernel) and a fitted factor per node (``vlocal_score``, CKDE nodes
     through the KDE kernel) — each held against the float64 score's, then
-    against each other: max abs and relative difference."""
+    against each other: max abs and relative difference. A gate: the
+    validation cache that ``hc`` seeds (``cache_vlocal_scores``) holds
+    every node's ``vlocal_score``, bit for bit, so a validation delta
+    subtracts two values of one route."""
+    from pybnesian_tpu_torch.learning.operators import LocalScoreCache
+
     nodes = model.nodes()
     fams = [(n, model.parents(n)) for n in nodes]
     batch = score.vlocal_score_batch(model, fams)
     single = np.array([score.vlocal_score(model, n) for n in nodes])
+    cache = LocalScoreCache()
+    cache.cache_vlocal_scores(model, score)
+    seeded = np.array([cache.local_score(model, n) for n in nodes])
+    if not np.array_equal(seeded, single):
+        raise AssertionError(
+            f"{label}: the validation cache differs from vlocal_score by "
+            f"{np.abs(seeded - single).max():.3e} nats")
     rel_batch = check_scores(batch, score64.vlocal_score_batch(model, fams),
                              f"{label} holdout batch vs float64")
     rel_single = check_scores(
@@ -1559,7 +1786,59 @@ def two_routes(score, score64, model, label):
             f"{label}_factors_max_rel_vs_f64": f"{rel_single:.3e}",
             f"{label}_two_route_max_abs":
                 f"{np.abs(batch - single).max():.3e}",
-            f"{label}_two_route_max_rel": f"{rel:.3e}"}
+            f"{label}_two_route_max_rel": f"{rel:.3e}",
+            f"{label}_cache_equals_vlocal_score": True}
+
+
+def lg_batch_independence(torch, score, frame32, model):
+    """The float32 ``batched_bic`` (``BIC.local_score_batch``) and the
+    holdout channel's linear-Gaussian batch (``vlocal_score_batch``) of the
+    cache pass's linear-Gaussian families — each node alone and each
+    one-parent family — scored in one batch, then each in a batch of its
+    own. A gate: every family's score is the same bits both ways."""
+    from pybnesian_tpu_torch import BIC, LinearGaussianCPDType
+
+    nodes = model.nodes()
+    lg = LinearGaussianCPDType()
+    fams = [(v, [], lg) for v in nodes]
+    fams += [(t, [s], lg) for t in nodes for s in nodes if s != t]
+    fields = {}
+    for name, fn in (("bic", BIC(frame32).local_score_batch),
+                     ("holdout_lg", score.vlocal_score_batch)):
+        together = fn(model, fams)
+        alone = np.array([fn(model, [f])[0] for f in fams])
+        if not np.all(np.isfinite(together)):
+            raise AssertionError(f"{name}: non-finite scores {together}")
+        gap = float(np.abs(together - alone).max())
+        if gap != 0.0:
+            raise AssertionError(f"a float32 {name} score moves with its "
+                                 f"batch: {gap:.3e}")
+        fields[f"{name}_cross_batch_families"] = len(fams)
+        fields[f"{name}_cross_batch_max_abs"] = f"{gap:.3e}"
+    return fields
+
+
+def lg_host_ms(torch, score, score64, model, runs=10):
+    """Host ms of one LG CV call (``_KFoldEngine.lg_batch``, to its scores
+    on the host) on the cache pass's linear-Gaussian families: the float32
+    kernel route and the float64 plain route, medians of ``runs``."""
+    nodes = model.nodes()
+    fams = [(v, []) for v in nodes]
+    fams += [(t, [s]) for t in nodes for s in nodes if s != t]
+    out = {}
+    for tag, sc in (("kernel_f32", score), ("plain_f64", score64)):
+        engine = sc.cv_lik._engine
+        pos = {c: i for i, c in enumerate(engine.df.continuous_columns())}
+        batch = [(pos[v], [pos[p] for p in ps]) for v, ps in fams]
+        engine.lg_batch(batch)
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            engine.lg_batch(batch)
+            times.append(time.perf_counter() - t0)
+        out[f"lg_cv_host_ms_{tag}"] = f"{statistics.median(times) * 1e3:.4f}"
+    out["lg_cv_host_ms_families"] = len(fams)
+    return out
 
 
 def hc_kde_inputs(torch, score, model):
@@ -1597,14 +1876,17 @@ def hc_kde_inputs(torch, score, model):
     return cases
 
 
-def hc_kernel_cases(torch, score, model):
+def hc_kernel_cases(torch, score, model, card):
     """The kernels against their plain versions at the shapes ``hc`` gives
     them, on inputs that the run's own score builds: the whitening, pairs
     and fold-reduce kernels on the CV channel's folds and on the holdout
     split, for every node alone (the cache pass's node-type families), for
     ``model``'s families, and for its widest family alone; the KDE kernel
-    on each validation update of a CKDE node of ``model``. Returns each
-    kernel's largest error."""
+    on each validation update of a CKDE node of ``model``; the LG kernel
+    on both channels for those families and every one-parent family, and
+    on degenerate inputs (:func:`lg_edge_inputs`). Returns each kernel's
+    largest error, and the LG kernel's case timed at the CV channel's
+    one-parent families (F 56, K 10, 8,000 rows)."""
     from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
 
     nodes = model.nodes()
@@ -1634,7 +1916,22 @@ def hc_kernel_cases(torch, score, model):
     errs["kde_logl"] = max(
         compare_kde(torch, args, label, phase="8 hc kernel")["err"]
         for label, args in cases)
-    return errs
+    # the LG kernel on both channels: every node alone, the learned
+    # families, the widest alone, every one-parent family (the cache
+    # pass's, timed), and degenerate inputs cut from it
+    one_parent = [(t, [s]) for t in nodes for s in nodes if s != t]
+    lg_cases = []
+    for label, fams in {**batches, "one-parent": one_parent}.items():
+        lg_cases.append((f"hc-cv-{label}",
+                         lg_inputs_cv(score.cv_lik._engine, fams)))
+        lg_cases.append((f"hc-holdout-{label}",
+                         lg_inputs_holdout(score.holdout_lik, fams)))
+    timed_args = lg_inputs_cv(score.cv_lik._engine, one_parent)
+    lg_cases.append(("hc-cv-degenerate", lg_edge_inputs(torch, timed_args)))
+    errs["lg_cv_stats"] = max(
+        compare_lg(torch, args, label)["err"] for label, args in lg_cases)
+    timed = compare_lg(torch, timed_args, "hc-cv-one-parent-timed", card)
+    return errs, timed
 
 
 def bic_check(torch, frame32, frame64):
@@ -1673,7 +1970,7 @@ def bic_check(torch, frame32, frame64):
             "bic_hc_arcs": len(learned.arcs())}
 
 
-def phase_hc(torch):
+def phase_hc(torch, card):
     """hc at config3b's size: a warm float32 run, the timed float32 run
     (launch counts from it alone), a float64 run of the same call; both
     kernels against their plain versions at the run's shapes; the float32
@@ -1703,7 +2000,7 @@ def phase_hc(torch):
                              "non-finite scores in the float32 run")
     dag_order(model.nodes(), model.arcs())
     for name in ("ckde_cv_pairs", "kde_logl", "ckde_cv_whiten",
-                 "ckde_cv_fold_reduce"):
+                 "ckde_cv_fold_reduce", "lg_cv_stats"):
         if launches[name] == 0:
             raise AssertionError(f"hc did not launch {name}")
     t0 = time.perf_counter()
@@ -1725,19 +2022,21 @@ def phase_hc(torch):
         ckde=repr(sorted(n for n, t in types.items() if t == "CKDEFactor")),
         lg=repr(sorted(n for n, t in types.items()
                        if t == "LinearGaussianFactor")))
-    errs = hc_kernel_cases(torch, score, model)
+    errs, lg_timed = hc_kernel_cases(torch, score, model, card)
     before = ckde_cv_pairs.launches
     start, score64 = recorder.models[0], run64[1]
     fields = cross_batch(torch, score, score64, start)
+    fields.update(lg_batch_independence(torch, score, frame32, start))
     fields.update(two_routes(score, score64, start, "start"))
     fields.update(two_routes(score, score64, model, "learned"))
     if ckde_cv_pairs.launches == before:
         raise AssertionError("the cross-batch scores did not launch the "
                              "pairs kernel")
+    fields.update(lg_host_ms(torch, score, score64, start))
     fields.update(cv_lik_search(torch, frame32))
     say("8 hc", **fields)
     say("8 hc", **bic_check(torch, frame32, frame64))
-    return launches, errs
+    return launches, errs, lg_timed
 
 
 def frame_as(frame, dtype):
@@ -1870,14 +2169,24 @@ def add_counts(*counts):
 class UcvRecording:
     """While active, every launch of the UCV kernel through ``ops/kde.py``
     (``ucv_pair_sums_batch``) is counted and the first launch's arguments
-    of each shape copied, as :class:`Recording` does for the KDE
-    kernels."""
+    of each shape copied, as :class:`Recording` does for the KDE kernels.
+    With ``visits``, per shape also the last launch's arguments and those
+    of the smallest bandwidth, the launch whose smallest
+    :func:`ucv_bandwidth_factor` over its problems is the least (chosen on
+    the card, with no host read), and each launch's smallest factor: work
+    on every launch, so a timed run records without it."""
+
+    def __init__(self, visits=False):
+        self.visits = visits
 
     def __enter__(self):
+        import torch
+
         from pybnesian_tpu_torch.ops import kde as kde_ops
 
         self._ops, self._wrapper = kde_ops, kde_ops.ucv_pair_sums_cuda
-        self.launches, self.first = 0, {}
+        self.launches, self.first, self.last = 0, {}, {}
+        self.smallest, self.factors = {}, []
 
         def recording(white, valid=None):
             shape = (tuple(white.shape), valid is not None)
@@ -1885,6 +2194,21 @@ class UcvRecording:
             if shape not in self.first:
                 self.first[shape] = (white.clone(), None if valid is None
                                      else valid.clone())
+            if self.visits:
+                args = (white.clone(),
+                        None if valid is None else valid.clone())
+                factor = ucv_bandwidth_factor(white, valid).min()
+                self.factors.append(factor)
+                if shape not in self.smallest:
+                    self.smallest[shape] = (factor, *args)
+                else:
+                    least, w, v = self.smallest[shape]
+                    take = factor < least
+                    self.smallest[shape] = (
+                        torch.where(take, factor, least),
+                        torch.where(take, args[0], w),
+                        None if v is None else torch.where(take, args[1], v))
+                self.last[shape] = args
             return self._wrapper(white, valid)
 
         kde_ops.ucv_pair_sums_cuda = recording
@@ -1893,18 +2217,50 @@ class UcvRecording:
     def __exit__(self, *exc):
         self._ops.ucv_pair_sums_cuda = self._wrapper
 
+    def factor_range(self):
+        """(smallest, largest) over the launches of each launch's smallest
+        bandwidth factor."""
+        import torch
+
+        least = torch.stack(self.factors).double().cpu()
+        return float(least.min()), float(least.max())
+
+
+def ucv_bandwidth_factor(white, valid=None):
+    """Per problem of a UCV launch's whitened rows (B, N, d), the bandwidth
+    as a factor of the normal-reference one ((4 / (n (d +
+    2)))^(2 / (d + 4)) times the covariance): 1 / sqrt(rule · s²), with s²
+    the valid rows' mean squared distance from their mean per column,
+    which is 1 / (rule · f²) for the bandwidth f² · rule · Σ. A card
+    tensor (B,), read by nobody until the caller wants it."""
+    import torch
+
+    w = white.double()
+    keep = (torch.ones(white.shape[:2], dtype=torch.float64,
+                       device=white.device) if valid is None
+            else (valid > 0).double())
+    n = keep.sum(1).clamp_min(1.0)
+    mean = (w * keep[..., None]).sum(1) / n[:, None]
+    d = white.shape[2]
+    s2 = (((w - mean[:, None]) ** 2).sum(-1) * keep).sum(1) / (n * d)
+    rule = (4.0 / (n * (d + 2))) ** (2.0 / (d + 4))
+    return 1.0 / torch.sqrt(rule * s2)
+
 
 def ucv_work(white, valid):
     """(exps, FP32 ops, bytes) of one ucv_pair_sums call: one exp per valid
-    pair i < j; per pair a subtraction and an FMA per column and an add and
-    an FMA for the two sums (3 d + 3 operations, an FMA counted 2); the
-    rows (and the mask) read once, two sums a problem written."""
+    pair i < j; per pair, by the form that runs (an FMA counted 2), up to
+    16 columns the dot form's add and d FMAs for the exponent, wider the
+    difference form's subtraction and FMA per column, then an add and an
+    FMA for the two sums (2 d + 4 operations, or 3 d + 3); the rows (and
+    the mask) read once, two sums a problem written."""
     B, N, d = white.shape
     n = (np.full(B, float(N)) if valid is None
          else (valid > 0).sum(1).double().cpu().numpy())
     pairs = float((n * (n - 1) / 2).sum())
     nbytes = 4 * B * N * d + (0 if valid is None else 4 * B * N) + 8 * B
-    return pairs, pairs * (3 * d + 3), nbytes
+    per_pair = 2 * d + 4 if d <= UCV_DOT_D else 3 * d + 3
+    return pairs, pairs * per_pair, nbytes
 
 
 def ucv_rel_err(got, want):
@@ -1946,11 +2302,17 @@ def library_ucv(torch, white):
     return cuda_median_ms(torch, calls), rel
 
 
-def ucv_kernel_check(torch, card, recorded):
-    """The UCV kernel against its plain version on the inputs of every
-    shape the searches launched it at (``recorded``), and on edge cases
+def ucv_kernel_check(torch, card, recorded, visits):
+    """The UCV kernel against its plain version on the inputs that the
+    searches gave it, per shape: the first launch (``recorded``, the
+    counted run's :class:`UcvRecording`), the last and the one of the
+    smallest bandwidth (``visits``, a rerun's recording with visits), with
+    the range of bandwidths the rerun's launches visited printed beside
+    the range that ``tools/ucv_dot_form_error.py`` emulates; and on edge
+    cases
     cut from the widest of them: an all-invalid problem, one with exactly
-    two invalid rows, N odd and not a multiple of the tile, d 1 and d 20;
+    two invalid rows, N odd and not a multiple of the tile, N below one
+    tile, d 1, 16, 17 and 20, a NaN row;
     one problem's sums bit-equal alone, inside a 30-problem batch, padded
     with invalid rows, and run again; the kernel timed at the widest
     search shape with its bound, plain version and library yardstick."""
@@ -1971,12 +2333,25 @@ def ucv_kernel_check(torch, card, recorded):
         errs.append(err)
         return got
 
-    if not recorded:
+    if not recorded.first:
         raise AssertionError("the UCV searches recorded no kernel launch")
     errs = []
-    for w, v in recorded.values():
-        hold(w, v, f"search-inputs-{w.shape[2]}d")
-    white, _ = max(recorded.values(), key=lambda wv: wv[0].shape[2])
+    for shape, (w, v) in recorded.first.items():
+        d = w.shape[2]
+        hold(w, v, f"search-inputs-{d}d")
+        hold(*visits.last[shape], f"search-last-{d}d")
+        least, *wv = visits.smallest[shape]
+        hold(*wv, f"search-smallest-bandwidth-{d}d-factor-"
+             f"{float(least):.4f}")
+    low, high = visits.factor_range()
+    say("9 ucv kernel", launches_counted_run=recorded.launches,
+        launches_rerun=visits.launches,
+        bandwidth_factors_visited=f"{low:.4f}..{high:.4f}",
+        bandwidth_factors_emulated=f"{min(UCV_FACTORS_CHECKED)}.."
+                                   f"{max(UCV_FACTORS_CHECKED)}",
+        visited_within_emulated=(low >= min(UCV_FACTORS_CHECKED)
+                                 and high <= max(UCV_FACTORS_CHECKED)))
+    white, _ = max(recorded.first.values(), key=lambda wv: wv[0].shape[2])
     B, N, d = white.shape
     three = white[:3].contiguous()
     valid = torch.ones((3, N), dtype=torch.float32, device="cuda")
@@ -1988,10 +2363,18 @@ def ucv_kernel_check(torch, card, recorded):
     odd = 4097                           # odd, not a multiple of 256
     hold(white[:2, :odd].contiguous(), None, f"N{odd}")
     hold(white[:2, :, :1].contiguous(), None, "d1")
+    hold(white[:2, :100].contiguous(), None, "N100")  # below one tile
     rng = np.random.default_rng(9)
-    wide = torch.as_tensor(rng.normal(0, 0.3, (2, 3001, 20)), device="cuda",
-                           dtype=torch.float32)
-    hold(wide, None, "d20")
+    for width, scale in ((16, 1.0), (17, 1.0), (20, 0.3)):
+        wide = torch.as_tensor(rng.normal(0, scale, (2, 3001, width)),
+                               device="cuda", dtype=torch.float32)
+        hold(wide, None, f"d{width}")
+    nan = white[:2, :1001].clone()
+    nan[1, 500, 0] = math.nan            # a NaN row: problem 1 NaN
+    got = hold(nan, None, "nan-row")
+    if not (all(bool(s[1].isnan()) for s in got)
+            and all(bool(s[0].isfinite()) for s in got)):
+        raise AssertionError(f"ucv NaN row gave {got}")
 
     # one problem alone, inside 30, padded with invalid rows, run twice
     batch = torch.cat([white, 0.5 * white, 2.0 * white])[:30].contiguous()
@@ -2107,6 +2490,9 @@ def phase_ucv(torch, frame32, frame64, k, card):
                 torch, frames[tag],
                 [(s, fold_rows, vech_width(s.x.shape[1])) for s in searches],
                 search_s))
+    # once more, untimed, recording the bandwidths the searches visit
+    with UcvRecording(visits=True) as visits:
+        scores["f32"]._engine._ucv_bandwidths(untyped)
     # the float32 search's bandwidths, scored by both dtypes
     t0 = time.perf_counter()
     s32 = scores["f32"]._engine._ckde_host_batch(typed, h_maps=given)
@@ -2130,7 +2516,7 @@ def phase_ucv(torch, frame32, frame64, k, card):
             torch, reduce_inputs(torch, parts), "ucv-cv-families",
             phase="9 ucv kernel")["err"],
     }
-    ucv = ucv_kernel_check(torch, card, recorded.first)
+    ucv = ucv_kernel_check(torch, card, recorded, visits)
     say("9 ucv", path="CVLikelihood+UCV", scoring_s_f32=f"{scoring_s:.4f}",
         scores_f32=repr([round(float(x), 3) for x in s32]),
         same_bandwidths_max_rel_vs_f64=f"{rel_given:.3e}",
@@ -2460,33 +2846,41 @@ def launches_since(before):
 class Recording:
     """From :meth:`start` to :meth:`stop`, every launch of the two KDE
     kernels and of the CV whitening and fold-reduce kernels through
-    ``ops/kde.py`` (where the port calls all four wrappers) is recorded as
-    it passes: per kernel, how many launches it made, and a copy of the
-    first launch's arguments and keywords of each shape of arguments.
-    The copies are made on the card's stream, once per new shape. A path
-    runs between the two calls; a phase that fails ends the script, so
-    nothing restores the wrappers then."""
+    ``ops/kde.py`` (where the port calls those four wrappers), and of the
+    LG kernel through ``ops/gaussian.py`` (where the port calls its
+    wrapper), is recorded as it passes: per kernel, how many calls and
+    how many launches it made (the wrapper's own count before and after
+    each call), and a copy of the first call's arguments and keywords of
+    each shape of arguments. Every call must launch once, or not at all
+    when an argument is empty (as in a batch of no programs). The copies are
+    made on the card's stream, once per new shape. A path runs between the
+    two calls; a phase that fails ends the script, so nothing restores the
+    wrappers then."""
 
     NAMES = ("ckde_cv_pairs", "kde_logl", "ckde_cv_whiten",
-             "ckde_cv_fold_reduce")
+             "ckde_cv_fold_reduce", "lg_cv_stats")
 
     def __init__(self):
         self.launches = dict.fromkeys(self.NAMES, 0)
+        self.calls = dict.fromkeys(self.NAMES, 0)
         self.first = {n: {} for n in self.NAMES}
 
     def start(self):
+        from pybnesian_tpu_torch.ops import gaussian
         from pybnesian_tpu_torch.ops import kde as kde_ops
 
-        self._ops = kde_ops
-        self._wrappers = {n: getattr(kde_ops, n) for n in self.NAMES}
+        self._modules = {n: gaussian if n == "lg_cv_stats" else kde_ops
+                         for n in self.NAMES}
+        self._wrappers = {n: getattr(m, n) for n, m in self._modules.items()}
         for name, wrapper in self._wrappers.items():
-            setattr(kde_ops, name, self._recording(name, wrapper))
+            setattr(self._modules[name], name,
+                    self._recording(name, wrapper))
         return self
 
     def stop(self):
         """Restores the wrappers; returns the launch counts read now."""
         for name, wrapper in self._wrappers.items():
-            setattr(self._ops, name, wrapper)
+            setattr(self._modules[name], name, wrapper)
         return read_counts()
 
     def _recording(self, name, wrapper):
@@ -2494,15 +2888,25 @@ class Recording:
             return a.clone() if hasattr(a, "clone") else a
 
         def recording(*args, **kwargs):
-            shape = (tuple(tuple(a.shape) for a in args),
+            shape = (tuple(getattr(a, "shape", None) for a in args),
                      tuple((k, tuple(getattr(v, "shape", (repr(v),))))
                            for k, v in sorted(kwargs.items())))
-            self.launches[name] += 1
+            before = wrapper.launches
+            out = wrapper(*args, **kwargs)
+            launched = wrapper.launches - before
+            empty = any(getattr(a, "numel", lambda: 1)() == 0
+                        for a in (*args, *kwargs.values()))
+            if launched > 1 or (launched == 0 and not empty):
+                raise AssertionError(
+                    f"a call of {name} launched {launched} times (empty "
+                    f"argument: {empty})")
+            self.calls[name] += 1
+            self.launches[name] += launched
             if shape not in self.first[name]:
                 self.first[name][shape] = (
                     [clone(a) for a in args],
                     {k: clone(v) for k, v in kwargs.items()})
-            return wrapper(*args, **kwargs)
+            return out
         return recording
 
 
@@ -2514,7 +2918,8 @@ def hold_recorded(torch, rec, counted, label, phase):
     kernel's largest error."""
     compare = {"ckde_cv_pairs": compare_pairs, "kde_logl": compare_kde,
                "ckde_cv_whiten": compare_whiten,
-               "ckde_cv_fold_reduce": compare_reduce}
+               "ckde_cv_fold_reduce": compare_reduce,
+               "lg_cv_stats": compare_lg}
     for name, n in rec.launches.items():
         if n != counted[name]:
             raise AssertionError(f"{label}: {name} counted {counted[name]} "
@@ -2527,7 +2932,7 @@ def hold_recorded(torch, rec, counted, label, phase):
                                        quiet=True, **kwargs)["err"]
                          for args, kwargs in rec.first[name].values())
         say(phase, path=label, kernel=name, launches=counted[name],
-            shapes_held=len(rec.first[name]),
+            calls=rec.calls[name], shapes_held=len(rec.first[name]),
             max_abs_err=f"{errs[name]:.3e}")
     return errs
 
@@ -3759,8 +4164,8 @@ def main():
     pairs_args = main_path_pair_inputs(torch, frame32, k)
     pairs_cases = phase_kernel(torch, pairs_args, card)
     phase_selfcheck()
-    cv_launches, whiten, reduce = phase_main_path(torch, frame32, frame64,
-                                                  k, card)
+    cv_launches, whiten, reduce, lg_cv_err = phase_main_path(
+        torch, frame32, frame64, k, card)
     kde = phase_kde_kernel(torch, card)
     probe, probe_launches = phase_exp_chain(torch, card, {
         "ckde_cv_pairs main-path-inputs": pairs_cases["main-path-inputs"],
@@ -3768,7 +4173,7 @@ def main():
         "kde_logl tpu-docstring-shape": kde,
     })
     model_launches = phase_model_path(torch)
-    hc_launches, hc_errs = phase_hc(torch)
+    hc_launches, hc_errs, lg = phase_hc(torch, card)
     ucv_launches, ucv_errs, ucv = phase_ucv(torch, frame32, frame64, k,
                                             card)
     phase_discrete(torch)
@@ -3808,7 +4213,9 @@ def main():
                "ckde_cv_whiten": dict(whiten, err=worst("ckde_cv_whiten",
                                                         whiten["err"])),
                "ckde_cv_fold_reduce": dict(reduce, err=worst(
-                   "ckde_cv_fold_reduce", reduce["err"]))}
+                   "ckde_cv_fold_reduce", reduce["err"])),
+               "lg_cv_stats": dict(lg, err=worst("lg_cv_stats", lg["err"],
+                                                 lg_cv_err))}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {p: counts[name] for p, counts in paths.items()
@@ -3825,8 +4232,9 @@ def main():
             "plain_ms": result["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes" if by == "bytes" else "operations",
             # one efficient-attention call (#2) or two (#1, the UCV sums):
-            # their logsumexp output; nothing computes the exp chain, the
-            # CV whitening or the fold sums
+            # their logsumexp output; one torch.einsum of the LG kernel's
+            # Gram stage; nothing computes the exp chain, the CV whitening
+            # or the fold sums
             "library_ms": result.get("library_ms"),
         })
     say("all phases", wall_s=f"{time.perf_counter() - t_start:.1f}")

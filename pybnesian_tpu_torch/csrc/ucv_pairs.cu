@@ -12,41 +12,67 @@
 //
 // from one exp per pair: the second term is the square of the first.
 //
-// Bound: the exponentials, one SFU `ex2` each (16 per clock per SM), then
-// the FP32 pipe: 2d + 2 instructions per pair (a subtraction and an FMA
-// per column, an add and an FMA for the two sums). Bytes are no limit:
-// every row is read once per tile pair and reused by 256 rows of the
-// other tile. PERF.md has the measured times against that bound.
+// Bound: the exponentials, one SFU `ex2` each (16 per clock per SM), and
+// the FP32 pipe's instruction rate: d + 3 instructions per pair (an add and d
+// FMAs for the exponent, an add and an FMA for the two sums), 6 at d 3
+// against the difference form's 2d + 2 = 8, which alone took as long as
+// the SFU's bound. Bytes are no limit: every row is read once per tile
+// pair and reused by 256 rows of the other tile. PERF.md has the measured
+// times against that bound.
 //
 // Design:
 //
 // - Grid (upper-triangle tile pair, problem): block (ti, tj), ti <= tj,
-//   sums the pairs of row tile ti against column tile tj. A thread holds
-//   R = 2 rows of tile ti in registers; the block stages tile tj column by
-//   column in shared memory, so that one float4 load gives one coordinate
-//   of 4 columns, which serves 8 pairs (kernel #2's layout in ckde_cv.cu).
+//   sums the pairs of row tile ti against column tile tj. A thread of the
+//   64 holds R = 4 consecutive rows of tile ti in registers; the block
+//   stages tile tj coordinate by coordinate in shared memory, so that one
+//   float4 load gives one coordinate of 4 columns, which serves 16 pairs.
 // - One `ex2.approx.ftz` per pair: coordinates are scaled by
 //   sqrt(log2(e) / 4) as they are loaded, so that minus the distance sum
 //   is the first term's exponent in log2 units; e and e * e are summed.
+// - The dot-product form of the distance: with z the scaled rows less an
+//   origin o, -|z_i - z_j|^2 = a_i + b_j + sum_k (2 z_ik) z_jk, where a_i
+//   = b_i = -|z_i|^2 are formed once per row (the rows' in registers, the
+//   columns' staged after their coordinates): an add and d FMAs a pair. Its
+//   rounding grows with |z|^2 against |z_i - z_j|^2, so o is a row of the
+//   data, not 0: each block takes the first valid row of its row tile, so
+//   |z| is the spread of the data in bandwidths, wherever the data lie
+//   (tools/ucv_dot_form_error.py, which emulates this origin: within 1e-6
+//   of float64 from 1.25 to a quarter of the normal-reference bandwidth,
+//   1.04e-5 at an eighth, where the difference form stays within 6e-8;
+//   3e-5 with o = 0 on data 50 standard deviations out). Phase 9 of
+//   chip_smoke.py holds the kernel to 1e-5 on the smallest bandwidth its
+//   searches visit.
+//   Every block picks its origin from its own rows, so the sums still
+//   depend on nothing but the problem's rows.
 // - Invalid rows without a per-pair mask: an invalid (or padding) row is
-//   staged with coordinate 0 at +1e30 on the row side and -1e30 on the
-//   column side, so that every pair that holds one, two invalid rows
-//   included, has distance +inf and term 0. A NaN coordinate is kept, so
-//   that it reaches the sums, as NaN * 0 does in the plain version.
-// - Diagonal tiles (ti == tj) keep the pairs i < j; the others are
-//   multiplied by 0, which keeps a NaN, as the plain version's mask does.
+//   staged as (+1e30, 0, ..., 0) on the row side and (-1e30, 0, ..., 0) on
+//   the column side, so that its a_i or b_j is -inf and every pair that
+//   holds one, two invalid rows included, has exponent -inf and term 0
+//   (no inf - inf: the cross term of two invalid rows is -inf too). A NaN
+//   coordinate is kept, so that it reaches the sums, as NaN * 0 does in
+//   the plain version.
+// - Off-diagonal tiles run a loop with no mask at all. Diagonal tiles
+//   (ti == tj) run their own: a warp (128 consecutive rows) skips the
+//   column groups that lie wholly below its first row, and in the groups
+//   it computes keeps the pairs i < j, the others multiplied by 0, which
+//   keeps a NaN, as the plain version's mask does.
 // - Deterministic and batch-independent: per-thread FP32 sums in a fixed
 //   order, a fixed float64 tree over the block's threads, one float64
-//   partial per (problem, tile pair) and no atomics. A second kernel sums
-//   each problem's partials in a fixed order: per row tile over its
-//   column tiles, then over the row tiles. A problem's sums depend on its
-//   own rows alone: padding it with invalid rows to a batch's N only adds
-//   exact zeros at the ends of those sums, so its two sums are bit-equal
-//   alone, inside any batch, and from run to run.
+//   partial per (problem, tile pair), no atomic in any sum (a shared
+//   atomicMin only finds the origin row, a minimum). A second kernel sums
+//   each problem's partials in a fixed order: per row tile over its column
+//   tiles in order, those row sums in order of ti within each of 256
+//   threads (row tiles ti = t, t + 256, ...), then a fixed tree over the
+//   threads. A problem's sums depend on its own rows alone: padding it
+//   with invalid rows to a batch's N only adds exact zeros at the ends of
+//   those sums, so its two sums are bit-equal alone, inside any batch, and
+//   from run to run.
 //
-// Families wider than 16 columns take a runtime-width kernel: one row per
-// thread, tiles of 128 rows, groups of 32 columns, coordinates staged 32
-// at a time, so any width fits its shared memory.
+// Families wider than 16 columns take a runtime-width kernel in the
+// difference form (2d + 2 instructions a pair): 128 threads, one row per
+// thread, tiles of 128 rows, groups of 32 columns, coordinates staged 32 at
+// a time, so any width fits its shared memory.
 
 #include <cuda_runtime.h>
 
@@ -54,11 +80,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;        // threads per block
-constexpr int kRowsPerThread = 2;    // R: rows of tile ti a thread holds
+constexpr int kThreads = 64;         // threads per block, templated width
+constexpr int kRowsPerThread = 4;    // R: consecutive rows a thread holds
 constexpr int kTile = 256;           // rows per tile: kThreads * R
+constexpr int kWarpRows = 32 * kRowsPerThread;  // rows of one warp
 constexpr int kGroup = 16;           // columns per group
 constexpr int kMaxTemplated = 16;    // widest problem of the templated kernel
+constexpr int kWideThreads = 128;    // threads per block, runtime width
 constexpr int kWideTile = 128;       // rows per tile, runtime width
 constexpr int kWideGroup = 32;       // columns per group, runtime width
 constexpr int kWideChunk = 32;       // coordinates staged at a time
@@ -92,6 +120,20 @@ __device__ __forceinline__ float staged(const UcvArgs& a, int b, int row,
   return v;
 }
 
+// Coordinate k of row `row` of problem b, less the block's origin, scaled;
+// an invalid or padding row is (far, 0, ..., 0), but a NaN coordinate is
+// kept.
+__device__ __forceinline__ float moved(const UcvArgs& a, int b, int row,
+                                       int k, int d, float far,
+                                       float origin) {
+  if (row >= a.N) return k == 0 ? far : 0.0f;
+  const size_t r = static_cast<size_t>(b) * a.N + row;
+  const float x = a.white[r * d + k];
+  if (isnan(x)) return x;
+  if (a.valid != nullptr && !(a.valid[r] > 0.0f)) return k == 0 ? far : 0.0f;
+  return kScale * (x - origin);
+}
+
 // (ti, tj), ti <= tj, of tile pair p in row-major order over the upper
 // triangle of nt x nt tiles: row ti starts at ti * nt - ti * (ti - 1) / 2.
 __device__ __forceinline__ void tile_pair(long long p, int nt, int& ti,
@@ -105,12 +147,13 @@ __device__ __forceinline__ void tile_pair(long long p, int nt, int& ti,
   tj = static_cast<int>(i + (p - start(i)));
 }
 
-// Sums (s2h, sh) over the block's threads in float64, in a fixed tree, and
-// writes the block's partial.
+// Sums (s2h, sh) over the block's NT threads in float64, in a fixed tree,
+// and writes the block's partial.
+template <int NT>
 __device__ __forceinline__ void write_partial(const UcvArgs& a, int b,
                                               long long p, int pairs,
                                               float se, float se2) {
-  __shared__ double s_warp[2][kThreads / 32];
+  __shared__ double s_warp[2][NT / 32];
   double x = se, y = se2;
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) {
@@ -126,7 +169,7 @@ __device__ __forceinline__ void write_partial(const UcvArgs& a, int b,
   if (threadIdx.x == 0) {
     double sx = s_warp[0][0], sy = s_warp[1][0];
 #pragma unroll
-    for (int w = 1; w < kThreads / 32; ++w) {
+    for (int w = 1; w < NT / 32; ++w) {
       sx += s_warp[0][w];
       sy += s_warp[1][w];
     }
@@ -138,17 +181,16 @@ __device__ __forceinline__ void write_partial(const UcvArgs& a, int b,
 
 // Adds the terms of a group of T distance sums y (minus the distance in
 // log2 units) to (se, se2): four partial sums each, in a fixed order.
-// Diagonal tiles keep the pairs whose column `j0 + t` lies past `row`.
-template <int T>
-__device__ __forceinline__ void add_group(const float (&y)[T], bool diag,
-                                          int row, int j0, float& se,
-                                          float& se2) {
+// DIAG: keeps the pairs whose column `j0 + t` lies past `row`.
+template <int T, bool DIAG>
+__device__ __forceinline__ void add_group(const float (&y)[T], int row,
+                                          int j0, float& se, float& se2) {
   float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     float e = ex2(y[t]);
-    if (diag && !(row < j0 + t)) e *= 0.0f;  // keeps a NaN
+    if (DIAG && !(row < j0 + t)) e *= 0.0f;  // keeps a NaN
     p[t % 4] += e;
     q[t % 4] = fmaf(e, e, q[t % 4]);
   }
@@ -156,46 +198,29 @@ __device__ __forceinline__ void add_group(const float (&y)[T], bool diag,
   se2 += (q[0] + q[1]) + (q[2] + q[3]);
 }
 
-// Grid (pairs, B). Thread t holds rows ti * kTile + r * kThreads + t.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    ucv_pairs_kernel(const UcvArgs a, int pairs) {
+// The column groups j0 = j_begin, j_begin + T, ... of the staged column
+// tile against the thread's R rows (tile rows row0 .. row0 + R - 1): per
+// pair y = (a_i + b_j) + sum_k u_ik v_jk, the column biases b_j staged
+// after the D coordinates.
+template <int D, bool DIAG>
+__device__ __forceinline__ void tile_sums(const float (&u)[kRowsPerThread][D],
+                                          const float (&ar)[kRowsPerThread],
+                                          const float* s_col, int row0,
+                                          int j_begin, float& se,
+                                          float& se2) {
   constexpr int R = kRowsPerThread;
   constexpr int T = kGroup;
-  static_assert(kTile == kThreads * R, "a tile is a block's rows");
-  static_assert(kTile % T == 0, "a tile holds whole groups");
-  __shared__ __align__(16) float s_col[D * kTile];
-
-  const int b = blockIdx.y;
-  const long long p = blockIdx.x;
-  int ti, tj;
-  tile_pair(p, a.nt, ti, tj);
-  const bool diag = ti == tj;
-
-  float w[R][D];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = ti * kTile + r * kThreads + threadIdx.x;
-#pragma unroll
-    for (int k = 0; k < D; ++k) w[r][k] = staged(a, b, row, k, D, kFar);
-  }
-  // coalesced over the column tile's contiguous (rows x D) slab
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int c = e / D, k = e % D;
-    s_col[k * kTile + c] = staged(a, b, tj * kTile + c, k, D, -kFar);
-  }
-  __syncthreads();
-
-  float se = 0.0f, se2 = 0.0f;
 #pragma unroll 1
-  for (int j0 = 0; j0 < kTile; j0 += T) {
+  for (int j0 = j_begin; j0 < kTile; j0 += T) {
     float y[R][T], x[T];
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
+    for (int k = 0; k <= D; ++k) {
+      // k == 0: the biases (row D of the staging), then coordinates 0..D-1
+      const int row = k == 0 ? D : k - 1;
 #pragma unroll
       for (int v = 0; v < T / 4; ++v) {
         const float4 q =
-            reinterpret_cast<const float4*>(s_col + k * kTile + j0)[v];
+            reinterpret_cast<const float4*>(s_col + row * kTile + j0)[v];
         x[4 * v] = q.x;
         x[4 * v + 1] = q.y;
         x[4 * v + 2] = q.z;
@@ -205,25 +230,103 @@ __global__ void __launch_bounds__(kThreads)
       for (int t = 0; t < T; ++t) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float df = w[r][k] - x[t];
-          y[r][t] = k == 0 ? -df * df : fmaf(-df, df, y[r][t]);
+          if (k == 0) {
+            y[r][t] = ar[r] + x[t];
+          } else {
+            y[r][t] = fmaf(u[r][k - 1], x[t], y[r][t]);
+          }
         }
       }
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      add_group(y[r], diag, r * kThreads + threadIdx.x, j0, se, se2);
+      add_group<T, DIAG>(y[r], row0 + r, j0, se, se2);
     }
   }
-  write_partial(a, b, p, pairs, se, se2);
+}
+
+// Grid (pairs, B). Thread t holds rows ti * kTile + t * R + r, r < R.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    ucv_pairs_kernel(const UcvArgs a, int pairs) {
+  constexpr int R = kRowsPerThread;
+  static_assert(kTile == kThreads * R, "a tile is a block's rows");
+  static_assert(kTile % kGroup == 0 && kWarpRows % kGroup == 0,
+                "a tile and a warp's rows hold whole groups");
+  // D coordinates, then the biases b_j, of the column tile's rows
+  __shared__ __align__(16) float s_col[(D + 1) * kTile];
+  __shared__ int s_first;  // the row tile's first valid row
+
+  const int b = blockIdx.y;
+  const long long p = blockIdx.x;
+  int ti, tj;
+  tile_pair(p, a.nt, ti, tj);
+
+  // the block's origin: the first valid row of tile ti (0 when it has none)
+  const int row0 = threadIdx.x * R;  // the thread's first row in the tile
+  if (threadIdx.x == 0) s_first = kTile;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = ti * kTile + row0 + r;
+    if (row < a.N &&
+        (a.valid == nullptr ||
+         a.valid[static_cast<size_t>(b) * a.N + row] > 0.0f)) {
+      atomicMin(&s_first, row0 + r);
+      break;
+    }
+  }
+  __syncthreads();
+  float origin[D];
+  const size_t first = static_cast<size_t>(b) * a.N + ti * kTile + s_first;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    origin[k] = s_first < kTile ? a.white[first * D + k] : 0.0f;
+  }
+
+  // rows: u_i = 2 z_i and a_i = -|z_i|^2, z_i the scaled moved row
+  float u[R][D], ar[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ar[r] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float z = moved(a, b, ti * kTile + row0 + r, k, D, kFar,
+                            origin[k]);
+      u[r][k] = 2.0f * z;
+      ar[r] = fmaf(-z, z, ar[r]);
+    }
+  }
+  // columns: z_j by coordinate, then b_j = -|z_j|^2
+  for (int c = threadIdx.x; c < kTile; c += kThreads) {
+    float bj = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float z = moved(a, b, tj * kTile + c, k, D, -kFar, origin[k]);
+      s_col[k * kTile + c] = z;
+      bj = fmaf(-z, z, bj);
+    }
+    s_col[D * kTile + c] = bj;
+  }
+  __syncthreads();
+
+  float se = 0.0f, se2 = 0.0f;
+  if (ti == tj) {
+    // groups wholly below the warp's first row hold no pair i < j
+    const int first_row = (threadIdx.x / 32) * kWarpRows;
+    tile_sums<D, true>(u, ar, s_col, row0, first_row, se, se2);
+  } else {
+    tile_sums<D, false>(u, ar, s_col, row0, 0, se, se2);
+  }
+  write_partial<kThreads>(a, b, p, pairs, se, se2);
 }
 
 // Any width d: tiles of kWideTile rows, one row per thread; columns in
 // groups of kWideGroup, each group's distances summed over coordinates
 // staged kWideChunk at a time (rows and columns both in shared memory).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWideThreads)
     ucv_pairs_wide_kernel(const UcvArgs a, int pairs, int d) {
-  static_assert(kWideTile == kThreads, "one row per thread");
+  static_assert(kWideTile == kWideThreads, "one row per thread");
   __shared__ float s_row[kWideChunk * kWideTile];
   __shared__ float s_col[kWideChunk * kWideGroup];
 
@@ -243,11 +346,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int k0 = 0; k0 < d; k0 += kWideChunk) {
       const int kc = min(kWideChunk, d - k0);
       __syncthreads();  // the previous chunk is read
-      for (int e = threadIdx.x; e < kWideTile * kc; e += kThreads) {
+      for (int e = threadIdx.x; e < kWideTile * kc; e += kWideThreads) {
         const int r = e / kc, k = e % kc;
         s_row[k * kWideTile + r] = staged(a, b, i0 + r, k0 + k, d, kFar);
       }
-      for (int e = threadIdx.x; e < kWideGroup * kc; e += kThreads) {
+      for (int e = threadIdx.x; e < kWideGroup * kc; e += kWideThreads) {
         const int c = e / kc, k = e % kc;
         s_col[k * kWideGroup + c] =
             staged(a, b, c0 + j0 + c, k0 + k, d, -kFar);
@@ -262,40 +365,57 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    add_group(y, diag, threadIdx.x, j0, se, se2);
+    if (diag) {
+      add_group<kWideGroup, true>(y, threadIdx.x, j0, se, se2);
+    } else {
+      add_group<kWideGroup, false>(y, threadIdx.x, j0, se, se2);
+    }
   }
-  write_partial(a, b, p, pairs, se, se2);
+  write_partial<kWideThreads>(a, b, p, pairs, se, se2);
 }
 
 // One block per problem: each row tile's partials summed over its column
-// tiles (thread ti % kReduceThreads, in order of tj), written over the
-// row's first partial, then those row sums in order of ti by one thread.
+// tiles in order of tj, those row sums in order of ti within each thread
+// (row tiles ti = t, t + kReduceThreads, ...), then the threads' sums in a
+// fixed tree (each warp's shuffles, then the warps in order).
 __global__ void __launch_bounds__(kReduceThreads)
-    ucv_reduce_kernel(double* partials, float* out, int nt, int pairs) {
+    ucv_reduce_kernel(const double* partials, float* out, int nt, int pairs) {
+  __shared__ double s_warp[2][kReduceThreads / 32];
   const int b = blockIdx.x;
-  double* part = partials + 2 * static_cast<size_t>(b) * pairs;
+  const double* part = partials + 2 * static_cast<size_t>(b) * pairs;
+  double x = 0.0, y = 0.0;
   for (int ti = threadIdx.x; ti < nt; ti += kReduceThreads) {
-    const long long start = static_cast<long long>(ti) * nt -
-                            static_cast<long long>(ti) * (ti - 1) / 2;
-    double x = 0.0, y = 0.0;
-    for (int tj = ti; tj < nt; ++tj) {
-      x += part[2 * (start + tj - ti)];
-      y += part[2 * (start + tj - ti) + 1];
+    const double* row = part + 2 * (static_cast<long long>(ti) * nt -
+                                    static_cast<long long>(ti) * (ti - 1) / 2);
+    double rx = 0.0, ry = 0.0;
+#pragma unroll 4
+    for (int tj = 0; tj < nt - ti; ++tj) {
+      rx += row[2 * tj];
+      ry += row[2 * tj + 1];
     }
-    part[2 * start] = x;
-    part[2 * start + 1] = y;
+    x += rx;
+    y += ry;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    x += __shfl_down_sync(0xffffffffu, x, off);
+    y += __shfl_down_sync(0xffffffffu, y, off);
+  }
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    s_warp[0][warp] = x;
+    s_warp[1][warp] = y;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    double x = 0.0, y = 0.0;
-    for (int ti = 0; ti < nt; ++ti) {
-      const long long start = static_cast<long long>(ti) * nt -
-                              static_cast<long long>(ti) * (ti - 1) / 2;
-      x += part[2 * start];
-      y += part[2 * start + 1];
+    double sx = s_warp[0][0], sy = s_warp[1][0];
+#pragma unroll
+    for (int w = 1; w < kReduceThreads / 32; ++w) {
+      sx += s_warp[0][w];
+      sy += s_warp[1][w];
     }
-    out[2 * b] = static_cast<float>(x);
-    out[2 * b + 1] = static_cast<float>(y);
+    out[2 * b] = static_cast<float>(sx);
+    out[2 * b + 1] = static_cast<float>(sy);
   }
 }
 
@@ -330,7 +450,8 @@ cudaError_t launch_pairs(const UcvArgs& a, int B, int d, int pairs,
     UCV_CASE(16)
 #undef UCV_CASE
     default:
-      ucv_pairs_wide_kernel<<<dim3(pairs, B), kThreads, 0, s>>>(a, pairs, d);
+      ucv_pairs_wide_kernel<<<dim3(pairs, B), kWideThreads, 0, s>>>(a, pairs,
+                                                                    d);
       return cudaGetLastError();
   }
 }

@@ -246,10 +246,14 @@ class LocalScoreCache:
         self._scores = dict(zip(nodes, values.tolist()))
 
     def cache_vlocal_scores(self, model, score) -> None:
-        nodes = model.nodes()
-        fams = [(n, model.parents(n)) for n in nodes]
-        values = score.vlocal_score_batch(model, fams)
-        self._scores = dict(zip(nodes, values.tolist()))
+        """Seeds every node's validation score by the route its updates
+        take (:meth:`update_vlocal_score`: ``score.vlocal_score``), so a
+        validation delta subtracts two values of one route. The JAX
+        package seeds through ``vlocal_score_batch``, another route whose
+        float32 values differ in the last digits (and for a constant
+        variable, −inf against the factor's 0.0)."""
+        self._scores = {n: float(score.vlocal_score(model, n))
+                        for n in model.nodes()}
 
     def update_local_score(self, model, score, node: str) -> None:
         self._scores[node] = float(score.local_score(model, node))

@@ -122,10 +122,11 @@ class _KFoldEngine:
         self.device = device
 
     # ------------------------------------------------------------------ LG
-    def lg_batch(self, families) -> np.ndarray:
-        """families: list of (var_pos, [parent_pos]). One batched call."""
-        from ...ops.gaussian import batched_lg_cv_loglik
-
+    def lg_inputs(self, families):
+        """:func:`~pybnesian_tpu_torch.ops.gaussian.batched_lg_cv_loglik`'s
+        arguments for ``families``, a list of (var_pos, [parent_pos]): the
+        continuous columns and their validity on the device, the (K, n)
+        fold masks (built once) and the family tensors."""
         cols = self.df.continuous_columns()
         values, valid = self.df.device_matrix(cols, device=self.device)
         dtype = numpy_dtype(values.dtype)
@@ -140,11 +141,14 @@ class _KFoldEngine:
             self._masks = tuple(
                 host_to_device(m, dtype, self.device) for m in (train, test)
             )
-        train_mask, test_mask = self._masks
-        out = batched_lg_cv_loglik(
-            values, valid, train_mask, test_mask,
-            *family_tensors(families, dtype, self.device),
-        )
+        return (values, valid, *self._masks,
+                *family_tensors(families, dtype, self.device))
+
+    def lg_batch(self, families) -> np.ndarray:
+        """families: list of (var_pos, [parent_pos]). One batched call."""
+        from ...ops.gaussian import batched_lg_cv_loglik
+
+        out = batched_lg_cv_loglik(*self.lg_inputs(families))
         return out.to(torch.float64).cpu().numpy()
 
     # ---------------------------------------------------------------- CKDE

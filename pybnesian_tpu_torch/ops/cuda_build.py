@@ -29,7 +29,8 @@ _NVCC_FLAGS = [
 ]
 
 #: every kernel source of the port, by file name under ``csrc/``
-SOURCES = ("ckde_cv.cu", "cv_whiten.cu", "exp_chain.cu", "ucv_pairs.cu")
+SOURCES = ("ckde_cv.cu", "cv_whiten.cu", "exp_chain.cu", "lg_cv.cu",
+           "ucv_pairs.cu")
 
 
 def nvcc() -> str:

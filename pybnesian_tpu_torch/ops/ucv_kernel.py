@@ -17,7 +17,7 @@ b of whitened rows ``white[b]`` (N, d) and its validity mask it computes
 
 The kernel's sums of one problem are bit-equal alone, inside any batch
 (padded with invalid rows to the batch's N) and from run to run: it sums
-fixed tiles in a fixed order, with no atomics.
+fixed tiles in a fixed order, with no atomic in any sum.
 """
 
 from __future__ import annotations

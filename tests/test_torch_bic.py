@@ -135,3 +135,63 @@ def test_bge_and_bde_are_not_ported():
     for pkg in (pj, pt):
         with pytest.raises(ValueError):
             pkg.hc(df, bn_type=pkg.GaussianNetworkType(), score="bde")
+
+
+def _gram_setup(dtype, n=500, seed=2):
+    """(JAX arguments, port arguments) of families of 0–3 parents padded to
+    3, over 5 correlated columns with 5% null cells and a constant one."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(seed)
+    values = rng.normal(0, 1.0, (n, 6))
+    for j in range(1, 5):
+        values[:, j] += 0.8 * values[:, j - 1]
+    values[:, 5] = 1.25
+    valid = (rng.random((n, 6)) >= 0.05).astype(np.float64)
+    values = np.where(valid > 0, values, 0.0)
+    fams = [(0, []), (1, [0]), (2, [1, 0]), (3, [2, 1, 0]), (4, [3]),
+            (5, []), (5, [1, 2])]
+    vi = np.array([v for v, _ in fams], np.int64)
+    pi = np.zeros((len(fams), 3), np.int64)
+    pm = np.zeros((len(fams), 3))
+    for f, (_, ps) in enumerate(fams):
+        pi[f, : len(ps)] = ps
+        pm[f, : len(ps)] = 1.0
+    floats = [values.astype(dtype), valid.astype(dtype), pm.astype(dtype)]
+    jax_args = [jnp.asarray(floats[0]), jnp.asarray(floats[1]),
+                jnp.asarray(vi, jnp.int32), jnp.asarray(pi, jnp.int32),
+                jnp.asarray(floats[2])]
+    torch_args = [torch.as_tensor(floats[0]), torch.as_tensor(floats[1]),
+                  torch.as_tensor(vi), torch.as_tensor(pi),
+                  torch.as_tensor(floats[2])]
+    return jax_args, torch_args
+
+
+F32_TOL = dict(rtol=5e-4, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_plain_kernel_version_bic_and_grams_match_jax(dtype):
+    """``batched_bic`` and ``family_grams`` by the plain version of the LG
+    kernel (float64 statistics of float32 data, each result rounded once)
+    against the JAX package's: families of 0–3 parents padded to 3, null
+    cells, a constant variable (−inf in both)."""
+    from pybnesian_tpu.ops import gaussian as jg
+    from pybnesian_tpu_torch.ops import gaussian as tg
+
+    jax_args, torch_args = _gram_setup(dtype)
+    tol = TOL if dtype == np.float64 else F32_TOL
+    got = tg.batched_bic(*torch_args)
+    assert got.dtype == torch_args[0].dtype
+    want = np.asarray(jg.batched_bic(*jax_args))
+    assert got[5] == -np.inf and want[5] == -np.inf
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+    grams, n_eff = tg.family_grams(*torch_args)
+    jgrams, jn_eff = jg.family_grams(*jax_args)
+    np.testing.assert_allclose(grams.numpy(), np.asarray(jgrams), **tol)
+    np.testing.assert_allclose(n_eff.numpy(), np.asarray(jn_eff), **tol)
+    np.testing.assert_allclose(
+        tg.bic_from_gram(grams.double(), torch_args[4].double(),
+                         n_eff.double()).numpy()[:5], want[:5], **tol)

@@ -14,7 +14,10 @@ sequence in both. Cases:
   where y comes out CKDE (same file);
 - a SemiparametricBN on a 5-node nonlinear chain of 500 rows,
   ``patience=2``;
-- the default scores named as strings (``"cv-lik"``, ``"holdout-lik"``);
+- the default scores named as strings (``"cv-lik"``, ``"holdout-lik"``,
+  ``"validated-lik"``: its validation cache seeded by the route its
+  updates take, ``vlocal_score``, where the JAX package seeds it through
+  ``vlocal_score_batch``; in float64 the two routes agree);
 - a DiscreteBN on 2,000 rows of a 6-node categorical chain, with the
   discrete BIC (the type's default) and ``"bde"``, plain and with a
   blacklist, a whitelist, ``max_indegree=1`` and an ``epsilon``; the
@@ -120,6 +123,8 @@ CASES = {
     "spbn-cv-lik": (sin_df, "spbn", dict(score="cv-lik", max_iters=4)),
     "spbn-holdout-lik": (sin_df, "spbn", dict(score="holdout-lik",
                                               max_iters=4)),
+    "spbn-validated-lik": (chain_df, "spbn", dict(score="validated-lik",
+                                                  patience=1, max_iters=6)),
     "gaussian-bge": (readme_df, "gaussian", dict(score="bge")),
 }
 DISCRETE_CASES = {

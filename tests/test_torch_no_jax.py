@@ -65,7 +65,8 @@ def test_no_import_statement_names_jax(path):
 
 KERNEL_MODULES = ["ops/ckde_cv_kernel.py", "ops/kde_kernel.py",
                   "ops/ucv_kernel.py", "ops/cv_whiten_kernel.py",
-                  "ops/exp_chain.py", "ops/cuda_build.py"]
+                  "ops/lg_cv_kernel.py", "ops/exp_chain.py",
+                  "ops/cuda_build.py"]
 
 
 @pytest.mark.parametrize("module", KERNEL_MODULES)

@@ -153,3 +153,24 @@ def test_holdout_likelihood_alone_matches_jax():
     np.testing.assert_allclose(tscore.local_score_batch(tmodel, fams),
                                jscore.local_score_batch(jmodel, fams), **TOL)
     assert tscore.ToString() == jscore.ToString() == "HoldoutLikelihood"
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_validation_cache_holds_vlocal_score(dtype):
+    """The validation cache that hc seeds (``cache_vlocal_scores``) holds
+    each node's ``vlocal_score`` bit for bit, the route its updates take,
+    in both dtypes; for the constant node z that is the factor's 0.0 (the
+    batch's −inf is the other route's value)."""
+    from pybnesian_tpu_torch.learning.operators import LocalScoreCache
+
+    cols = {k: v.astype(dtype) for k, v in _columns().items()}
+    _, tscore, _, tmodel = _both(cols)
+    cache = LocalScoreCache()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cache.cache_vlocal_scores(tmodel, tscore)
+        want = [tscore.vlocal_score(tmodel, n) for n in tmodel.nodes()]
+    got = [cache.local_score(tmodel, n) for n in tmodel.nodes()]
+    assert got == want
+    assert cache.local_score(tmodel, "z") == 0.0
+    assert np.all(np.isfinite(got))

@@ -8,8 +8,8 @@ installed (``--noconftest`` skips tests/conftest.py, which sets up JAX):
     python -m pytest --noconftest tests/test_torch_ucv_cuda.py -q
 
 Tolerance: 1e-5 relative per sum, as chip_smoke.py holds the kernel
-(float32 terms summed in another order; float64 above a thread's 512
-terms in both versions). Bit-equality where the kernel promises it: one
+(float32 terms summed in another order; float64 above a thread's 1,024
+terms in the kernel, a row block's in the plain version). Bit-equality where the kernel promises it: one
 problem's sums alone, inside a batch, padded with invalid rows, and run
 again.
 """
@@ -74,6 +74,29 @@ def test_ragged_and_wide_problems(cuda, N, d):
     got = _check(white)
     if N < 2:
         assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("N", [100, 255, 257, 1000])
+@pytest.mark.parametrize("d", [1, 3, 16, 17])
+def test_tile_edges_by_width(cuda, N, d):
+    """N below one 256-row tile, one row short of it, one past it and not a
+    multiple of it, at d 1, 3, 16 (the widest templated width) and 17 (the
+    runtime-width kernel): the diagonal tiles' pairs i < j and the
+    off-diagonal tiles' unmasked loop."""
+    _check(_white(cuda, 2, N, d, scale=4.0 / math.sqrt(d), seed=N + d))
+
+
+@pytest.mark.parametrize("d", [1, 3, 16, 17])
+def test_a_nan_row_by_width(cuda, d):
+    """A NaN coordinate in the last row of a 300-row problem (its pairs all
+    lie in a diagonal tile, where the other rows' warps skip its column
+    group or keep it) turns the problem's sums NaN; the other stays
+    finite."""
+    white = _white(cuda, 2, 300, d, scale=4.0 / math.sqrt(d), seed=d)
+    white[1, 299, d - 1] = math.nan
+    got = _check(white)
+    assert all(bool(torch.isnan(s[1])) for s in got)
+    assert all(bool(torch.isfinite(s[0])) for s in got)
 
 
 def test_invalid_rows(cuda):

@@ -14,7 +14,7 @@ under ``torch.profiler`` and once under ``cProfile``, and prints:
   own host cost stretches the profiled run, so the unprofiled share is
   the one to read);
 - kernels on the device per hc iteration, the kernels by total time,
-  and the port's two KDE kernels' time and launches;
+  and the port's two KDE kernels' and the LG kernel's time and launches;
 - the host's torch operators by self CPU time;
 - the port's Python functions by cumulative time (cProfile run).
 
@@ -89,14 +89,18 @@ def main():
                                        key=lambda kv: -kv[1][0])[:15]:
         print(f"[hc profile kernel] ms={total / 1e3:.4f} launches={count} "
               f"name={name[:110]!r}")
-    # the port's own kernels (csrc/ckde_cv.cu): pairs_kernel<D, R, kCv> is
+    # the port's own kernels: in csrc/ckde_cv.cu pairs_kernel<D, R, kCv> is
     # kernel #1 with kCv true, kernel #2 with kCv false, as is the wide KDE
-    # kernel
-    for label, marks in (("ckde_cv_pairs", ("true>",)),
-                         ("kde_logl", ("false>", "kde_logl_wide_kernel"))):
-        mine = [(t, c) for n, (t, c) in by_name.items()
-                if ("pairs_kernel<" in n or "kde_logl_wide_kernel" in n)
-                and any(m in n for m in marks)]
+    # kernel; csrc/lg_cv.cu's lg_kernel<W> and its fold sums
+    for label, match in (
+            ("ckde_cv_pairs",
+             lambda n: "pairs_kernel<" in n and "true>" in n),
+            ("kde_logl",
+             lambda n: ("pairs_kernel<" in n and "false>" in n)
+             or "kde_logl_wide_kernel" in n),
+            ("lg_cv_stats",
+             lambda n: "lg_kernel<" in n or "fold_sum_kernel" in n)):
+        mine = [(t, c) for n, (t, c) in by_name.items() if match(n)]
         print(f"[hc profile port kernel] name={label} "
               f"ms={sum(t for t, _ in mine) / 1e3:.4f} "
               f"launches={sum(c for _, c in mine)}")
