@@ -36,7 +36,11 @@ the script exits non-zero and prints no result:
    versions on the first batch's inputs (G 150, 9,000 × 1,000, dpad 3),
    timed with their bounds, and stage 1's device operations and device
    time by the plain torch route and by the kernel, beside the whole
-   float32 CV call's (``torch.profiler``);
+   float32 CV call's (``torch.profiler``); the whitening and LG kernels
+   at every cluster size S (1, 2, 4, 8) on those inputs and on the mix's
+   and the one-parent LG families: bit-equal to the planned launch,
+   timed, and each family alone and in its batch, with each kernel's
+   registers and spills from the build;
 5. the KDE kernel (``kde_logl``) against its plain version: small ragged
    cases (G 1 and 2, d 1 to 20, an all-invalid first train tile) and the
    TPU kernel's own shape (10,240 × 10,240 rows, d 3), timed with its
@@ -77,7 +81,11 @@ the script exits non-zero and prints no result:
    linear-Gaussian batch) and two-route difference (the holdout batch
    against a fitted factor per node; a gate: the validation cache that
    ``hc`` seeds holds every node's ``vlocal_score`` bit for bit, on the
-   start and the learned model); one LG CV call's host ms on both routes;
+   start and the learned model); the whitening (the learned model's
+   families, both channels) and the LG kernel (every one-parent family,
+   both channels) at every S, bit-equal to the planned launch, timed, and
+   each family alone and in its batch; one LG CV call's host ms on both
+   routes;
    a ``score="cv-lik"`` search (no validation
    guard): its iterations and how many of its steps undo an earlier one;
    and BIC, the GaussianNetwork default, against float64, then its ``hc``;
@@ -536,6 +544,48 @@ def ptxas_spills(report):
     return spilling
 
 
+def ptxas_functions(report):
+    """{kernel: "registers/spill stores/spill loads"} of an ``nvcc -Xptxas
+    -v`` report, each kernel by its name and template width
+    (``whiten_kernel<3>``)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+            name = (None if m is None else
+                    m[1] + (f"<{m[2]}>" if m[2] else ""))
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            out[name] = [None, stores, loads]
+        elif name and "Used" in line and name in out:
+            out[name][0] = line.split("Used", 1)[1].split()[0]
+            out[name] = "/".join(out[name])
+            name = None
+    return out
+
+
+def say_ptxas(phase, source, kernel):
+    """Prints each instantiation of ``kernel`` in ``source``'s build (the
+    report that cuda_build keeps beside the library): its registers, spill
+    store and spill load bytes, and the ptxas lines of any that spills."""
+    from pybnesian_tpu_torch.ops import cuda_build
+
+    report = cuda_build.build(source)["ptxas"]
+    funcs = ptxas_functions(report)
+    mine = {k: v for k, v in funcs.items() if k.startswith(kernel)}
+    spilling = sorted(k for k, v in mine.items()
+                      if v.split("/")[1:] != ["0", "0"])
+    say(phase, source=source, kernel=kernel,
+        registers_spill_stores_loads=repr(mine), spilling=repr(spilling))
+    lines = report.splitlines()
+    for name in spilling:  # the ptxas lines of each spilling instance
+        mangled = name.replace("<", "ILi").replace(">", "E")
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and mangled in line:
+                say(phase, ptxas=repr(" | ".join(
+                    x.strip() for x in lines[i:i + 3])))
+
+
 def phase_build():
     """One nvcc per source, all started together."""
     from pybnesian_tpu_torch.ops import cuda_build
@@ -979,6 +1029,114 @@ def compare_lg(torch, args, label, card=None, phase="8 hc lg kernel",
     return result
 
 
+def hold_same_bits(torch, got, want, label):
+    """Each tensor of ``got`` the same bits as ``want``'s (NaN in the same
+    places, the rest equal)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None and w is None:
+            continue
+        if not (torch.equal(torch.isnan(g), torch.isnan(w))
+                and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))):
+            raise AssertionError(f"{label}: output {i} is not bit-equal")
+
+
+def whiten_split_sweep(torch, args, kw, label, phase):
+    """The whitening on ``args`` at every cluster size S of :data:`SPLITS`,
+    each output held bit-equal to the planned launch's and timed (one
+    launch per window)."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _sm_count
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        _launch_plan, ckde_cv_whiten)
+
+    want = ckde_cv_whiten(*args, **kw)
+    times = {}
+    for split in SPLITS:
+        got = ckde_cv_whiten(*args, split=split, **kw)
+        torch.cuda.synchronize()
+        hold_same_bits(torch, got, want, f"whiten {label} S {split}")
+        ms = cuda_median_ms(
+            torch, lambda: ckde_cv_whiten(*args, split=split, **kw))
+        times[f"S{split}_ms"] = f"{ms:.4f}"
+    planned = _launch_plan(args[2].shape[0] * args[4].shape[0],
+                           args[4].shape[1], args[2].shape[1],
+                           _sm_count(args[0].device))
+    say(phase, kernel="ckde_cv_whiten", case=label, planned_S=planned,
+        bit_equal_at_every_S=True, **times)
+
+
+def lg_split_sweep(torch, args, label, phase):
+    """``lg_cv_stats`` on ``args`` at every cluster size S of
+    :data:`SPLITS`, its scores, Grams and BICs held bit-equal to the
+    planned launch's and timed (one launch per window)."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _sm_count
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import _launch_plan, lg_cv_stats
+
+    want = lg_cv_stats(*args)
+    times = {}
+    for split in SPLITS:
+        got = lg_cv_stats(*args, split=split)
+        torch.cuda.synchronize()
+        hold_same_bits(torch, got, want, f"lg {label} S {split}")
+        ms = cuda_median_ms(torch, lambda: lg_cv_stats(*args, split=split))
+        times[f"S{split}_ms"] = f"{ms:.4f}"
+    K = 1 if args[2] is None else args[2].shape[0]
+    F, P = args[4].shape
+    chunk, planned = _launch_plan(F, K, P + 2, args[0].shape[0],
+                                  _sm_count(args[0].device))
+    say(phase, kernel="lg_cv_stats", case=label, planned_chunk=chunk,
+        planned_S=planned, bit_equal_at_every_S=True, **times)
+
+
+def whiten_alone_in_batch(torch, engine, fams, label, phase):
+    """At every S: each family's whitened parts in the batch of ``fams``
+    the same bits as the family's own launch (its own width)."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
+
+    args, kw = engine_whiten_inputs(torch, engine, fams)
+    K = args[4].shape[0]
+    for split in SPLITS:
+        together = ckde_cv_whiten(*args, split=split, **kw)
+        for f, fam in enumerate(fams):
+            a1, kw1 = engine_whiten_inputs(torch, engine, [fam])
+            alone = ckde_cv_whiten(*a1, split=split, **kw1)
+            w = a1[2].shape[1]
+            g = slice(f * K, (f + 1) * K)
+            mine = [together[0][g, :, :w], together[1][g], together[2][g],
+                    together[3][g, :, :w], *(t[g] for t in together[4:7]),
+                    *(t[f] for t in together[7:])]
+            theirs = [alone[0], alone[1], alone[2], alone[3],
+                      *alone[4:7], *(t[0] for t in alone[7:])]
+            hold_same_bits(torch, theirs, mine,
+                           f"whiten {label} family {f} S {split}")
+    say(phase, kernel="ckde_cv_whiten", case=label, families=len(fams),
+        alone_in_batch_bit_equal_at_every_S=True)
+
+
+def lg_alone_in_batch(torch, make_args, fams, label, phase):
+    """At every S: each family's score, BIC and Gram entries in the batch
+    of ``fams`` the same bits as in the family's own launch;
+    ``make_args(fams)`` builds ``lg_cv_stats``'s arguments."""
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_cv_stats
+
+    for split in SPLITS:
+        together = lg_cv_stats(*make_args(fams), split=split)
+        for f, fam in enumerate(fams):
+            alone = lg_cv_stats(*make_args([fam]), split=split)
+            w = len(fam[1]) + 2
+            pairs = [(alone.bic[0], together.bic[f]),
+                     (alone.gram[0, :, :w - 1, :w - 1],
+                      together.gram[f, :, :w - 1, :w - 1]),
+                     (alone.gram[0, :, :w - 1, -1],
+                      together.gram[f, :, :w - 1, -1]),
+                     (alone.gram[0, :, -1, -1], together.gram[f, :, -1, -1])]
+            if together.scores is not None:
+                pairs.append((alone.scores[0], together.scores[f]))
+            hold_same_bits(torch, [a for a, _ in pairs], [b for _, b in pairs],
+                           f"lg {label} family {f} S {split}")
+    say(phase, kernel="lg_cv_stats", case=label, families=len(fams),
+        alone_in_batch_bit_equal_at_every_S=True)
+
+
 def device_kernels(torch, fn):
     """(device operations, their summed device ms, names) of one call of
     ``fn`` after a warm one, under ``torch.profiler``."""
@@ -1245,13 +1403,21 @@ def phase_main_path(torch, frame32, frame64, k, card):
     # the LG kernel on the mix's linear-Gaussian families at phase 4's
     # size (10,000 rows, 10 folds), then on every one-parent family
     lg_fams = [(v, ps) for v, ps, t in mix if t == lg]
+    lg_cases = (("main-path-lg-families", lg_fams),
+                ("main-path-one-parent", [(v, [p]) for v in cols
+                                          for p in cols if p != v]))
     lg_err = max(
         compare_lg(torch, lg_inputs_cv(score._engine, fams), label,
                    phase="4 main path")["err"]
-        for label, fams in (
-            ("main-path-lg-families", lg_fams),
-            ("main-path-one-parent", [(v, [p]) for v in cols for p in cols
-                                      if p != v])))
+        for label, fams in lg_cases)
+    # both redesigned kernels at every cluster size S: bit-equal to the
+    # planned launch, timed, and each family alone and in its batch
+    say_ptxas("4 main path", "lg_cv.cu", "lg_kernel")
+    for label, fams in lg_cases:
+        lg_split_sweep(torch, lg_inputs_cv(score._engine, fams), label,
+                       "4 main path")
+        lg_alone_in_batch(torch, lambda fs: lg_inputs_cv(score._engine, fs),
+                          fams, label, "4 main path")
 
     # the whitening and fold reduce on the first batch's inputs (G 150):
     # against their plain versions, timed; stage 1 on the card by the plain
@@ -1260,6 +1426,11 @@ def phase_main_path(torch, frame32, frame64, k, card):
     args, kw = engine_whiten_inputs(torch, score._engine,
                                     [(v, ps) for v, ps, _ in batches[0]])
     whiten = compare_whiten(torch, args, "main-path-inputs", card, **kw)
+    say_ptxas("4 main path", "cv_whiten.cu", "whiten_kernel")
+    whiten_split_sweep(torch, args, kw, "main-path-inputs", "4 main path")
+    whiten_alone_in_batch(torch, score._engine,
+                          [(v, ps) for v, ps, _ in batches[0]],
+                          "main-path-inputs", "4 main path")
     parts = ckde_cv_whiten(*args, **kw)
     reduce = compare_reduce(torch, reduce_inputs(torch, parts),
                             "main-path-inputs", card)
@@ -1934,6 +2105,33 @@ def hc_kernel_cases(torch, score, model, card):
     return errs, timed
 
 
+def split_cases(torch, score, model):
+    """Both redesigned kernels at every cluster size S on the inputs that
+    ``hc``'s score builds: the whitening of ``model``'s families on the CV
+    and holdout channels and the LG kernel on every one-parent family of
+    both (the cache pass's), bit-equal to the planned launch and timed,
+    and each family alone and in its batch; the builds' registers and
+    spills of both kernels."""
+    say_ptxas("8 hc", "cv_whiten.cu", "whiten_kernel")
+    say_ptxas("8 hc", "lg_cv.cu", "lg_kernel")
+    nodes = model.nodes()
+    learned = [(v, model.parents(v)) for v in nodes]
+    for channel, engine in (("cv", score.cv_lik._engine),
+                            ("holdout", score.holdout_lik._engine)):
+        args, kw = engine_whiten_inputs(torch, engine, learned)
+        whiten_split_sweep(torch, args, kw, f"hc-{channel}-learned", "8 hc")
+        whiten_alone_in_batch(torch, engine, learned,
+                              f"hc-{channel}-learned", "8 hc")
+    one_parent = [(t, [s]) for t in nodes for s in nodes if s != t]
+    for label, make in (
+            ("hc-cv-one-parent",
+             lambda fs: lg_inputs_cv(score.cv_lik._engine, fs)),
+            ("hc-holdout-one-parent",
+             lambda fs: lg_inputs_holdout(score.holdout_lik, fs))):
+        lg_split_sweep(torch, make(one_parent), label, "8 hc")
+        lg_alone_in_batch(torch, make, one_parent, label, "8 hc")
+
+
 def bic_check(torch, frame32, frame64):
     """BIC, ``hc``'s default score on a GaussianNetwork (linear-Gaussian
     families, no kernel): its batched route on the card in float32 held
@@ -2023,6 +2221,7 @@ def phase_hc(torch, card):
         lg=repr(sorted(n for n, t in types.items()
                        if t == "LinearGaussianFactor")))
     errs, lg_timed = hc_kernel_cases(torch, score, model, card)
+    split_cases(torch, score, model)
     before = ckde_cv_pairs.launches
     start, score64 = recorder.models[0], run64[1]
     fields = cross_batch(torch, score, score64, start)

@@ -4,7 +4,8 @@
 //
 // 1. ckde_cv_whiten_f32 computes what `ckde_cv_whitened_parts` of
 // pybnesian_tpu/ops/kde.py:303 computes (a jitted XLA function there, no
-// Pallas kernel), one block per program g = f * K + k (family f, fold k):
+// Pallas kernel), one thread-block cluster per program g = f * K + k
+// (family f, fold k):
 //
 //   x_r     = data[row_r, col[c]] * cmask[c]      (evidence first, variable
 //   w_r     = tr_mask[k, r] * fvalid[row_r]        last; fvalid: no column
@@ -36,36 +37,57 @@
 // reduce reads two floats per test row. PERF.md has the measured times
 // against that bound.
 //
-// Design:
+// Design of the whitening:
 //
-// - One block of 256 threads per program, so that a program's reduction
-//   order is fixed: thread t takes rows t, t + 256, ... in order, sums in
-//   registers, and the block's 256 partial sums merge in a fixed tree (a
-//   warp's shuffles, then the 8 warps in order through shared memory). No
-//   atomics, and nothing that depends on G, on the program's place in the
-//   grid or on the launch: a family's outputs are the same bits alone and
-//   in any batch, as those of kernels #1 and #2 are (ckde_cv.cu).
+// - Fixed leaves. A program's train rows fall into whiten_leaves(ntr)
+//   leaves (a power of two up to kMaxLeaves, each at least kLeafRows rows
+//   when there are two or more): leaf l holds rows [l * size, (l + 1) *
+//   size), size = ceil(ntr / leaves). Within a leaf thread t sums rows
+//   lo + t, lo + t + 256, ... in order in float64 registers, and the
+//   block's 256 partial sums merge in a fixed tree (a warp's shuffles, then
+//   the 8 warps in order); the leaves' sums then merge in a balanced binary
+//   tree. No atomics: the order depends on ntr alone, so a family's outputs
+//   are the same bits alone and in any batch, as those of kernels #1 and #2
+//   are (ckde_cv.cu).
 // - The order of a column's sums does not depend on dpad either: the mean
 //   of column c and each covariance entry (i, j) are sums of their own, and
-//   the covariance entries are only grouped (36 at a time, one pass
-//   over the rows each) to bound the registers. A family padded to the
-//   batch's widest family gets the bits it gets alone.
-// - Two passes over the train rows, as the plain version: the weighted
-//   mean, then the centred covariance; rows are gathered from the data
-//   each pass (a row is dpad cells from L2), never staged.
-// - Cholesky and the triangular inverse in float64 by one thread, in
-//   shared memory (dpad <= 16). A pivot that is not positive, or a factor
-//   entry that is not finite, makes the factor NaN, as the plain version's
-//   cholesky_or_nan does: every whitened value and lndiff become NaN.
+//   the covariance entries are only grouped (36 at a time) to bound the
+//   registers. A family padded to the batch's widest family gets the bits
+//   it gets alone.
+// - A thread-block cluster per program. The wrapper chooses its size S
+//   (a power of two up to the portable 8) from G and the SM count; cluster
+//   rank q sweeps leaves [q L / S, (q + 1) L / S) and keeps each leaf's
+//   sums in its shared memory, and after a cluster barrier every rank reads
+//   every leaf's sums through distributed shared memory and merges them in
+//   the tree. So every rank holds the same mean and covariance and forms
+//   the same Cholesky factor and L^-1 itself (warp 0, float64, shared
+//   memory, each entry by the operations a one-thread loop would use; no
+//   broadcast). S decides only which block sweeps which leaf.
+// - Rows gathered once. Each rank gathers its leaves' rows from the data
+//   into shared memory with cp.async: the dpad float32 cells, then the row
+//   weight in float64; the mean pass, the covariance pass and the whitening
+//   read them there. One pipeline runs across a rank's leaves, each thread
+//   with two rows in flight (stages_for), reading only the rows it
+//   gathered itself. Where a rank's rows do not fit in kResidentBytes,
+//   every pass gathers them again through the pipeline's slots.
+// - Test rows are split over the cluster's ranks, gathered the same way.
+// - Coalesced writes. Each tile of 256 whitened rows is staged in shared
+//   memory and written as contiguous 16-byte stores (scalar at the edges).
+// - A pivot that is not positive, or a factor entry that is not finite,
+//   makes the factor NaN, as the plain version's cholesky_or_nan does:
+//   every whitened value and lndiff become NaN.
 // - The whitened rows are the full dpad x dpad product with L^-1 (zeros
 //   above the diagonal included), as the plain matmul forms them, so that
 //   a NaN cell of a row reaches every column of it there too.
 // - An out-of-range row or column index reads NaN; nothing is read out of
 //   bounds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,10 +96,82 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 16;                   // widest family (kernel #1's)
 constexpr int kMaxSums = 36;  // values of one block sum: covariance
                               // entries per pass, or dpad + 2 means
+constexpr int kMaxLeaves = 8;    // most leaves of a program's train rows
+constexpr int kLeafRows = 256;   // least rows of a leaf, with two or more
+constexpr int kMaxSplit = 8;     // most blocks of a cluster (portable)
+constexpr int kResidentBytes = 160 * 1024;  // most shared memory a rank's
+                                            // staged rows may take
 constexpr double kLog2Pi = 1.8378770664093454835606594728112;  // log(2 pi)
+
+// Rows a thread has in flight while gathering. Deeper pipelines measured
+// slower at phase 4's inputs (4 and 8 rows: their slots cost blocks per
+// SM; tools/kernel_sweeps.py stages, PERF.md), so two at every width.
+__host__ __device__ constexpr int stages_for(int) { return 2; }
 
 __device__ __forceinline__ double qnan() {
   return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+__device__ __forceinline__ float qnanf() { return __int_as_float(0x7fc00000); }
+
+// One 4-byte cp.async from global to shared memory, and its groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The two halves of a cluster barrier (all threads of the cluster).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync(int split) {
+  if (split > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Leaves of a program's train rows: the largest power of two up to
+// kMaxLeaves that leaves each leaf kLeafRows rows, 1 below two leaves'
+// worth. Leaf l holds rows [l * size, min(ntr, (l + 1) * size)) for size =
+// ceil(ntr / leaves). A function of ntr alone.
+__host__ __device__ __forceinline__ int whiten_leaves(int ntr) {
+  int leaves = 1;
+  while (2 * leaves <= kMaxLeaves && 2 * leaves * kLeafRows <= ntr) {
+    leaves *= 2;
+  }
+  return leaves;
+}
+
+// Cluster rank q of `split` (a power of two) sweeps leaves [first_leaf(q),
+// first_leaf(q + 1)): leaves / split of them, or one leaf or none when
+// split exceeds the leaves; leaf l's sums live in rank leaf_owner(l)'s
+// shared memory.
+__host__ __device__ __forceinline__ int first_leaf(int q, int leaves,
+                                                   int split) {
+  return q * leaves / split;
+}
+
+__device__ __forceinline__ int leaf_owner(int l, int leaves, int split) {
+  return ((l + 1) * split - 1) / leaves;
 }
 
 struct WhitenArgs {
@@ -102,6 +196,9 @@ struct WhitenArgs {
   float* wte;                // (G, nte)
   double* lndiff;            // (G,)
   float* ok;                 // (G,)
+  int split;                 // S, blocks of a program's cluster
+  int cap;                   // rows the stage holds
+  int resident;              // 1: a rank's train rows stay staged
 };
 
 // The family's columns, shared by the block: index (-1 when out of range),
@@ -113,6 +210,25 @@ struct Family {
   double vsel[D];
   double mean[D];
 };
+
+// The rows a block has staged, in its dynamic shared memory.
+template <int D>
+struct Stage {
+  double* w;   // [cap] row weights of the resident rows
+  float* x;    // [D][cap] the rows' cells
+  float* nl;   // [stages][D][kThreads] null cells of the rows in flight
+  float* m;    // [stages][kThreads] their fold mask, NaN for a bad row
+  float* out;  // [kThreads * D + 4] a tile of whitened rows
+  int cap;
+};
+
+// Bytes of a Stage of `cap` rows; cap is a multiple of 4, so that `out`
+// starts 16-byte aligned.
+__host__ __device__ __forceinline__ size_t stage_bytes(int D, int cap) {
+  return 8 * static_cast<size_t>(cap) + 4 * static_cast<size_t>(D) * cap +
+         4 * static_cast<size_t>(stages_for(D)) * (D + 1) * kThreads +
+         4 * (static_cast<size_t>(kThreads) * D + 4);
+}
 
 // Sums v[0..N) over the block's threads in a fixed tree (each warp's
 // shuffles, then the warps in order) into s_sum[0..N), which every thread
@@ -145,29 +261,175 @@ __device__ __forceinline__ void block_sum(double (&v)[N],
   __syncthreads();
 }
 
-// Data row `row`: the family's dpad values (times the column mask, as the
-// plain version multiplies them) in x, and fvalid, 1 when no column of the
-// family is null there. An out-of-range row or column reads NaN.
-template <int D>
-__device__ __forceinline__ double load_row(const WhitenArgs& a,
-                                           const Family<D>& fam,
-                                           long long row, double (&x)[D]) {
-  const bool row_ok = row >= 0 && row < a.n;
-  const size_t base = static_cast<size_t>(row_ok ? row : 0) * a.D;
-  double null_max = 0.0;
-  bool bad = !row_ok;
+// Value e summed over the program's leaves in a balanced binary tree,
+// ((v0 v1) (v2 v3)) ((v4 v5) (v6 v7)): leaf l's sum is part[(l -
+// first_leaf(owner)) * stride + e] in the shared memory of its owner.
+__device__ __forceinline__ double merge_leaves(const double* part, int stride,
+                                               int e, int leaves, int split) {
+  double v[kMaxLeaves];
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    const long long ci = fam.col[c];
-    bad = bad || ci < 0;
-    if (row_ok && ci >= 0) {
-      x[c] = __dmul_rn(a.data[base + ci], fam.cm[c]);
-      null_max = fmax(null_max, __dmul_rn(a.null_mask[base + ci], fam.cm[c]));
-    } else {
-      x[c] = qnan();
+  for (int l = 0; l < kMaxLeaves; ++l) {
+    v[l] = 0.0;
+    if (l < leaves) {
+      const int owner = leaf_owner(l, leaves, split);
+      const double* base =
+          split > 1 ? cg::this_cluster().map_shared_rank(part, owner) : part;
+      v[l] = base[(l - first_leaf(owner, leaves, split)) * stride + e];
     }
   }
-  return bad ? qnan() : 1.0 - null_max;
+#pragma unroll
+  for (int w = 1; w < kMaxLeaves; w *= 2) {
+#pragma unroll
+    for (int b = 0; b + w < kMaxLeaves; b += 2 * w) {
+      if (b + w < leaves) v[b] = __dadd_rn(v[b], v[b + w]);
+    }
+  }
+  return v[0];
+}
+
+// The rows of leaves [l0, l1): leaf l holds [lo + l * size, min(n, lo + (l
+// + 1) * size)) (the train rows' leaves: lo 0; a rank's test rows: one
+// leaf of its share).
+struct Leaves {
+  int lo, n, size, l0, l1;
+};
+
+// Where a walk is: leaf `leaf`, step j of its `steps` (thread t's row lo +
+// t + j kThreads of [lo, hi)); an empty leaf takes one step with no row.
+struct Cursor {
+  int leaf, j, lo, hi, steps;
+  __device__ __forceinline__ void start(const Leaves& L, int l) {
+    leaf = l;
+    j = 0;
+    lo = l < L.l1 ? min(L.n, L.lo + l * L.size) : 0;
+    hi = l < L.l1 ? min(L.n, lo + L.size) : 0;
+    steps = max(1, (hi - lo + kThreads - 1) / kThreads);
+  }
+  __device__ __forceinline__ void next(const Leaves& L) {
+    if (++j == steps) start(L, leaf + 1);
+  }
+  __device__ __forceinline__ int row() const {
+    return lo + static_cast<int>(threadIdx.x) + j * kThreads;
+  }
+  __device__ __forceinline__ bool live() const { return row() < hi; }
+  __device__ __forceinline__ bool last() const { return j == steps - 1; }
+};
+
+// Walks the rows of leaves [L.l0, L.l1) in order, thread t its rows lo +
+// t, lo + t + kThreads, ... of each leaf, in steps that every thread
+// takes: at each step it calls use(c, active, x, w), c the cursor (c.last()
+// at a leaf's last step), active: the thread has a row r = c.row(), x its
+// dpad cells times the column mask, w = mask[r] * fvalid (NaN for an
+// out-of-range row or column). With `gather` the rows come from the data
+// by cp.async in one pipeline across the leaves, stages_for(D) rows in
+// flight per thread: cells to the stage at r - base (base >= 0: the rank's
+// resident rows, whose weights are kept in st.w) or at the row's slot
+// (base < 0), null cells and mask to its slot. Without, they are read from
+// the resident stage. A thread reads only the rows it staged itself.
+template <int D, class Use>
+__device__ __forceinline__ void walk_rows(const WhitenArgs& a,
+                                          const Family<D>& fam,
+                                          const Stage<D>& st,
+                                          const long long* idx,
+                                          const float* mask, const Leaves& L,
+                                          int base, bool gather, Use&& use) {
+  constexpr int ST = stages_for(D);
+  const int t = threadIdx.x;
+  int total = 0;
+  for (int l = L.l0; l < L.l1; ++l) {
+    Cursor c;
+    c.start(L, l);
+    total += c.steps;
+  }
+  Cursor u;
+  u.start(L, L.l0);
+  if (!gather) {
+    for (int s = 0; s < total; ++s, u.next(L)) {
+      const bool active = u.live();
+      double x[D];
+      double w = 0.0;
+      if (active) {
+        const int p = u.row() - base;
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          x[c] = __dmul_rn(st.x[c * st.cap + p], fam.cm[c]);
+        }
+        w = st.w[p];
+      }
+      use(u, active, x, w);
+    }
+    return;
+  }
+  auto fetch = [&](const Cursor& c, int s, long long row) {
+    if (c.live()) {
+      const int r = c.row();
+      const int slot = s % ST;
+      const int p = base >= 0 ? r - base : slot * kThreads + t;
+      float* nl = st.nl + slot * D * kThreads + t;
+      const bool row_ok = row >= 0 && row < a.n;
+      bool bad = !row_ok;
+#pragma unroll
+      for (int c2 = 0; c2 < D; ++c2) {
+        const long long ci = fam.col[c2];
+        if (row_ok && ci >= 0) {
+          const size_t cell = static_cast<size_t>(row) * a.D + ci;
+          cp_async4(st.x + c2 * st.cap + p, a.data + cell);
+          cp_async4(nl + c2 * kThreads, a.null_mask + cell);
+        } else {
+          st.x[c2 * st.cap + p] = qnanf();
+          nl[c2 * kThreads] = 0.0f;
+          bad = true;
+        }
+      }
+      float* m = st.m + slot * kThreads + t;
+      if (bad) {
+        *m = qnanf();
+      } else {
+        cp_async4(m, mask + r);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  // the rows' indices, read one step ahead of their copies
+  Cursor c = u, ahead = u;
+  long long rows[ST];
+#pragma unroll
+  for (int k = 0; k < ST; ++k) {
+    rows[k] = ahead.live() ? idx[ahead.row()] : 0;
+    ahead.next(L);
+  }
+#pragma unroll
+  for (int k = 0; k < ST - 1; ++k) {
+    fetch(c, k, rows[k]);
+    c.next(L);
+  }
+  long long pending = rows[ST - 1];
+  for (int s = 0; s < total; ++s) {
+    fetch(c, s + ST - 1, pending);
+    c.next(L);
+    pending = ahead.live() ? idx[ahead.row()] : 0;  // read while s waits
+    ahead.next(L);
+    cp_async_wait<ST - 1>();  // step s has landed
+    const bool active = u.live();
+    double x[D];
+    double w = 0.0;
+    if (active) {
+      const int slot = s % ST;
+      const int p = base >= 0 ? u.row() - base : slot * kThreads + t;
+      const float* nl = st.nl + slot * D * kThreads + t;
+      double null_max = 0.0;
+#pragma unroll
+      for (int c2 = 0; c2 < D; ++c2) {
+        x[c2] = __dmul_rn(st.x[c2 * st.cap + p], fam.cm[c2]);
+        null_max = fmax(null_max, __dmul_rn(nl[c2 * kThreads], fam.cm[c2]));
+      }
+      w = __dmul_rn(st.m[slot * kThreads + t], 1.0 - null_max);
+      if (base >= 0) st.w[p] = w;
+    }
+    use(u, active, x, w);
+    u.next(L);
+  }
+  cp_async_wait<0>();
 }
 
 // x L^-T: the full dpad x dpad product, zeros above the diagonal included.
@@ -188,19 +450,123 @@ __device__ __forceinline__ double whiten_row(const double (&x)[D],
   return zv;
 }
 
+// Writes `count` floats s[shift ..) to dst, coalesced: scalar up to dst's
+// first 16-byte boundary (dst + head), float4 from there, scalar after.
+// (dst - shift) is 16-byte aligned in the caller's array, and s too.
+__device__ __forceinline__ void write_rows(const float* s, int shift,
+                                           float* dst, int count) {
+  const int head = min(count, (4 - shift) & 3);
+  const int n4 = (count - head) / 4;
+  for (int e = threadIdx.x; e < head; e += kThreads) dst[e] = s[shift + e];
+  const float4* s4 = reinterpret_cast<const float4*>(s + shift + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int e = threadIdx.x; e < n4; e += kThreads) d4[e] = s4[e];
+  for (int e = head + 4 * n4 + threadIdx.x; e < count; e += kThreads) {
+    dst[e] = s[shift + e];
+  }
+}
+
+// The whitened rows of one walk_rows step at cursor c, in the (G, rows, D)
+// output array `out` from row `base`: each thread's row to the staged
+// tile, its variable coordinate to zv and its weight to wt (as is) or to
+// neg (0 / -inf); then the step's rows written coalesced.
+template <int D>
+__device__ __forceinline__ void whiten_step(
+    const Stage<D>& st, const double (*Linv)[D], const Family<D>& fam,
+    const Cursor& c, bool active, const double (&x)[D], double w,
+    size_t base, float* out, float* zv, float* wt, float* neg) {
+  const int row0 = c.lo + c.j * kThreads;
+  const int shift = static_cast<int>(((base + row0) * D) % 4);
+  if (active) {
+    const int r = c.row();
+    zv[base + r] = static_cast<float>(
+        whiten_row(x, Linv, fam, st.out + shift + threadIdx.x * D));
+    if (wt != nullptr) wt[base + r] = static_cast<float>(w);
+    if (neg != nullptr) neg[base + r] = w > 0.0 ? 0.0f : -INFINITY;
+  }
+  __syncthreads();
+  write_rows(st.out, shift, out + (base + row0) * D,
+             min(kThreads, c.hi - row0) * D);
+  __syncthreads();
+}
+
+// The Cholesky factor of H (s_L, lower triangle, in place), L^-1 and
+// lndiff by the 32 lanes of warp 0: column j of the factor by lanes j ..
+// D - 1, then column j of L^-1 by lane j. Each entry is formed by the same
+// operations in the same order as a one-thread loop would form it. A pivot
+// that is not positive or an entry that is not finite makes L^-1 and
+// lndiff NaN.
+template <int D>
+__device__ __forceinline__ void factor_warp(double (*s_L)[D],
+                                            double (*s_Linv)[D],
+                                            const Family<D>& fam,
+                                            double* lndiff) {
+  const int lane = threadIdx.x;
+  bool good = true;
+  for (int j = 0; j < D; ++j) {
+    double t = 0.0;
+    if (lane >= j && lane < D) {
+      t = s_L[lane][j];
+      for (int q = 0; q < j; ++q) t = fma(-s_L[lane][q], s_L[j][q], t);
+    }
+    const double s = __shfl_sync(0xffffffffu, t, j);  // the pivot
+    good = good && s > 0.0;
+    const double ljj = sqrt(s);
+    if (lane == j) s_L[j][j] = ljj;
+    if (lane > j && lane < D) s_L[lane][j] = __ddiv_rn(t, ljj);
+    __syncwarp();
+  }
+  bool finite = true;
+  double lg = 0.0;
+  if (lane < D) {
+    for (int j = 0; j <= lane; ++j) finite = finite && isfinite(s_L[lane][j]);
+    lg = log(fabs(s_L[lane][lane]));
+  }
+  good = good && __all_sync(0xffffffffu, finite);
+  double logdet_v = 0.0;
+  for (int i = 0; i < D; ++i) {
+    logdet_v = fma(__shfl_sync(0xffffffffu, lg, i), fam.vsel[i], logdet_v);
+  }
+  if (lane < D) {
+    const int j = lane;
+    for (int i = 0; i < D; ++i) {
+      double v = 0.0;
+      if (i == j) {
+        v = __drcp_rn(s_L[j][j]);
+      } else if (i > j) {
+        double s = 0.0;
+        for (int q = j; q < i; ++q) s = fma(s_L[i][q], s_Linv[q][j], s);
+        v = __ddiv_rn(-s, s_L[i][i]);
+      }
+      s_Linv[i][j] = good ? v : qnan();
+    }
+  }
+  if (lane == 0) *lndiff = good ? -logdet_v - 0.5 * kLog2Pi : qnan();
+}
+
+// Grid G * split, clusters of `split` blocks along x: program g =
+// blockIdx.x / split, cluster rank blockIdx.x % split.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     whiten_kernel(const WhitenArgs a) {
   constexpr int P = D * (D + 1) / 2;  // lower-triangle covariance entries
   constexpr int C = P < kMaxSums ? P : kMaxSums;  // entries per pass
+  constexpr int M = D + 2;  // mean sums: the columns, n_eff, valid rows
+  constexpr int T = P > M ? P : M;
+  constexpr int ST = stages_for(D);
   __shared__ double s_red[kWarps][kMaxSums];
   __shared__ double s_sum[kMaxSums];
+  __shared__ double s_lmean[kMaxLeaves * M];  // this rank's leaves' sums
+  __shared__ double s_lcov[kMaxLeaves * P];
+  __shared__ double s_tot[T];                 // the program's merged sums
   __shared__ double s_L[D][D];     // H, then its Cholesky factor in place
   __shared__ double s_Linv[D][D];
   __shared__ double s_lndiff;
   __shared__ Family<D> fam;
+  extern __shared__ __align__(16) unsigned char s_stage[];
 
-  const int g = blockIdx.x;
+  const int split = a.split;
+  const int g = blockIdx.x / split, rank = blockIdx.x % split;
   const int f = g / a.K, k = g % a.K;
   double d_eff = 0.0;
 #pragma unroll
@@ -217,158 +583,163 @@ __global__ void __launch_bounds__(kThreads)
     fam.vsel[c] = (static_cast<double>(c) == d_eff - 1.0 ? 1.0 : 0.0) * cm;
   }
   __syncthreads();
+  Stage<D> st;
+  st.cap = a.cap;
+  st.w = reinterpret_cast<double*>(s_stage);
+  st.x = reinterpret_cast<float*>(st.w + a.cap);
+  st.nl = st.x + D * a.cap;
+  st.m = st.nl + ST * D * kThreads;
+  st.out = st.m + ST * kThreads;
+
   const long long* tr_idx = a.tr_idx + static_cast<size_t>(k) * a.ntr;
   const float* tr_mask = a.tr_mask + static_cast<size_t>(k) * a.ntr;
+  const int leaves = whiten_leaves(a.ntr);
+  const int size = (a.ntr + leaves - 1) / leaves;
+  const int l0 = first_leaf(rank, leaves, split);
+  const int l1 = first_leaf(rank + 1, leaves, split);
+  const Leaves train{0, a.ntr, size, l0, l1};
+  const int base = a.resident ? min(a.ntr, l0 * size) : -1;
 
-  // pass 1: weighted column sums, n_eff and the count of valid rows
-  double m[D + 2];
+  // pass 1: per leaf, the weighted column sums, n_eff and the count of
+  // valid rows; the rows are gathered
+  {
+    double m[M];
 #pragma unroll
-  for (int i = 0; i < D + 2; ++i) m[i] = 0.0;
-  for (int r = threadIdx.x; r < a.ntr; r += kThreads) {
-    double x[D];
-    const double w = __dmul_rn(tr_mask[r], load_row(a, fam, tr_idx[r], x));
+    for (int i = 0; i < M; ++i) m[i] = 0.0;
+    walk_rows(a, fam, st, tr_idx, tr_mask, train, base, true,
+              [&](const Cursor& c, bool active, auto& x, double w) {
+                if (active) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) m[c] = fma(x[c], w, m[c]);
-    m[D] = __dadd_rn(m[D], w);
-    m[D + 1] += w > 0.0 ? 1.0 : 0.0;
+                  for (int q = 0; q < D; ++q) m[q] = fma(x[q], w, m[q]);
+                  m[D] = __dadd_rn(m[D], w);
+                  m[D + 1] += w > 0.0 ? 1.0 : 0.0;
+                }
+                if (c.last()) {
+                  block_sum(m, s_red, s_sum);
+                  if (threadIdx.x < M) {
+                    s_lmean[(c.leaf - l0) * M + threadIdx.x] =
+                        s_sum[threadIdx.x];
+                  }
+#pragma unroll
+                  for (int i = 0; i < M; ++i) m[i] = 0.0;
+                }
+              });
   }
-  block_sum(m, s_red, s_sum);
-  const double n_eff = s_sum[D];
-  const double n_valid = s_sum[D + 1];
+  cluster_sync(split);  // every leaf's sums are in place
+  if (threadIdx.x < M) {
+    s_tot[threadIdx.x] = merge_leaves(s_lmean, M, threadIdx.x, leaves, split);
+  }
+  __syncthreads();
+  const double n_eff = s_tot[D];
+  const double n_valid = s_tot[D + 1];
   if (threadIdx.x < D) {
-    fam.mean[threadIdx.x] = __ddiv_rn(s_sum[threadIdx.x], n_eff);
+    fam.mean[threadIdx.x] = __ddiv_rn(s_tot[threadIdx.x], n_eff);
   }
   __syncthreads();
 
   if (a.rule == 2) {
+    if (split > 1) cluster_arrive();  // done reading the cluster's sums
     const float* bw = a.bandwidths + static_cast<size_t>(g) * D * D;
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < D; ++i) {
-        for (int j = 0; j < D; ++j) {
-          s_L[i][j] = __dadd_rn(
-              __dmul_rn(bw[i * D + j], __dmul_rn(fam.cm[i], fam.cm[j])),
-              i == j ? 1.0 - fam.cm[i] : 0.0);
-        }
-      }
+    if (threadIdx.x < D * D) {
+      const int i = threadIdx.x / D, j = threadIdx.x % D;
+      s_L[i][j] = __dadd_rn(
+          __dmul_rn(bw[i * D + j], __dmul_rn(fam.cm[i], fam.cm[j])),
+          i == j ? 1.0 - fam.cm[i] : 0.0);
     }
   } else {
-    // pass 2: the centred covariance, C entries (i, j), j <= i, per pass
-    // over the rows
-    const double factor =
-        a.rule == 0
-            ? pow(4.0 / (n_eff * (d_eff + 2.0)), 2.0 / (d_eff + 4.0))
-            : pow(n_eff, -2.0 / (d_eff + 4.0));
+    // pass 2: per leaf, the centred covariance, C entries (i, j), j <= i,
+    // per sweep of the rank's rows
 #pragma unroll
     for (int p0 = 0; p0 < P; p0 += C) {
       double acc[C];
 #pragma unroll
       for (int e = 0; e < C; ++e) acc[e] = 0.0;
-      for (int r = threadIdx.x; r < a.ntr; r += kThreads) {
-        double x[D];
-        const double w =
-            __dmul_rn(tr_mask[r], load_row(a, fam, tr_idx[r], x));
+      walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
+                [&](const Cursor& c, bool active, auto& x, double w) {
+                  if (active) {
 #pragma unroll
-        for (int c = 0; c < D; ++c) {
-          x[c] = __dmul_rn(__dsub_rn(x[c], fam.mean[c]),
-                           __dmul_rn(w, fam.cm[c]));
-        }
+                    for (int q = 0; q < D; ++q) {
+                      x[q] = __dmul_rn(__dsub_rn(x[q], fam.mean[q]),
+                                       __dmul_rn(w, fam.cm[q]));
+                    }
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
+                    for (int i = 0; i < D; ++i) {
 #pragma unroll
-          for (int j = 0; j <= i; ++j) {
-            const int p = i * (i + 1) / 2 + j;
-            if (p >= p0 && p < p0 + C) {
-              acc[p - p0] = fma(x[i], x[j], acc[p - p0]);
-            }
-          }
-        }
-      }
-      block_sum(acc, s_red, s_sum);
-      if (threadIdx.x == 0) {
-        for (int i = 0; i < D; ++i) {
-          for (int j = 0; j <= i; ++j) {
-            const int p = i * (i + 1) / 2 + j;
-            if (p >= p0 && p < p0 + C) {
-              const double h = __dadd_rn(
-                  __dmul_rn(factor, __ddiv_rn(s_sum[p - p0], n_eff - 1.0)),
-                  i == j ? 1.0 - fam.cm[i] : 0.0);
-              s_L[i][j] = h;
-              s_L[j][i] = h;
-            }
-          }
-        }
-      }
+                      for (int j = 0; j <= i; ++j) {
+                        const int p = i * (i + 1) / 2 + j;
+                        if (p >= p0 && p < p0 + C) {
+                          acc[p - p0] = fma(x[i], x[j], acc[p - p0]);
+                        }
+                      }
+                    }
+                  }
+                  if (c.last()) {
+                    block_sum(acc, s_red, s_sum);
+                    if (threadIdx.x < C && p0 + static_cast<int>(threadIdx.x) < P) {
+                      s_lcov[(c.leaf - l0) * P + p0 + threadIdx.x] =
+                          s_sum[threadIdx.x];
+                    }
+#pragma unroll
+                    for (int e = 0; e < C; ++e) acc[e] = 0.0;
+                  }
+                });
+    }
+    cluster_sync(split);  // every leaf's covariance sums are in place
+    if (threadIdx.x < P) {
+      s_tot[threadIdx.x] =
+          merge_leaves(s_lcov, P, threadIdx.x, leaves, split);
+    }
+    if (split > 1) cluster_arrive();  // done reading the cluster's sums
+    __syncthreads();
+    if (threadIdx.x < P) {
+      const int e = threadIdx.x;
+      int i = 0;
+      while ((i + 1) * (i + 2) / 2 <= e) ++i;
+      const int j = e - i * (i + 1) / 2;
+      const double factor =
+          a.rule == 0
+              ? pow(4.0 / (n_eff * (d_eff + 2.0)), 2.0 / (d_eff + 4.0))
+              : pow(n_eff, -2.0 / (d_eff + 4.0));
+      const double h = __dadd_rn(
+          __dmul_rn(factor, __ddiv_rn(s_tot[e], n_eff - 1.0)),
+          i == j ? 1.0 - fam.cm[i] : 0.0);
+      s_L[i][j] = h;
+      s_L[j][i] = h;
     }
   }
-
-  // Cholesky of H's lower triangle in place, then L^-1, by one thread
-  if (threadIdx.x == 0) {
-    bool good = true;
-    for (int j = 0; j < D; ++j) {
-      double s = s_L[j][j];
-      for (int q = 0; q < j; ++q) s = fma(-s_L[j][q], s_L[j][q], s);
-      good = good && s > 0.0;
-      const double ljj = sqrt(s);
-      s_L[j][j] = ljj;
-      for (int i = j + 1; i < D; ++i) {
-        double t = s_L[i][j];
-        for (int q = 0; q < j; ++q) t = fma(-s_L[i][q], s_L[j][q], t);
-        s_L[i][j] = __ddiv_rn(t, ljj);
-      }
-    }
-    double logdet_v = 0.0;
-    for (int i = 0; i < D; ++i) {
-      for (int j = 0; j <= i; ++j) good = good && isfinite(s_L[i][j]);
-      logdet_v = fma(log(fabs(s_L[i][i])), fam.vsel[i], logdet_v);
-    }
-    for (int j = 0; j < D; ++j) {
-      for (int i = 0; i < D; ++i) {
-        double v = 0.0;
-        if (i == j) {
-          v = __drcp_rn(s_L[j][j]);
-        } else if (i > j) {
-          double s = 0.0;
-          for (int q = j; q < i; ++q) s = fma(s_L[i][q], s_Linv[q][j], s);
-          v = __ddiv_rn(-s, s_L[i][i]);
-        }
-        s_Linv[i][j] = v;
-      }
-    }
-    if (!good) {
-      for (int i = 0; i < D; ++i) {
-        for (int j = 0; j < D; ++j) s_Linv[i][j] = qnan();
-      }
-    }
-    s_lndiff = good ? -logdet_v - 0.5 * kLog2Pi : qnan();
-  }
+  __syncthreads();
+  // the Cholesky factor and L^-1 by warp 0 of every rank, from the same sums
+  if (threadIdx.x < 32) factor_warp(s_L, s_Linv, fam, &s_lndiff);
   __syncthreads();
 
   // the whitened train rows, their variable coordinate and the row mask
   const size_t tr_base = static_cast<size_t>(g) * a.ntr;
-  for (int r = threadIdx.x; r < a.ntr; r += kThreads) {
-    double x[D];
-    const double w = __dmul_rn(tr_mask[r], load_row(a, fam, tr_idx[r], x));
-    a.zv_tr[tr_base + r] = static_cast<float>(
-        whiten_row(x, s_Linv, fam, a.jtr + (tr_base + r) * D));
-    a.neg[tr_base + r] = w > 0.0 ? 0.0f : -INFINITY;
-  }
-  // the whitened test rows, their variable coordinate and their weights
+  walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
+            [&](const Cursor& c, bool active, auto& x, double w) {
+              whiten_step(st, s_Linv, fam, c, active, x, w, tr_base, a.jtr,
+                          a.zv_tr, nullptr, a.neg);
+            });
+  __syncthreads();  // the resident rows are read: test rows take the slots
+
+  // the rank's share of the whitened test rows, their variable coordinate
+  // and their weights
   const long long* te_idx = a.te_idx + static_cast<size_t>(k) * a.nte;
   const float* te_mask = a.te_mask + static_cast<size_t>(k) * a.nte;
   const size_t te_base = static_cast<size_t>(g) * a.nte;
-  for (int r = threadIdx.x; r < a.nte; r += kThreads) {
-    double x[D];
-    const double fv = load_row(a, fam, te_idx[r], x);
-    a.zv_te[te_base + r] = static_cast<float>(
-        whiten_row(x, s_Linv, fam, a.jte + (te_base + r) * D));
-    a.wte[te_base + r] = static_cast<float>(__dmul_rn(te_mask[r], fv));
-  }
-  if (threadIdx.x == 0) {
+  const int per = (a.nte + split - 1) / split;
+  const Leaves test{min(a.nte, rank * per), a.nte, per, 0, 1};
+  walk_rows(a, fam, st, te_idx, te_mask, test, -1, true,
+            [&](const Cursor& c, bool active, auto& x, double w) {
+              whiten_step(st, s_Linv, fam, c, active, x, w, te_base, a.jte,
+                          a.zv_te, a.wte, nullptr);
+            });
+  if (rank == 0 && threadIdx.x == 0) {
     a.no_ev[g] = d_eff <= 1.0 ? 1.0f : 0.0f;
     a.lm_const[g] = static_cast<float>(log(fmax(n_valid, 1.0)));
     a.lndiff[g] = s_lndiff;
     a.ok[g] = n_eff > d_eff ? 1.0f : 0.0f;
   }
+  if (split > 1) cluster_wait();  // no block leaves while another reads it
 }
 
 // One block per family: each fold's weighted row sum and weight sum in the
@@ -399,10 +770,42 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[f] = static_cast<float>(total);
 }
 
+// The stage of a launch: a rank's train rows resident when they fit in
+// kResidentBytes (at most ceil(leaves / split) leaves of `size` rows, and
+// room for the test rows' slots), else the slots alone.
+void plan_stage(WhitenArgs& a, int D) {
+  const int leaves = whiten_leaves(a.ntr);
+  const int size = (a.ntr + leaves - 1) / leaves;
+  const int rows = (leaves + a.split - 1) / a.split * size;
+  const int slots = stages_for(D) * kThreads;
+  const int cap = ((rows > slots ? rows : slots) + 3) / 4 * 4;
+  a.resident = stage_bytes(D, cap) <= kResidentBytes ? 1 : 0;
+  a.cap = a.resident ? cap : slots;
+}
+
 template <int D>
-cudaError_t launch_whiten(const WhitenArgs& a, int G, cudaStream_t s) {
-  whiten_kernel<D><<<G, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+cudaError_t launch_whiten(WhitenArgs a, int G, cudaStream_t s) {
+  plan_stage(a, D);
+  const size_t bytes = stage_bytes(D, a.cap);
+  // with the static arrays, most stages pass the default 48 KB
+  const cudaError_t set = cudaFuncSetAttribute(
+      whiten_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G * a.split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = a.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, whiten_kernel<D>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -411,8 +814,10 @@ cudaError_t launch_whiten(const WhitenArgs& a, int G, cudaStream_t s) {
 // the CUDA error code of the launch: 0 on success. Allocates nothing. All
 // arrays are contiguous on the current device, shapes as in WhitenArgs
 // above; `bandwidths` is read only when rule is 2 and may be null
-// otherwise. G = F * K with 1 <= G < 2^31, 1 <= dpad <= 16, K >= 1, n, D,
-// ntr, nte >= 0; anything else returns cudaErrorInvalidValue.
+// otherwise. G = F * K with 1 <= G * split < 2^31, 1 <= dpad <= 16, K >= 1,
+// n, D, ntr, nte >= 0; the launch plan: `split` S, a power of two up to 8,
+// blocks of a cluster sharing each program's leaves; anything else returns
+// cudaErrorInvalidValue.
 extern "C" int ckde_cv_whiten_f32(
     const float* data, const float* null_mask, const long long* col_idx,
     const float* col_mask, const long long* tr_idx, const float* tr_mask,
@@ -420,10 +825,11 @@ extern "C" int ckde_cv_whiten_f32(
     float* jtr, float* neg, float* zv_tr, float* jte, float* zv_te,
     float* no_ev, float* lm_const, float* wte, double* lndiff, float* ok,
     int n, int D, int F, int K, int ntr, int nte, int dpad, int rule,
-    void* stream) {
+    int split, void* stream) {
   const long long G = static_cast<long long>(F) * K;
-  if (F < 1 || K < 1 || G >= (1LL << 31) || dpad < 1 || dpad > kMaxD ||
-      n < 0 || D < 0 || ntr < 0 || nte < 0 || rule < 0 || rule > 2 ||
+  if (F < 1 || K < 1 || split < 1 || split > kMaxSplit ||
+      (split & (split - 1)) != 0 || G * split >= (1LL << 31) || dpad < 1 || dpad > kMaxD || n < 0 ||
+      D < 0 || ntr < 0 || nte < 0 || rule < 0 || rule > 2 ||
       (rule == 2 && bandwidths == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -431,7 +837,7 @@ extern "C" int ckde_cv_whiten_f32(
                      te_idx, te_mask,   bandwidths, n,     D,      K,
                      ntr,    nte,       rule,    jtr,      neg,    zv_tr,
                      jte,    zv_te,     no_ev,   lm_const, wte,    lndiff,
-                     ok};
+                     ok,     split,     0,       0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(G);
   switch (dpad) {

@@ -5,8 +5,8 @@
 // lg_cv_f32 computes what `batched_lg_cv_loglik` of
 // pybnesian_tpu/ops/gaussian.py:118 computes (jitted XLA there, no Pallas
 // kernel), and, with one fold and no test rows, what `family_grams` (:44)
-// and `batched_bic` compute; one block per program g = f * K + k (family
-// f, fold k), W = P + 2 design columns [1, parents, y]:
+// and `batched_bic` compute, for each (family f, fold k), W = P + 2 design
+// columns [1, parents, y]:
 //
 //   d_r   = [1, x_r1 m_1, ..., x_rP m_P, y_r]      (m: the parent mask)
 //   w_r   = tr_mask[k, r] * valid(y_r) * prod_{m_p > 0} valid(x_rp)
@@ -23,64 +23,173 @@
 // order, rounded once to float32. Every statistic is float64 of float32
 // inputs.
 //
-// Bound: the work is small and latency-bound. Per program and train row
-// W (W + 1) float64 operations for the Gram, per test row 2 (P + 1) + 8;
-// the bytes are the family's columns of every row, read from L2 by every
-// fold's program. PERF.md has the measured time against the bound of the
-// FP64 operations and of each input byte read once.
+// Bound: the sums are small; what costs is reading the rows. A family's
+// folds share the frame (the fold masks are dense (K, n)), and a row's
+// sector holds every column of it, so a kernel that reads the rows once per
+// (family, fold) moves K times the bytes of one that reads them once per
+// family: at `hc`'s one-parent batch (56 families, 10 folds, 8,000 rows of
+// 8 columns) 560 x 8,000 x 2 x 64 bytes, L2-bound. PERF.md has the
+// measured time against the bound of the FP64 operations and of each input
+// byte read once.
 //
 // Design:
 //
-// - One block of 256 threads per program, so that a program's reduction
-//   order is fixed: thread t takes rows t, t + 256, ... in order, sums in
-//   float64 registers, and the block's partial sums merge in a fixed tree
-//   (a warp's shuffles, then the 8 warps in order through shared memory).
-//   No atomics; nothing depends on G, on the program's place in the grid
-//   or on the launch. The fold sum is a second kernel, one thread per
-//   family adding its K folds in order.
-// - Every Gram entry is a sum of its own (grouped 36 at a time, one pass
-//   over the rows each, to bound the registers), every term formed by the
-//   same explicit float64 operations (w d_i, then one fma with d_j): a
-//   family padded to the batch's widest family adds only exact zeros to
-//   its own entries, so it gets the bits it gets alone. Parents are packed
-//   first, so the padded columns come last in the Cholesky, the solve, the
-//   residual sum and the test rows' means, where they add exact zeros.
-// - The fold masks are dense (K, n): a program reads its fold's mask row
-//   and sums over every row, multiplying by the mask, as the plain
-//   version does (a NaN in a row outside the fold still reaches the sums).
-// - The solve runs by one thread in shared memory, in one non-inlined
-//   function of the runtime width, so every width and both kernels run the
-//   same instructions there. A pivot that is not positive, or a factor
-//   entry that is not finite, makes beta NaN, as the plain version's
-//   cholesky_or_nan does (variance NaN, or +inf when underdetermined).
-// - Families of W <= 18 (P <= 16) take a kernel templated on W, which keeps
-//   a row's design in registers; wider ones (up to W 64) a runtime-width
-//   kernel that reads each design value where it needs it. Both form
-//   every sum the same way, so a family alone and padded into a wider
-//   batch gives the same bits whichever kernel runs. The templated widths
-//   earn their code: the runtime-width kernel alone takes 3.6-4.2 times as
-//   long at `hc`'s one-parent batch (F 56, K 10, 8,000 rows) and 2-2.5
-//   times at the CV workload's families (tools/lg_kernel_ab.py on an H100;
-//   PERF.md has the numbers).
+// - A program is a family and a chunk of its folds (at most fold_chunk(K,
+//   W) of them, as many as keep its sums within kMaxPairs; the wrapper's
+//   plan takes fewer for a small batch, to have more programs), so a row is
+//   read once for all the chunk's folds: its design columns and validity,
+//   and each fold's mask.
+// - Fixed leaves. The train rows fall into lg_leaves(n_tr) leaves (a power
+//   of two up to kMaxLeaves, each at least kLeafRows rows when there are
+//   two or more): leaf l holds rows [l * size, (l + 1) * size), size =
+//   ceil(n_tr / leaves). Within a leaf thread t sums rows lo + t, lo + t +
+//   256, ... in order in float64 registers, the block's partial sums merge
+//   in a fixed tree (a warp's shuffles, then the 8 warps in order), and
+//   the leaves' sums merge in a balanced binary tree. Each (fold, Gram
+//   entry) is a sum of its own, formed by the same explicit float64
+//   operations (w = mask * validity, w d_i, then one fma with d_j), grouped
+//   36 at a time (one sweep of the rows each) to bound the registers. The
+//   test rows' sums take the same leaves of n_te. No atomics; nothing
+//   depends on G, on the chunk, on the program's place in the grid or on
+//   the launch. The fold sum is a second kernel, one thread per family
+//   adding its K folds in order.
+// - A thread-block cluster per program. The wrapper chooses its size S (a
+//   power of two up to the portable 8) from the program count and the SM
+//   count; cluster rank q sweeps leaves [q L / S, (q + 1) L / S), an
+//   aligned subtree of the tree, which it merges itself in the tree's
+//   order; after a cluster barrier every rank reads the ranks' subtree
+//   sums through distributed shared memory and merges the tree's top. So
+//   every rank holds the same Grams and runs the same solves, one thread a
+//   fold, and the test rows are split over the ranks the same way. S
+//   decides only which block sweeps which leaf.
+// - Rows staged in shared memory with cp.async, one pipeline across a
+//   rank's leaves with up to 4 rows in flight per thread (stages_for; each
+//   thread reads only the rows it staged): the family's W - 1 data columns
+//   and the chunk's fold masks as float32, then the row's validity product
+//   in float64. Where the sums take more than one sweep and a rank's rows
+//   fit in kResidentBytes, they stay staged for every sweep; otherwise each
+//   sweep gathers them again.
+// - A family padded to the batch's widest family adds only exact zeros to
+//   its own Gram entries, so it gets the bits it gets alone. Parents are
+//   packed first, so the padded columns come last in the Cholesky, the
+//   solve, the residual sum and the test rows' means, where they add exact
+//   zeros.
+// - Every row counts, multiplied by its fold's mask, as in the plain
+//   version (a NaN in a row outside the fold still reaches the sums).
+// - The solve of each fold runs by one thread in shared memory, in one
+//   function of the runtime width whose every operation is an explicitly
+//   rounded float64 intrinsic (or log), so every width gives it the same
+//   bits. A pivot that is not positive, or a factor entry that is not
+//   finite, makes beta NaN, as the plain version's cholesky_or_nan does
+//   (variance NaN, or +inf when underdetermined).
+// - The kernel is templated on W up to 18 (P <= 16), so that the compiler
+//   knows the width; wider families (up to W 64) take its runtime-width
+//   instance, with one row in flight per thread. Both form every sum the
+//   same way, so a family alone and padded into a wider batch gives the
+//   same bits whichever instance runs.
 // - An out-of-range column index reads NaN; nothing is read out of bounds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;       // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSums = 36;        // values of one block sum
-constexpr int kMaxTemplated = 18;   // widest W of the templated kernels
+constexpr int kMaxTemplated = 18;   // widest W of the templated instances
 constexpr int kMaxW = 64;           // widest W: 62 parents
 constexpr int kFoldThreads = 256;   // threads of the fold-sum kernel
+constexpr int kMaxLeaves = 8;       // most leaves of a program's rows
+constexpr int kLeafRows = 256;      // least rows of a leaf, with two or more
+constexpr int kMaxSplit = 8;        // most blocks of a cluster (portable)
+constexpr int kDepth = 4;           // levels of a rank's subtree merge
+constexpr int kMaxChunk = 16;       // most folds of a program
+constexpr int kMaxPairs = 360;      // most (fold, Gram entry) sums of one
+constexpr int kResidentBytes = 160 * 1024;  // most shared memory a rank's
+                                            // staged rows may take
 constexpr double kLog2Pi = 1.8378770664093454835606594728112;  // log(2 pi)
 constexpr double kMachineTol = 2.220446049250313e-16 * 4;
 
+// Rows a thread has in flight while gathering: fewer for wider rows, whose
+// slots take more shared memory.
+__host__ __device__ constexpr int stages_for(int WT) {
+  return WT == 0 ? 1 : (WT <= 8 ? 4 : 2);
+}
+
+// Most folds of one program: as many of K as keep its (fold, entry) sums
+// within kMaxPairs, at most kMaxChunk, at least one.
+__host__ __device__ __forceinline__ int fold_chunk(int K, int W) {
+  const int E = W * (W + 1) / 2;
+  int chunk = kMaxPairs / E;
+  chunk = chunk < kMaxChunk ? chunk : kMaxChunk;
+  chunk = chunk < K ? chunk : K;
+  return chunk > 1 ? chunk : 1;
+}
+
 __device__ __forceinline__ double qnan() {
   return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+__device__ __forceinline__ float qnanf() { return __int_as_float(0x7fc00000); }
+
+// One 4-byte cp.async from global to shared memory, and its groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The two halves of a cluster barrier (all threads of the cluster).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync(int split) {
+  if (split > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Leaves of a program's n rows: the largest power of two up to kMaxLeaves
+// that leaves each leaf kLeafRows rows, 1 below two leaves' worth. Leaf l
+// holds rows [l * size, min(n, (l + 1) * size)) for size = ceil(n /
+// leaves). A function of n alone.
+__host__ __device__ __forceinline__ int lg_leaves(int n) {
+  int leaves = 1;
+  while (2 * leaves <= kMaxLeaves && 2 * leaves * kLeafRows <= n) {
+    leaves *= 2;
+  }
+  return leaves;
+}
+
+// Cluster rank q of `split` (a power of two) sweeps leaves [first_leaf(q),
+// first_leaf(q + 1)): leaves / split of them, or one leaf or none when
+// split exceeds the leaves.
+__host__ __device__ __forceinline__ int first_leaf(int q, int leaves,
+                                                   int split) {
+  return q * leaves / split;
 }
 
 struct LgArgs {
@@ -94,9 +203,13 @@ struct LgArgs {
   const long long* parent_idx;   // (F, P)
   const float* parent_mask;      // (F, P)
   int n_tr, n_te, D, K, P;
-  double* gram;                  // (G, W, W)
-  double* bic;                   // (G,)
-  double* fold_ll;               // (G,), with a test stage
+  double* gram;                  // (F * K, W, W)
+  double* bic;                   // (F * K,)
+  double* fold_ll;               // (F * K,), with a test stage
+  int split;                     // S, blocks of a program's cluster
+  int chunk;                     // folds of a program: fold_chunk(K, W)
+  int cap;                       // rows the stage holds
+  int resident;                  // 1: a rank's train rows stay staged
 };
 
 // The family's design columns, shared by the block: column c's data column
@@ -107,13 +220,35 @@ struct Family {
   double k;  // parents
 };
 
-// Program g's results of the solve, shared by the block.
+// One fold's results of the solve, shared by the block.
 struct Fit {
   double beta[kMaxW];
   double variance;
+  double inv_variance;  // 1 / variance
   double half_log_var;  // log(variance) / 2
   bool bad;             // variance < 4 eps or not finite
 };
+
+// The rows a block has staged, in its dynamic shared memory (after the
+// chunk's Grams and the rank's subtree sums).
+struct Stage {
+  double* w;   // [cap] the rows' validity products
+  float* v;    // [W - 1][cap] design columns 1 .. W - 1 of the rows
+  float* mk;   // [chunk][cap] the chunk's fold masks of the rows
+  float* vl;   // [stages][W - 1][kThreads] validity of the rows in flight
+  int cap;
+};
+
+// Bytes of the dynamic shared memory: the chunk's Grams, the subtree sums
+// and a Stage of `cap` rows.
+__host__ __device__ __forceinline__ size_t dynamic_bytes(int W, int chunk,
+                                                         int stages,
+                                                         int cap) {
+  const size_t E = static_cast<size_t>(W) * (W + 1) / 2;
+  return 8 * (static_cast<size_t>(chunk) * (W * W + E) + cap) +
+         4 * static_cast<size_t>(W - 1 + chunk) * cap +
+         4 * static_cast<size_t>(stages) * (W - 1) * kThreads;
+}
 
 // Sums v[0..N) over the block's threads in a fixed tree (each warp's
 // shuffles, then the warps in order) into s_sum[0..N), which every thread
@@ -147,6 +282,48 @@ __device__ __forceinline__ void block_sum(double (&v)[N],
   __syncthreads();
 }
 
+// Adds the i-th leaf sum v (i counted from the rank's first leaf) of value
+// e to the rank's subtree in the tree's order, a binary counter: leaf sums
+// pair as ((v0 v1) (v2 v3)) .... After all of a rank's leaves (a power of
+// two of them) stack[0][e] holds its subtree's sum.
+__device__ __forceinline__ void push_leaf(double (*stack)[kMaxSums], int i,
+                                          int e, double v) {
+  int depth = __popc(i);
+  stack[depth][e] = v;
+  ++depth;
+  for (int c = i + 1; c % 2 == 0; c /= 2) {
+    stack[depth - 2][e] = __dadd_rn(stack[depth - 2][e], stack[depth - 1][e]);
+    --depth;
+  }
+}
+
+// Value e of the program summed over the ranks' subtree sums in the top of
+// the balanced tree: part i (of min(split, leaves)) is part[e] in cluster
+// rank ((i + 1) split - 1) / parts.
+__device__ __forceinline__ double merge_parts(const double* part, int e,
+                                              int leaves, int split) {
+  const int parts = split < leaves ? split : leaves;
+  double v[kMaxLeaves];
+#pragma unroll
+  for (int i = 0; i < kMaxLeaves; ++i) {
+    v[i] = 0.0;
+    if (i < parts) {
+      const int owner = ((i + 1) * split - 1) / parts;
+      const double* base =
+          split > 1 ? cg::this_cluster().map_shared_rank(part, owner) : part;
+      v[i] = base[e];
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < kMaxLeaves; w *= 2) {
+#pragma unroll
+    for (int b = 0; b + w < kMaxLeaves; b += 2 * w) {
+      if (b + w < parts) v[b] = __dadd_rn(v[b], v[b + w]);
+    }
+  }
+  return v[0];
+}
+
 // (i, j), j <= i, of entry p of a lower triangle in row-major order.
 __device__ __forceinline__ void tri(int p, int& i, int& j) {
   i = static_cast<int>((sqrt(8.0 * p + 1.0) - 1.0) / 2.0);
@@ -155,39 +332,144 @@ __device__ __forceinline__ void tri(int p, int& i, int& j) {
   j = p - i * (i + 1) / 2;
 }
 
-// Cell (row, col) of an (n, D) matrix; NaN for a column out of range.
-__device__ __forceinline__ double cell(const float* m, int D, int row,
-                                       long long col) {
-  return col >= 0 && col < D
-             ? static_cast<double>(m[static_cast<size_t>(row) * D + col])
-             : qnan();
-}
+// The rows of leaves [l0, l1) of n rows: leaf l holds [l * size, min(n,
+// (l + 1) * size)).
+struct Leaves {
+  int n, size, l0, l1;
+};
 
-// Design value c (0 <= c < W) of data row `row`.
-__device__ __forceinline__ double design(const float* values, int D,
-                                         const Family& fam, int row, int c) {
-  return c == 0 ? 1.0 : __dmul_rn(cell(values, D, row, fam.col[c]),
-                                  fam.cm[c]);
-}
-
-// The row's weight: the fold mask times the validity of y and of every
-// unmasked parent (columns 1 .. Q - 1; y is column Q).
-__device__ __forceinline__ double row_weight(const float* valid, int D,
-                                             const Family& fam, int Q,
-                                             int row, double mask) {
-  double w = cell(valid, D, row, fam.col[Q]);
-  for (int c = 1; c < Q; ++c) {
-    if (fam.cm[c] > 0.0) w = __dmul_rn(w, cell(valid, D, row, fam.col[c]));
+// Where a walk is: leaf `leaf`, step j of its `steps` (thread t's row lo +
+// t + j kThreads of [lo, hi)); an empty leaf takes one step with no row.
+struct Cursor {
+  int leaf, j, lo, hi, steps;
+  __device__ __forceinline__ void start(const Leaves& L, int l) {
+    leaf = l;
+    j = 0;
+    lo = l < L.l1 ? min(L.n, l * L.size) : 0;
+    hi = l < L.l1 ? min(L.n, lo + L.size) : 0;
+    steps = max(1, (hi - lo + kThreads - 1) / kThreads);
   }
-  return __dmul_rn(mask, w);
+  __device__ __forceinline__ void next(const Leaves& L) {
+    if (++j == steps) start(L, leaf + 1);
+  }
+  __device__ __forceinline__ int row() const {
+    return lo + static_cast<int>(threadIdx.x) + j * kThreads;
+  }
+  __device__ __forceinline__ bool live() const { return row() < hi; }
+  __device__ __forceinline__ bool last() const { return j == steps - 1; }
+};
+
+// Design value c (0 <= c < W) of the row at stage position p.
+__device__ __forceinline__ double design(const Stage& st, const Family& fam,
+                                         int p, int c) {
+  return c == 0 ? 1.0 : __dmul_rn(st.v[(c - 1) * st.cap + p], fam.cm[c]);
 }
 
-// One test row's weighted log-likelihood term, from its mean.
+// Walks the rows of leaves [L.l0, L.l1) of a frame in order, thread t its
+// rows lo + t, lo + t + kThreads, ... of each leaf, in steps that every
+// thread takes: at each step it calls use(c, active, p), c the cursor
+// (c.last() at a leaf's last step), active: the thread has a row, p the
+// row's stage position, where st.w[p] holds valid(y) x the validity of
+// every unmasked parent (NaN for an out-of-range column) and st.mk[k *
+// cap + p] fold k's mask (folds k0 .. k0 + kc - 1 of `mask`; 1 without
+// one). With `gather` the rows come from the frame by cp.async in one
+// pipeline across the leaves, STAGES rows in flight per thread, to the
+// stage at r - base (base >= 0: the rank's resident rows) or at the row's
+// slot (base < 0); without, they are read from the resident stage. A
+// thread reads only the rows it staged itself.
+template <int WT, int STAGES, class Use>
+__device__ __forceinline__ void walk_rows(const Family& fam, const Stage& st,
+                                          int W, const float* values,
+                                          const float* valid, int D,
+                                          const float* mask, int n, int k0,
+                                          int kc, const Leaves& L, int base,
+                                          bool gather, Use&& use) {
+  const int t = threadIdx.x;
+  const int Q = WT > 0 ? WT - 1 : W - 1;
+  int total = 0;
+  for (int l = L.l0; l < L.l1; ++l) {
+    Cursor c;
+    c.start(L, l);
+    total += c.steps;
+  }
+  Cursor u;
+  u.start(L, L.l0);
+  if (!gather) {
+    for (int s = 0; s < total; ++s, u.next(L)) {
+      const bool active = u.live();
+      use(u, active, active ? u.row() - base : 0);
+    }
+    return;
+  }
+  auto fetch = [&](const Cursor& c, int s) {
+    if (c.live()) {
+      const int r = c.row();
+      const int slot = s % STAGES;
+      const int p = base >= 0 ? r - base : slot * kThreads + t;
+      float* vl = st.vl + slot * Q * kThreads + t;
+#pragma unroll
+      for (int c2 = 1; c2 <= Q; ++c2) {
+        const long long ci = fam.col[c2];
+        if (ci >= 0) {
+          const size_t cell = static_cast<size_t>(r) * D + ci;
+          cp_async4(st.v + (c2 - 1) * st.cap + p, values + cell);
+          cp_async4(vl + (c2 - 1) * kThreads, valid + cell);
+        } else {
+          st.v[(c2 - 1) * st.cap + p] = qnanf();
+          vl[(c2 - 1) * kThreads] = qnanf();
+        }
+      }
+      for (int k = 0; k < kc; ++k) {
+        float* m = st.mk + k * st.cap + p;
+        if (mask != nullptr) {
+          cp_async4(m, mask + static_cast<size_t>(k0 + k) * n + r);
+        } else {
+          *m = 1.0f;
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  Cursor c = u;
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) {
+    fetch(c, k);
+    c.next(L);
+  }
+  for (int s = 0; s < total; ++s) {
+    fetch(c, s + STAGES - 1);
+    c.next(L);
+    cp_async_wait<STAGES - 1>();  // step s has landed
+    const bool active = u.live();
+    int p = 0;
+    if (active) {
+      const int slot = s % STAGES;
+      p = base >= 0 ? u.row() - base : slot * kThreads + t;
+      const float* vl = st.vl + slot * Q * kThreads + t;
+      double wv = vl[(Q - 1) * kThreads];  // y
+#pragma unroll
+      for (int c2 = 1; c2 < Q; ++c2) {
+        if (fam.cm[c2] > 0.0) {
+          wv = __dmul_rn(wv, static_cast<double>(vl[(c2 - 1) * kThreads]));
+        }
+      }
+      st.w[p] = wv;
+    }
+    use(u, active, p);
+    u.next(L);
+  }
+  cp_async_wait<0>();
+}
+
+// One test row's weighted log-likelihood term, from its mean: the squared
+// residual times the fold's reciprocal variance (within an ulp of the
+// plain version's quotient; +inf and 0 variances give its infinities and
+// NaNs).
 __device__ __forceinline__ double ll_term(double y, double mean, double w,
                                           const Fit& fit, double acc) {
   const double r = __dsub_rn(y, mean);
   const double ll = __dsub_rn(
-      __dsub_rn(__ddiv_rn(__dmul_rn(-0.5, __dmul_rn(r, r)), fit.variance),
+      __dsub_rn(__dmul_rn(__dmul_rn(-0.5, __dmul_rn(r, r)), fit.inv_variance),
                 fit.half_log_var),
       0.5 * kLog2Pi);
   return __fma_rn(w, ll, acc);
@@ -196,9 +478,9 @@ __device__ __forceinline__ double ll_term(double y, double mean, double w,
 // lg_params_from_gram and the BIC by one thread: g is the (W, W) Gram in
 // shared memory (its top-left (W - 1) block is overwritten by the Cholesky
 // factor; column W - 1 is kept), cm the design columns' masks. Fills fit
-// and returns the BIC. One function of the runtime width for every kernel.
-__device__ __noinline__ double solve(double* g, int W, const double* cm,
-                                     double k, Fit& fit) {
+// and returns the BIC. W is the runtime width in every kernel.
+__device__ __forceinline__ double solve(double* g, int W, const double* cm,
+                                        double k, Fit& fit) {
   const int Q = W - 1;
   const double n_eff = g[0];
   const double yy = g[Q * W + Q];
@@ -250,6 +532,7 @@ __device__ __noinline__ double solve(double* g, int W, const double* cm,
       dof > 0.0 ? __ddiv_rn(rss, fmax(dof, 1.0)) : __longlong_as_double(
                                                         0x7ff0000000000000LL);
   fit.variance = var;
+  fit.inv_variance = __drcp_rn(var);
   const double log_var = log(var);
   fit.half_log_var = __dmul_rn(0.5, log_var);
   fit.bad = var < kMachineTol || !isfinite(var);
@@ -265,121 +548,165 @@ __device__ __noinline__ double solve(double* g, int W, const double* cm,
   return bad ? -__longlong_as_double(0x7ff0000000000000LL) : bic;
 }
 
-// A row's W design values in registers and its weight.
+// Stage 1 of a templated width W: per leaf of the rank, each fold's Gram
+// entries over the train rows, a row's design in registers and its fold
+// weight formed once. A sweep of the rank's rows takes kMaxSums / E folds'
+// whole Grams (E <= kMaxSums), or one fold's entries 36 at a time; every
+// accumulator's fold offset and entry are known at compile time.
 template <int W>
-__device__ __forceinline__ double load_row(const float* values,
-                                           const float* valid, int D,
-                                           const Family& fam, int row,
-                                           double mask, double (&d)[W]) {
-#pragma unroll
-  for (int c = 0; c < W; ++c) d[c] = design(values, D, fam, row, c);
-  return row_weight(valid, D, fam, W - 1, row, mask);
-}
-
-// Stage 1 of a templated width: every Gram entry over the fold's train
-// rows into s_gram (W, W), both triangles.
-template <int W>
-__device__ __forceinline__ void gram_fixed(const LgArgs& a,
-                                           const Family& fam,
-                                           const float* mask, double* s_gram,
+__device__ __forceinline__ void gram_fixed(const LgArgs& a, const Family& fam,
+                                           const Stage& st,
+                                           const Leaves& train, int base,
+                                           int k0, int kc, double* s_part,
                                            double (*s_red)[kMaxSums],
-                                           double* s_sum) {
+                                           double* s_sum,
+                                           double (*s_stack)[kMaxSums]) {
   constexpr int E = W * (W + 1) / 2;
-  constexpr int C = E < kMaxSums ? E : kMaxSums;
+  constexpr int FPS = E <= kMaxSums ? kMaxSums / E : 1;  // folds a sweep
+  constexpr int CE = E <= kMaxSums ? E : kMaxSums;  // entries a fold a sweep
+  constexpr int C = FPS * CE;
+  for (int kk0 = 0; kk0 < kc; kk0 += FPS) {
 #pragma unroll
-  for (int p0 = 0; p0 < E; p0 += C) {
-    double acc[C];
+    for (int p0 = 0; p0 < E; p0 += CE) {
+      double acc[C];
 #pragma unroll
-    for (int e = 0; e < C; ++e) acc[e] = 0.0;
-    for (int r = threadIdx.x; r < a.n_tr; r += kThreads) {
-      double d[W];
-      const double w = load_row<W>(a.tr_values, a.tr_valid, a.D, fam, r,
-                                   mask ? mask[r] : 1.0, d);
+      for (int e = 0; e < C; ++e) acc[e] = 0.0;
+      walk_rows<W, stages_for(W)>(
+          fam, st, W, a.tr_values, a.tr_valid, a.D, a.tr_mask, a.n_tr, k0,
+          kc, train, base, !(a.resident && (kk0 > 0 || p0 > 0)),
+          [&](const Cursor& c, bool active, int p) {
+            if (active) {
+              const double wv = st.w[p];
+              double d[W];
 #pragma unroll
-      for (int i = 0; i < W; ++i) {
-        const double wd = __dmul_rn(w, d[i]);
+              for (int q = 0; q < W; ++q) d[q] = design(st, fam, p, q);
 #pragma unroll
-        for (int j = 0; j <= i; ++j) {
-          const int p = i * (i + 1) / 2 + j;
-          if (p >= p0 && p < p0 + C) {
-            acc[p - p0] = __fma_rn(wd, d[j], acc[p - p0]);
-          }
-        }
+              for (int f2 = 0; f2 < FPS; ++f2) {
+                if (kk0 + f2 < kc) {
+                  const double w =
+                      __dmul_rn(st.mk[(kk0 + f2) * st.cap + p], wv);
+#pragma unroll
+                  for (int i = 0; i < W; ++i) {
+                    const double wd = __dmul_rn(w, d[i]);
+#pragma unroll
+                    for (int j = 0; j <= i; ++j) {
+                      const int e = i * (i + 1) / 2 + j;
+                      if (e >= p0 && e < p0 + CE) {
+                        acc[f2 * CE + e - p0] =
+                            __fma_rn(wd, d[j], acc[f2 * CE + e - p0]);
+                      }
+                    }
+                  }
+                }
+              }
+            }
+            if (c.last()) {
+              block_sum(acc, s_red, s_sum);
+              if (threadIdx.x < C) {
+                push_leaf(s_stack, c.leaf - train.l0, threadIdx.x,
+                          s_sum[threadIdx.x]);
+              }
+#pragma unroll
+              for (int e = 0; e < C; ++e) acc[e] = 0.0;
+            }
+          });
+      const int a2 = threadIdx.x;
+      if (a2 < C && kk0 + a2 / CE < kc && p0 + a2 % CE < E &&
+          train.l1 > train.l0) {
+        s_part[(kk0 + a2 / CE) * E + p0 + a2 % CE] = s_stack[0][a2];
       }
     }
-    block_sum(acc, s_red, s_sum);
-    if (threadIdx.x < C && p0 + static_cast<int>(threadIdx.x) < E) {
-      int i, j;
-      tri(p0 + threadIdx.x, i, j);
-      s_gram[i * W + j] = s_sum[threadIdx.x];
-      s_gram[j * W + i] = s_sum[threadIdx.x];
-    }
   }
-  __syncthreads();
 }
 
-// Stage 1 of a runtime width W: the same sums, each design value read
-// where a term needs it; s_ij holds the pass's entries.
-__device__ __forceinline__ void gram_runtime(const LgArgs& a,
-                                             const Family& fam, int W,
-                                             const float* mask,
-                                             double* s_gram,
-                                             double (*s_red)[kMaxSums],
-                                             double* s_sum,
-                                             int (*s_ij)[2]) {
+// Stage 1 of a runtime width W: the same sums, (fold, entry) pairs 36 to a
+// sweep, each design value read from the stage where a term needs it;
+// s_pq holds the sweep's (fold, i, j).
+__device__ __forceinline__ void gram_runtime(
+    const LgArgs& a, const Family& fam, const Stage& st, int W,
+    const Leaves& train, int base, int k0, int kc, double* s_part,
+    double (*s_red)[kMaxSums], double* s_sum, double (*s_stack)[kMaxSums],
+    int (*s_pq)[3]) {
   const int E = W * (W + 1) / 2;
-  for (int p0 = 0; p0 < E; p0 += kMaxSums) {
-    const int C = min(kMaxSums, E - p0);
-    __syncthreads();  // the last pass's s_ij is read
+  const int pairs = kc * E;
+  for (int q0 = 0; q0 < pairs; q0 += kMaxSums) {
+    const int C = min(kMaxSums, pairs - q0);
+    __syncthreads();  // the last sweep's s_pq is read
     if (threadIdx.x < kMaxSums) {
-      int i = 0, j = 0;
-      if (static_cast<int>(threadIdx.x) < C) tri(p0 + threadIdx.x, i, j);
-      s_ij[threadIdx.x][0] = i;
-      s_ij[threadIdx.x][1] = j;
+      int k = 0, i = 0, j = 0;
+      if (static_cast<int>(threadIdx.x) < C) {
+        const int q = q0 + threadIdx.x;
+        k = q / E;
+        tri(q % E, i, j);
+      }
+      s_pq[threadIdx.x][0] = k;
+      s_pq[threadIdx.x][1] = i;
+      s_pq[threadIdx.x][2] = j;
     }
     __syncthreads();
     double acc[kMaxSums];
 #pragma unroll
     for (int e = 0; e < kMaxSums; ++e) acc[e] = 0.0;
-    for (int r = threadIdx.x; r < a.n_tr; r += kThreads) {
-      const double w =
-          row_weight(a.tr_valid, a.D, fam, W - 1, r, mask ? mask[r] : 1.0);
+    walk_rows<0, stages_for(0)>(
+        fam, st, W, a.tr_values, a.tr_valid, a.D, a.tr_mask, a.n_tr, k0, kc,
+        train, base, !(a.resident && q0 > 0),
+        [&](const Cursor& c, bool active, int p) {
+          if (active) {
+            const double wv = st.w[p];
 #pragma unroll
-      for (int e = 0; e < kMaxSums; ++e) {
-        if (e < C) {
-          const double wd =
-              __dmul_rn(w, design(a.tr_values, a.D, fam, r, s_ij[e][0]));
-          acc[e] = __fma_rn(wd, design(a.tr_values, a.D, fam, r, s_ij[e][1]),
-                            acc[e]);
-        }
-      }
-    }
-    block_sum(acc, s_red, s_sum);
-    if (static_cast<int>(threadIdx.x) < C) {
-      const int i = s_ij[threadIdx.x][0], j = s_ij[threadIdx.x][1];
-      s_gram[i * W + j] = s_sum[threadIdx.x];
-      s_gram[j * W + i] = s_sum[threadIdx.x];
+            for (int e = 0; e < kMaxSums; ++e) {
+              if (e < C) {
+                const double w = __dmul_rn(st.mk[s_pq[e][0] * st.cap + p],
+                                           wv);
+                const double wd = __dmul_rn(w, design(st, fam, p,
+                                                      s_pq[e][1]));
+                acc[e] = __fma_rn(wd, design(st, fam, p, s_pq[e][2]),
+                                  acc[e]);
+              }
+            }
+          }
+          if (c.last()) {
+            block_sum(acc, s_red, s_sum);
+            if (static_cast<int>(threadIdx.x) < C) {
+              push_leaf(s_stack, c.leaf - train.l0, threadIdx.x,
+                        s_sum[threadIdx.x]);
+            }
+#pragma unroll
+            for (int e = 0; e < kMaxSums; ++e) acc[e] = 0.0;
+          }
+        });
+    if (static_cast<int>(threadIdx.x) < C && train.l1 > train.l0) {
+      s_part[q0 + threadIdx.x] = s_stack[0][threadIdx.x];
     }
   }
-  __syncthreads();
 }
 
-// One block per program g = f * K + k. WT > 0: the templated width W = WT;
+// Grid (programs) * split, clusters of `split` blocks along x: program =
+// blockIdx.x / split (family f = program / chunks, folds k0 .. k0 + kc -
+// 1), cluster rank blockIdx.x % split. WT > 0: the templated width W = WT;
 // WT == 0: the runtime width W = P + 2.
 template <int WT>
 __global__ void __launch_bounds__(kThreads) lg_kernel(const LgArgs a) {
-  constexpr int SW = WT > 0 ? WT : kMaxW;
+  constexpr int kStages = stages_for(WT);
   __shared__ double s_red[kWarps][kMaxSums];
   __shared__ double s_sum[kMaxSums];
-  __shared__ double s_gram[SW * SW];
-  __shared__ int s_ij[kMaxSums][2];
+  __shared__ double s_stack[kDepth][kMaxSums];  // a rank's subtree merge
+  __shared__ double s_tpart[kMaxChunk];         // its test rows' sums
+  __shared__ int s_pq[kMaxSums][3];             // a sweep's (fold, i, j)
   __shared__ Family fam;
-  __shared__ Fit fit;
+  __shared__ Fit s_fit[kMaxChunk];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
 
   const int W = WT > 0 ? WT : a.P + 2;
   const int Q = W - 1;
-  const int g = blockIdx.x;
-  const int f = g / a.K, k = g % a.K;
+  const int E = W * (W + 1) / 2;
+  const int split = a.split;
+  const int chunks = (a.K + a.chunk - 1) / a.chunk;
+  const int program = blockIdx.x / split, rank = blockIdx.x % split;
+  const int f = program / chunks;
+  const int k0 = (program % chunks) * a.chunk;
+  const int kc = min(a.chunk, a.K - k0);
+  const int pairs = kc * E;
   if (threadIdx.x < W) {
     const int c = threadIdx.x;
     long long col = -1;
@@ -401,52 +728,126 @@ __global__ void __launch_bounds__(kThreads) lg_kernel(const LgArgs a) {
     fam.k = k_par;
   }
   __syncthreads();
+  double* s_gram = reinterpret_cast<double*>(s_dyn);  // [kc][W * W]
+  double* s_part = s_gram + kc * W * W;              // [kc * E] subtree sums
+  Stage st;
+  st.cap = a.cap;
+  st.w = s_part + pairs;
+  st.v = reinterpret_cast<float*>(st.w + a.cap);
+  st.mk = st.v + Q * a.cap;
+  st.vl = st.mk + a.chunk * a.cap;
 
-  // stage 1: the Gram over the fold's train rows
-  const float* tr_mask =
-      a.tr_mask ? a.tr_mask + static_cast<size_t>(k) * a.n_tr : nullptr;
+  // stage 1: the chunk's Grams over the train rows, the rank's leaves, 36
+  // (fold, entry) sums per sweep
+  const int leaves = lg_leaves(a.n_tr);
+  const int size = (a.n_tr + leaves - 1) / leaves;
+  const Leaves train{a.n_tr, size, first_leaf(rank, leaves, split),
+                     first_leaf(rank + 1, leaves, split)};
+  const int base = a.resident ? min(a.n_tr, train.l0 * size) : -1;
   if constexpr (WT > 0) {
-    gram_fixed<WT>(a, fam, tr_mask, s_gram, s_red, s_sum);
+    gram_fixed<WT>(a, fam, st, train, base, k0, kc, s_part, s_red, s_sum,
+                   s_stack);
   } else {
-    gram_runtime(a, fam, W, tr_mask, s_gram, s_red, s_sum, s_ij);
+    gram_runtime(a, fam, st, W, train, base, k0, kc, s_part, s_red, s_sum,
+                 s_stack, s_pq);
   }
-  double* gram_out = a.gram + static_cast<size_t>(g) * W * W;
-  for (int e = threadIdx.x; e < W * W; e += kThreads) gram_out[e] = s_gram[e];
-  __syncthreads();  // s_gram is written out before the solve overwrites it
-
-  // stage 2: the solve by one thread
-  if (threadIdx.x == 0) a.bic[g] = solve(s_gram, W, fam.cm, fam.k, fit);
+  cluster_sync(split);  // every rank's subtree sums are in place
+  for (int q = threadIdx.x; q < pairs; q += kThreads) {
+    int i, j;
+    tri(q % E, i, j);
+    const double v = merge_parts(s_part, q, leaves, split);
+    double* gk = s_gram + (q / E) * W * W;
+    gk[i * W + j] = v;
+    gk[j * W + i] = v;
+  }
   __syncthreads();
-  if (a.te_values == nullptr) return;
-
-  // stage 3: the fold's weighted test log-likelihood
-  const float* te_mask =
-      a.te_mask ? a.te_mask + static_cast<size_t>(k) * a.n_te : nullptr;
-  double acc[1] = {0.0};
-  for (int r = threadIdx.x; r < a.n_te; r += kThreads) {
-    const double m = te_mask ? te_mask[r] : 1.0;
-    double mean = 0.0, y;
-    double w;
-    if constexpr (WT > 0) {
-      double d[WT];
-      w = load_row<WT>(a.te_values, a.te_valid, a.D, fam, r, m, d);
-#pragma unroll
-      for (int c = 0; c < WT - 1; ++c) mean = __fma_rn(d[c], fit.beta[c], mean);
-      y = d[WT - 1];
-    } else {
-      w = row_weight(a.te_valid, a.D, fam, Q, r, m);
-      for (int c = 0; c < Q; ++c) {
-        mean = __fma_rn(design(a.te_values, a.D, fam, r, c), fit.beta[c],
-                        mean);
-      }
-      y = design(a.te_values, a.D, fam, r, Q);
+  const size_t g0 = static_cast<size_t>(f) * a.K + k0;  // the first program
+  if (rank == 0) {
+    for (int e = threadIdx.x; e < kc * W * W; e += kThreads) {
+      a.gram[g0 * W * W + e] = s_gram[e];
     }
-    acc[0] = ll_term(y, mean, w, fit, acc[0]);
   }
-  block_sum(acc, s_red, s_sum);
-  if (threadIdx.x == 0) {
-    a.fold_ll[g] = fit.bad ? -__longlong_as_double(0x7ff0000000000000LL)
-                           : s_sum[0];
+  __syncthreads();  // s_gram is written out before the solves overwrite it
+
+  // stage 2: the solves, one thread a fold, on every rank
+  if (threadIdx.x < kc) {
+    const int k = threadIdx.x;
+    const double bic = solve(s_gram + k * W * W, a.P + 2, fam.cm, fam.k,
+                             s_fit[k]);
+    if (rank == 0) a.bic[g0 + k] = bic;
+  }
+  __syncthreads();
+
+  if (a.te_values != nullptr) {
+    // stage 3: each fold's weighted test log-likelihood, the rank's leaves
+    // of the test rows, staged in the slots (the resident train rows are
+    // read)
+    const int te_leaves = lg_leaves(a.n_te);
+    const Leaves test{a.n_te, (a.n_te + te_leaves - 1) / te_leaves,
+                      first_leaf(rank, te_leaves, split),
+                      first_leaf(rank + 1, te_leaves, split)};
+    double acc[kMaxChunk];
+#pragma unroll
+    for (int k = 0; k < kMaxChunk; ++k) acc[k] = 0.0;
+    walk_rows<WT, kStages>(
+        fam, st, W, a.te_values, a.te_valid, a.D, a.te_mask, a.n_te, k0, kc,
+        test, -1, true, [&](const Cursor& c, bool active, int p) {
+          if (active) {
+            const double wv = st.w[p];
+            // the row's design once for every fold (in registers at a
+            // templated width)
+            double d[WT > 0 ? WT : 1];
+            if constexpr (WT > 0) {
+#pragma unroll
+              for (int q = 0; q < WT; ++q) d[q] = design(st, fam, p, q);
+            }
+            const double y = WT > 0 ? d[WT > 0 ? WT - 1 : 0]
+                                    : design(st, fam, p, Q);
+#pragma unroll
+            for (int k = 0; k < kMaxChunk; ++k) {
+              if (k < kc) {
+                const Fit& fit = s_fit[k];
+                double mean = 0.0;
+                if constexpr (WT > 0) {
+#pragma unroll
+                  for (int q = 0; q < WT - 1; ++q) {
+                    mean = __fma_rn(d[q], fit.beta[q], mean);
+                  }
+                } else {
+                  for (int q = 0; q < Q; ++q) {
+                    mean = __fma_rn(design(st, fam, p, q), fit.beta[q],
+                                    mean);
+                  }
+                }
+                const double w = __dmul_rn(st.mk[k * st.cap + p], wv);
+                acc[k] = ll_term(y, mean, w, fit, acc[k]);
+              }
+            }
+          }
+          if (c.last()) {
+            block_sum(acc, s_red, s_sum);
+            if (static_cast<int>(threadIdx.x) < kc) {
+              push_leaf(s_stack, c.leaf - test.l0, threadIdx.x,
+                        s_sum[threadIdx.x]);
+            }
+#pragma unroll
+            for (int k = 0; k < kMaxChunk; ++k) acc[k] = 0.0;
+          }
+        });
+    if (static_cast<int>(threadIdx.x) < kc && test.l1 > test.l0) {
+      s_tpart[threadIdx.x] = s_stack[0][threadIdx.x];
+    }
+    cluster_sync(split);  // the Gram sums are read; the test sums in place
+    if (rank == 0 && static_cast<int>(threadIdx.x) < kc) {
+      const int k = threadIdx.x;
+      const double ll = merge_parts(s_tpart, k, te_leaves, split);
+      a.fold_ll[g0 + k] =
+          s_fit[k].bad ? -__longlong_as_double(0x7ff0000000000000LL) : ll;
+    }
+  }
+  if (split > 1) {
+    cluster_arrive();  // done reading the cluster's sums
+    cluster_wait();    // no block leaves while another reads it
   }
 }
 
@@ -462,17 +863,57 @@ __global__ void __launch_bounds__(kFoldThreads)
   out[f] = static_cast<float>(total);
 }
 
+// The stage of a launch of width W: a rank's train rows resident when the
+// sums sweep them more than once and they fit in kResidentBytes (at most
+// ceil(leaves / split) leaves of `size` rows, and room for the test rows'
+// slots), else the slots alone.
 template <int WT>
-cudaError_t launch_lg(const LgArgs& a, int G, cudaStream_t s) {
-  lg_kernel<WT><<<G, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+void plan_stage(LgArgs& a, int W) {
+  constexpr int stages = stages_for(WT);
+  const int leaves = lg_leaves(a.n_tr);
+  const int size = (a.n_tr + leaves - 1) / leaves;
+  const int rows = (leaves + a.split - 1) / a.split * size;
+  const int slots = stages * kThreads;
+  const int cap = ((rows > slots ? rows : slots) + 3) / 4 * 4;
+  const int pairs = a.chunk * W * (W + 1) / 2;
+  a.resident = pairs > kMaxSums &&
+                       dynamic_bytes(W, a.chunk, stages, cap) <= kResidentBytes
+                   ? 1
+                   : 0;
+  a.cap = a.resident ? cap : slots;
 }
 
-cudaError_t launch_width(const LgArgs& a, int G, int W, cudaStream_t s) {
+template <int WT>
+cudaError_t launch_lg(LgArgs a, int programs, int W, cudaStream_t s) {
+  plan_stage<WT>(a, W);
+  const size_t bytes = dynamic_bytes(W, a.chunk, stages_for(WT), a.cap);
+  const cudaError_t set = cudaFuncSetAttribute(
+      lg_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(programs * a.split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = a.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, lg_kernel<WT>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t launch_width(const LgArgs& a, int programs, int W,
+                         cudaStream_t s) {
+  if (W > kMaxTemplated) return launch_lg<0>(a, programs, W, s);
   switch (W) {
 #define LG_CASE(WT) \
   case WT:          \
-    return launch_lg<WT>(a, G, s);
+    return launch_lg<WT>(a, programs, W, s);
     LG_CASE(2)
     LG_CASE(3)
     LG_CASE(4)
@@ -492,7 +933,7 @@ cudaError_t launch_width(const LgArgs& a, int G, int W, cudaStream_t s) {
     LG_CASE(18)
 #undef LG_CASE
     default:
-      return launch_lg<0>(a, G, s);
+      return launch_lg<0>(a, programs, W, s);
   }
 }
 
@@ -510,8 +951,11 @@ extern "C" int lg_cv_max_width() { return kMaxW; }
 // n_te), or null (every row); var_idx (F,) and parent_idx (F, P) int64,
 // parent_mask (F, P) float32; gram (F * K, P + 2, P + 2), bic and fold_ll
 // (F * K,) float64; out (F,) float32.
-// F, K >= 1 with F * K < 2^31, 0 <= P <= lg_cv_max_width() - 2, n_tr,
-// n_te, D >= 0; anything else returns cudaErrorInvalidValue.
+// F, K >= 1 with F * K * split < 2^31, 0 <= P <= lg_cv_max_width() - 2,
+// n_tr, n_te, D >= 0; the launch plan: `chunk`, the folds of a program (a
+// family and up to `chunk` of its folds), 1 <= chunk <= fold_chunk(K, P +
+// 2), and `split` S, a power of two up to 8, blocks of a cluster sharing
+// each program's leaves; anything else returns cudaErrorInvalidValue.
 extern "C" int lg_cv_f32(const float* tr_values, const float* tr_valid,
                          const float* tr_mask, const float* te_values,
                          const float* te_valid, const float* te_mask,
@@ -519,22 +963,27 @@ extern "C" int lg_cv_f32(const float* tr_values, const float* tr_valid,
                          const long long* parent_idx,
                          const float* parent_mask, double* gram, double* bic,
                          double* fold_ll, float* out, int n_tr, int n_te,
-                         int D, int F, int K, int P, void* stream) {
+                         int D, int F, int K, int P, int chunk,
+                         int split, void* stream) {
   const long long G = static_cast<long long>(F) * K;
   const bool test = te_values != nullptr;
-  if (F < 1 || K < 1 || G >= (1LL << 31) || P < 0 || P + 2 > kMaxW ||
-      n_tr < 0 || n_te < 0 || D < 0 || (tr_mask == nullptr && K != 1) ||
+  if (F < 1 || K < 1 || P < 0 || P + 2 > kMaxW || chunk < 1 ||
+      chunk > fold_chunk(K, P + 2) || split < 1 || split > kMaxSplit ||
+      (split & (split - 1)) != 0 || G * split >= (1LL << 31) || P < 0 ||
+      P + 2 > kMaxW || n_tr < 0 || n_te < 0 || D < 0 ||
+      (tr_mask == nullptr && K != 1) ||
       (test && (te_valid == nullptr || fold_ll == nullptr || out == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const LgArgs a{tr_values, tr_valid, tr_mask, te_values, te_valid,
-                 te_mask,   var_idx,  parent_idx, parent_mask, n_tr,
-                 n_te,      D,        K,        P,          gram,
-                 bic,       fold_ll};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int W = P + 2;
-  const cudaError_t err =
-      launch_width(a, static_cast<int>(G), W <= kMaxTemplated ? W : 0, s);
+  const LgArgs a{tr_values, tr_valid,   tr_mask,     te_values, te_valid,
+                 te_mask,   var_idx,    parent_idx,  parent_mask, n_tr,
+                 n_te,      D,          K,           P,         gram,
+                 bic,       fold_ll,    split,       chunk,     0,
+                 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int programs = F * ((K + chunk - 1) / chunk);
+  const cudaError_t err = launch_width(a, programs, W, s);
   if (err != cudaSuccess || !test) return static_cast<int>(err);
   fold_sum_kernel<<<(F + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0,
                     s>>>(fold_ll, out, F, K);

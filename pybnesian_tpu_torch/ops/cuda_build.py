@@ -48,8 +48,9 @@ def build(source: str) -> dict:
     for this source and these flags exists. Returns ``{"path", "built",
     "seconds", "ptxas"}``: ``built`` is False when an existing library was
     reused; ``ptxas`` holds nvcc's resource report (registers, shared
-    memory, spills). Safe to call from several threads or processes: each
-    compiles to its own temporary name and renames it into place."""
+    memory, spills), kept beside the library, so a reused library reports
+    it too. Safe to call from several threads or processes: each compiles
+    to its own temporary name and renames it into place."""
     src_path = os.path.join(_SRC_DIR, source)
     with open(src_path, "rb") as f:
         src = f.read()
@@ -57,7 +58,12 @@ def build(source: str) -> dict:
     stem = os.path.splitext(source)[0]
     path = os.path.join(_BUILD_DIR, f"lib{stem}-{key[:16]}.so")
     if os.path.exists(path):
-        return {"path": path, "built": False, "seconds": 0.0, "ptxas": ""}
+        report = ""
+        if os.path.exists(path + ".ptxas"):
+            with open(path + ".ptxas") as f:
+                report = f.read()
+        return {"path": path, "built": False, "seconds": 0.0,
+                "ptxas": report}
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
@@ -71,7 +77,11 @@ def build(source: str) -> dict:
             f"nvcc failed on {source} ({proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    # atomic: a concurrent build never loads a partial file
+    # atomic: a concurrent build never loads a partial file, nor a report
+    # without its library
+    with open(tmp + ".ptxas", "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp + ".ptxas", path + ".ptxas")
     os.replace(tmp, path)
     return {"path": path, "built": True, "seconds": seconds,
             "ptxas": proc.stderr}

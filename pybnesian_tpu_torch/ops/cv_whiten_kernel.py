@@ -15,15 +15,21 @@ Pallas kernel). What lives here:
   plain version for CPU tensors, the CUDA kernels ``ckde_cv_whiten_f32``
   and ``ckde_cv_fold_reduce_f32`` (``pybnesian_tpu_torch/csrc/cv_whiten.cu``)
   for CUDA tensors, with launch counters ``.launches``;
+- :func:`whiten_leaves` and :func:`_launch_plan`, the whitening's fixed
+  leaves of a program's train rows and the cluster size S that spreads
+  them over a thread-block cluster;
 - the ctypes binding of those kernels (built at first use by
   :mod:`.cuda_build`).
 
 Both kernels sum in float64 in an order fixed by the shapes (ntr, nte, K)
-alone: one block per program or family, fixed row strides per thread, a
-fixed tree over the block, no atomics. So a family's whitened rows and CV
-score are the same bits alone and in any batch, and, since every sum is a
-column's or an entry's own, whatever the batch's widest family. The torch
-reductions of the plain version choose their order by shape and device.
+alone, no atomics: the whitening over :func:`whiten_leaves` leaves of
+fixed row strides per thread, a fixed tree over the block and a balanced
+tree over the leaves, whichever of the S blocks of its cluster sweeps a
+leaf; the fold sums one block per family. So a family's whitened rows and
+CV score are the same bits alone and in any batch, at every S, and, since
+every sum is a column's or an entry's own, whatever the batch's widest
+family. The torch reductions of the plain version choose their order by
+shape and device.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import math
 import torch
 
 from . import cuda_build
+from .ckde_cv_kernel import _sm_count
 from .linalg import cholesky_or_nan
 
 __all__ = [
@@ -43,6 +50,7 @@ __all__ = [
     "ckde_cv_whitened_parts",
     "ckde_cv_fold_reduce",
     "ckde_cv_fold_reduce_reference",
+    "whiten_leaves",
     "MAX_DPAD",
 ]
 
@@ -50,6 +58,62 @@ LOG_2PI = math.log(2.0 * math.pi)
 #: widest family the whitening kernel takes (kernel #1's ``MAX_DPAD``)
 MAX_DPAD = 16
 _RULES = {"nr": 0, "scott": 1}
+# The launch plan's limits; each mirrors a constant of csrc/cv_whiten.cu.
+#: threads per block (kThreads)
+THREADS = 256
+#: most leaves of a program's train rows (kMaxLeaves)
+MAX_LEAVES = 8
+#: least rows of a leaf when there are two or more (kLeafRows)
+LEAF_ROWS = 256
+#: most blocks of one cluster, the portable limit (kMaxSplit)
+MAX_SPLIT = 8
+#: blocks per SM that the plan aims for, splitting each program's leaves
+#: over a cluster to get them, twice as many for families wider than
+#: :data:`WIDE_DPAD`. Measured on the H100 (tools/whiten_lg_ab.py,
+#: PERF.md): phase 4's 150 programs ran fastest split 4 ways at dpad 1 and
+#: 3, 8 ways at dpad 16, whose blocks each factor a 16 x 16 bandwidth
+TARGET_BLOCKS_PER_SM = 4
+#: widest family that the plan gives TARGET_BLOCKS_PER_SM blocks per SM
+WIDE_DPAD = 8
+
+
+def whiten_leaves(ntr):
+    """L, the leaves of one program's ntr train rows in the whitening
+    kernel (``whiten_leaves`` in ``csrc/cv_whiten.cu``): the largest power
+    of two up to :data:`MAX_LEAVES` that leaves each leaf
+    :data:`LEAF_ROWS` rows, 1 below two leaves' worth. Leaf l holds rows
+    [l·size, min(ntr, (l + 1)·size)), size = ceil(ntr / L); its sums run in
+    a fixed order and the L leaves merge in a balanced tree. A function of
+    ntr alone, so a program's float32 outputs do not depend on G, on the
+    other programs or on the cluster size."""
+    leaves = 1
+    while 2 * leaves <= MAX_LEAVES and 2 * leaves * LEAF_ROWS <= ntr:
+        leaves *= 2
+    return leaves
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(G, ntr, dpad, sm_count):
+    """S, the blocks of the thread-block cluster that whitens each of G
+    programs of ntr train rows and dpad columns on a card of ``sm_count``
+    SMs: the least power of two that gives the grid
+    :data:`TARGET_BLOCKS_PER_SM` blocks per SM (twice that above
+    :data:`WIDE_DPAD`), at most :func:`whiten_leaves`, so that every block
+    sweeps as many leaves as the others. S only decides which block sweeps
+    which leaf: the result is the same at every S."""
+    target = TARGET_BLOCKS_PER_SM * (2 if dpad > WIDE_DPAD else 1)
+    need = -(-target * sm_count // max(G, 1))
+    leaves = whiten_leaves(ntr)
+    split = 1
+    while split < need and split < leaves:
+        split *= 2
+    return split
+
+
+def _check_split(split):
+    if split not in (1, 2, 4, 8):
+        raise ValueError(f"split {split!r} is not a power of two up to "
+                         f"{MAX_SPLIT}")
 
 
 def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
@@ -221,7 +285,8 @@ def _check_whiten_args(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
 
 
 def ckde_cv_whiten(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
-                   te_idx, te_mask, rule="nr", bandwidths=None):
+                   te_idx, te_mask, rule="nr", bandwidths=None, *,
+                   split=None):
     """The whitened parts of F families × K folds in the layout of the
     pairs kernel: ``(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const, wte,
     lndiff, ok)``, the first seven :func:`~.ckde_cv_kernel.ckde_cv_pairs`'s
@@ -237,10 +302,14 @@ def ckde_cv_whiten(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
     one that does not, the plain version raises.
 
     CPU tensors take :func:`ckde_cv_whiten_reference`. CUDA tensors launch
-    the kernel, counted in ``ckde_cv_whiten.launches``, or raise."""
+    the kernel, counted in ``ckde_cv_whiten.launches``, or raise; its
+    cluster size is ``split`` (1, 2, 4 or 8) when given, else
+    :func:`_launch_plan`'s, and gives the same bits either way."""
     n, D, F, K, ntr, nte, dpad = _check_whiten_args(
         data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
         rule, bandwidths)
+    if split is not None:
+        _check_split(split)
     if data.device.type == "cpu":
         return ckde_cv_whiten_reference(
             data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx,
@@ -248,9 +317,12 @@ def ckde_cv_whiten(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
     if data.device.type != "cuda":
         raise ValueError(f"no ckde_cv_whiten kernel for {data.device}")
     G = F * K
-    if G >= 2**31:
-        raise ValueError(f"{G} programs exceed the grid's 2**31 - 1")
     device = data.device
+    if split is None:
+        split = _launch_plan(G, ntr, dpad, _sm_count(device))
+    if G * split >= 2**31:
+        raise ValueError(f"{G} programs of {split} blocks exceed the grid's "
+                         "2**31 - 1")
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=device)
@@ -269,11 +341,12 @@ def ckde_cv_whiten(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
             te_idx.data_ptr(), te_mask.data_ptr(),
             None if bandwidths is None else bandwidths.data_ptr(),
             *(t.data_ptr() for t in outs), n, D, F, K, ntr, nte, dpad, code,
-            stream,
+            split, stream,
         )
     if err != 0:
         raise RuntimeError(f"ckde_cv_whiten kernel launch failed (F {F}, K "
-                           f"{K}, dpad {dpad}): CUDA error {err}")
+                           f"{K}, dpad {dpad}, split {split}): CUDA error "
+                           f"{err}")
     ckde_cv_whiten.launches += 1
     return outs
 
@@ -327,7 +400,7 @@ ckde_cv_fold_reduce.launches = 0
 def _load_library():
     lib = cuda_build.load("cv_whiten.cu")
     fn = lib.ckde_cv_whiten_f32
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int

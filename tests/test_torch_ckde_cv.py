@@ -341,8 +341,9 @@ def test_whiten_wrapper_checks_its_arguments(bad):
 
 def test_cv_whiten_source_matches_its_binding():
     """The C entry points of csrc/cv_whiten.cu take their arguments in the
-    order the wrappers pass them (19 pointers, 8 ints and the stream for
-    the whitening; 5 pointers, 3 ints and the stream for the fold sums),
+    order the wrappers pass them (19 pointers, 9 ints, the last the
+    launch plan's cluster size, and the stream for the whitening; 5
+    pointers, 3 ints and the stream for the fold sums),
     the kernel's widest family is the wrapper's, and nothing sums with
     atomics: the order of every sum is fixed."""
     import re
@@ -361,11 +362,11 @@ def test_cv_whiten_source_matches_its_binding():
         "data", "null_mask", "col_idx", "col_mask", "tr_idx", "tr_mask",
         "te_idx", "te_mask", "bandwidths", "jtr", "neg", "zv_tr", "jte",
         "zv_te", "no_ev", "lm_const", "wte", "lndiff", "ok", "n", "D", "F",
-        "K", "ntr", "nte", "dpad", "rule", "stream"]
+        "K", "ntr", "nte", "dpad", "rule", "split", "stream"]
     assert params("ckde_cv_fold_reduce_f32") == [
         "rows", "wte", "lndiff", "ok", "out", "F", "K", "nte", "stream"]
     binding = Path(cw.__file__).read_text()
-    assert "[ctypes.c_void_p] * 19 + [ctypes.c_int] * 8" in binding
+    assert "[ctypes.c_void_p] * 19 + [ctypes.c_int] * 9" in binding
     assert "[ctypes.c_void_p] * 5 + [ctypes.c_int] * 3" in binding
     constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
     assert int(constants["kMaxD"]) == cw.MAX_DPAD

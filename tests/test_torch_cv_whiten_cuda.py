@@ -290,3 +290,154 @@ def test_cv_scores_are_the_same_bits_in_every_batch(cuda):
         wide = tkde.ckde_cv_alldevice_flash(*_family(args, f, width=7))
         assert torch.equal(alone[0], scores[f]), f
         assert torch.equal(wide[0], scores[f]), f
+
+
+SPLITS = (1, 2, 4, 8)
+
+
+def _every_split(args, **kw):
+    """The whitening at every cluster size S the entry point takes, each
+    output bit-equal to S = 1's (NaN in the same places); returns S = 1's
+    outputs."""
+    first = ckde_cv_whiten(*args, split=1, **kw)
+    for split in SPLITS[1:]:
+        got = ckde_cv_whiten(*args, split=split, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(NAMES, first, got):
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), (split, name)
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), (
+                split, name)
+    return first
+
+
+def _rows_inputs(device, ntr, nte, F=3, djmax=3, K=2, seed=0):
+    """A whitening call of K folds of exactly ntr train and nte test rows
+    (indices drawn from max(ntr, nte, 8) + 5 data rows, one train row in 7
+    masked out), F families of 1 to djmax columns over 6."""
+    rng = np.random.default_rng(seed)
+    n = max(ntr, nte, 8) + 5
+    D = max(djmax + 1, 6)
+    data = rng.normal(0, 1.3, (n, D))
+    nulls = (rng.random((n, D)) < 0.05).astype(np.float64)
+    data[nulls > 0] = 0.0
+    tr_idx = rng.integers(0, n, (K, ntr))
+    tr_mask = (np.arange(ntr)[None] % 7 != 3).astype(np.float64).repeat(K, 0)
+    te_idx = rng.integers(0, n, (K, nte))
+    te_mask = np.ones((K, nte))
+    col_idx = np.zeros((F, djmax), np.int64)
+    col_mask = np.zeros((F, djmax))
+    for f in range(F):
+        w = 1 + f % djmax
+        col_idx[f, :w] = rng.choice(D, w, replace=False)
+        col_mask[f, :w] = 1.0
+
+    def t(a):
+        dtype = torch.int64 if a.dtype == np.int64 else torch.float32
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    return [t(a) for a in (data, nulls, col_idx, col_mask, tr_idx, tr_mask,
+                           te_idx, te_mask)]
+
+
+@pytest.mark.parametrize("ntr", [0, 1, 511, 512, 513, 9000, 100_000])
+def test_row_counts_at_the_leaf_edges_at_every_split(cuda, ntr):
+    """Train-row counts of no row, one, a leaf's edge (two leaves of 256
+    rows start at 512) and the CV path's 9,000 and 100,000 rows: the kernel
+    against its plain version, and the same bits at every S."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import whiten_leaves
+
+    args = _rows_inputs(cuda, ntr, 37 if ntr < 10_000 else 1000,
+                        seed=ntr % 1000)
+    assert whiten_leaves(ntr) == (1 if ntr < 512 else 2 if ntr < 1024
+                                  else 8)
+    got = _every_split(args)
+    if ntr > 1:
+        _check(args)
+    else:  # no row: a 0/0 mean, NaN parts where the plain version has them
+        want = ckde_cv_whiten_reference(*args)
+        for name, g, w in zip(NAMES, got, want):
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+
+
+def test_batch_of_150_at_every_split_alone_and_padded(cuda):
+    """Phase 4's program count (15 families × 10 folds) at 2,000 rows: every
+    S gives the same bits, and each family the bits it gets alone and
+    padded to dpad 16, at every S."""
+    args = _inputs(cuda, F=15, djmax=3, n=2000, K=10, seed=110)
+    K = 10
+    together = _every_split(args)
+    for f in (0, 7, 14):
+        width = int(args[3][f].sum())
+        mine = _program_parts(together, f, K, width)
+        for split in SPLITS:
+            for fam_args in (_family(args, f),
+                             _family(args, f, width=MAX_DPAD)):
+                alone = ckde_cv_whiten(*fam_args, split=split)
+                for name, a, b in zip(NAMES, mine,
+                                      _program_parts(alone, 0, K, width)):
+                    assert torch.equal(a, b), (f, split, name)
+
+
+def test_nan_row_in_the_last_leaf_at_every_split(cuda):
+    """A NaN cell in the last train row of every fold (the last leaf): the
+    families on that column get NaN parts in every fold, as in the plain
+    version, at every S."""
+    args = _rows_inputs(cuda, 2100, 300, F=6, djmax=3, seed=120)
+    col = int(args[2][0, 0])  # family 0's first column
+    args[0][args[4][:, -1], col] = math.nan
+    _check(args)
+    got = _every_split(args)
+    uses = ((args[2] == col) & (args[3] > 0)).any(1)
+    assert uses.any() and not uses.all()
+    assert torch.equal(torch.isnan(got[8]).all(1), uses)
+
+
+def test_out_of_range_indices_read_nan(cuda):
+    """A train index past the data in fold 1 and a column index past it in
+    family 2: those programs' statistics are NaN (no read out of bounds),
+    every other program keeps the bits of a call without the bad index, at
+    every S."""
+    args = _rows_inputs(cuda, 1500, 200, F=4, djmax=3, K=3, seed=130)
+    clean = ckde_cv_whiten(*args)
+    bad = list(args)
+    bad[4] = args[4].clone()
+    bad[4][1, 700] = args[0].shape[0]
+    bad[2] = args[2].clone()
+    bad[2][2, 0] = args[0].shape[1] + 3
+    got = _every_split(bad)
+    K = 3
+    lndiff = got[8]
+    assert torch.isnan(lndiff[:, 1]).all()          # fold 1, every family
+    assert torch.isnan(lndiff[2]).all()             # family 2, every fold
+    for f in (0, 1, 3):
+        for k in (0, 2):
+            g = f * K + k
+            assert torch.equal(got[0][g], clean[0][g]), (f, k)
+            assert torch.equal(got[3][g], clean[3][g]), (f, k)
+            assert torch.equal(lndiff[f, k], clean[8][f, k]), (f, k)
+
+
+def test_degenerate_fold_at_every_split(cuda):
+    """test_fold_without_train_rows_gives_nan's fold and a bandwidth that is
+    not positive definite: the same NaN parts and ``ok`` at every S."""
+    args = _inputs(cuda, F=8, djmax=2, seed=50, null=0.0)
+    args[2][0, 0] = 0
+    args[2][1] = torch.tensor([2, 0])
+    te0 = args[6][0][args[7][0] > 0]
+    args[1][:, 0] = 1.0
+    args[1][te0, 0] = 0.0
+    args[0][args[1] > 0] = 0.0
+    got = _every_split(args)
+    assert got[9][0, 0] == 0 and torch.isnan(got[8][0, 0])
+    args = _inputs(cuda, djmax=3, seed=40)
+    H = _spd_bandwidths(args, 40)
+    H[2, 1, 0, 0] = -1.0
+    got = _every_split(args, rule=None, bandwidths=H)
+    assert torch.isnan(got[8][2, 1]) and got[9][2, 1] == 1
+
+
+def test_wrapper_rejects_a_split_the_kernel_does_not_take(cuda):
+    args = _rows_inputs(cuda, 100, 10)
+    for split in (0, 3, 16):
+        with pytest.raises(ValueError, match="split"):
+            ckde_cv_whiten(*args, split=split)

@@ -222,3 +222,144 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = torch.zeros((10, MAX_PARENTS + 2), device=cuda)
     with pytest.raises(ValueError, match="parents"):
         lg_cv_stats(big, big, None, *wide)
+
+
+SPLITS = (1, 2, 4, 8)
+
+
+def _every_split(args):
+    """The kernel at every cluster size S the entry point takes and with
+    one fold a program and the most, each result (scores, Grams, BICs)
+    bit-equal to S = 1's with one fold a program, NaN in the same places;
+    returns that one."""
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import fold_chunk
+
+    K = 1 if args[2] is None else args[2].shape[0]
+    most = fold_chunk(K, args[4].shape[1] + 2)
+    first = lg_cv_stats(*args, chunk=1, split=1)
+    for chunk in sorted({1, most}):
+        for split in SPLITS:
+            got = lg_cv_stats(*args, chunk=chunk, split=split)
+            torch.cuda.synchronize()
+            for name in ("scores", "gram", "bic"):
+                a, b = getattr(first, name), getattr(got, name)
+                if a is None:
+                    assert b is None
+                    continue
+                label = (chunk, split, name)
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), label
+                assert torch.equal(torch.nan_to_num(a),
+                                   torch.nan_to_num(b)), label
+    return first
+
+
+@pytest.mark.parametrize("n", [0, 1, 511, 512, 513, 9000, 100_000])
+def test_row_counts_at_the_leaf_edges_at_every_split(cuda, n):
+    """Row counts of no row, one, a leaf's edge (two leaves of 256 rows
+    start at 512) and 9,000 and 100,000 rows, in the CV form (2 folds of
+    the frame) and the holdout form (a test frame of its own): the kernel
+    against its float64 plain version where the plain version is finite,
+    and the same bits at every S."""
+    from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_leaves
+
+    assert lg_leaves(n) == (1 if n < 512 else 2 if n < 1024 else 8)
+    frame = _frame(cuda, n=max(n, 2), D=6, K=2, seed=n % 1000)
+    frame = [t[:n] if i < 2 else t[:, :n] for i, t in enumerate(frame)]
+    fams = [(0, []), (1, [0]), (2, [0, 1]), (3, [4])]
+    values, valid = frame[0], frame[1]
+    cv = [values, valid, frame[2].contiguous(),
+          *family_tensors(fams, np.float32, cuda), values, valid,
+          frame[3].contiguous()]
+    holdout = [values, valid, None, *family_tensors(fams, np.float32, cuda),
+               values[: max(n // 3, 1)].contiguous(),
+               valid[: max(n // 3, 1)].contiguous(), None]
+    for args in (cv, holdout):
+        _every_split(args)
+        if n > 1:
+            _check(args)
+
+
+def test_batch_of_150_at_every_split_alone_and_padded(cuda):
+    """15 families × 10 folds (150 programs) at 3,000 rows: every S gives
+    the same bits, and each family the bits it gets alone and padded by a
+    wider family to W 17 (templated) and W 20 (the runtime width), at every
+    S."""
+    frame = _frame(cuda, K=10)
+    fams = [(v, list(range(v + 1, v + 1 + v % 3))) for v in range(15)]
+    together = _every_split(_args(frame, fams, cuda))
+    for f in (0, 4, 14):
+        w = len(fams[f][1]) + 2
+        for extra in ([], [(19, list(range(15)))], [(19, list(range(18)))]):
+            for split in SPLITS:
+                alone = lg_cv_stats(*_args(frame, [fams[f]] + extra, cuda),
+                                    split=split)
+                assert torch.equal(alone.scores[0], together.scores[f])
+                assert torch.equal(alone.bic[0], together.bic[f])
+                assert torch.equal(alone.gram[0, :, :w - 1, :w - 1],
+                                   together.gram[f, :, :w - 1, :w - 1])
+                assert torch.equal(alone.gram[0, :, :w - 1, -1],
+                                   together.gram[f, :, :w - 1, -1])
+                assert torch.equal(alone.gram[0, :, -1, -1],
+                                   together.gram[f, :, -1, -1])
+
+
+def test_nan_row_in_the_last_leaf_at_every_split(cuda):
+    """A NaN cell in the frame's last row (the last leaf of every fold):
+    every family on that column gets −inf in every fold, as in the plain
+    version, at every S, and every other family stays finite."""
+    values, valid, train, test = _frame(cuda, n=2100, D=8, K=3)
+    values = values.clone()
+    values[-1, 3] = math.nan
+    fams = [(3, []), (4, [3]), (5, []), (6, [5])]
+    args = _args([values, valid, train, test], fams, cuda)
+    _check(args)
+    got = _every_split(args)
+    s = got.scores.cpu()
+    assert bool((s[:2] == -math.inf).all()) and bool(s[2:].isfinite().all())
+
+
+def test_out_of_range_indices_read_nan(cuda):
+    """A variable index past the frame's columns: that family's scores and
+    BICs are −inf (no read out of bounds), the other families keep the
+    bits they get without it, at every S."""
+    frame = _frame(cuda, n=1500, D=6, K=3)
+    fams = [(0, [1]), (2, []), (3, [4])]
+    clean = lg_cv_stats(*_args(frame, fams, cuda))
+    args = _args(frame, fams + [(0, [])], cuda)
+    args[3] = args[3].clone()
+    args[3][3] = 6
+    got = _every_split(args)
+    assert bool((got.scores[3] == -math.inf).all())
+    assert bool((got.bic[3] == -math.inf).all())
+    assert torch.equal(got.scores[:3], clean.scores)
+    assert torch.equal(got.bic[:3], clean.bic)
+
+
+def test_degenerate_folds_at_every_split(cuda):
+    """test_degenerate_folds_and_nans's CV batch (variance 0, two training
+    rows, an all-null column, a NaN cell): the same −inf pattern and bits
+    at every S."""
+    values, valid, train, test = _frame(cuda, n=1500, D=8, K=4)
+    values, valid, train = values.clone(), valid.clone(), train.clone()
+    values[:, 0] = 0.0
+    valid[:, 7] = 0.0
+    values[:, 7] = 0.0
+    values[int(torch.nonzero(test[0])[0, 0]), 1] = math.nan
+    keep = torch.nonzero(train[2] * valid[:, 5])[:2, 0]
+    train[2] = 0.0
+    train[2, keep] = 1.0
+    fams = [(0, []), (0, [2]), (1, []), (1, [2]), (2, [3]), (3, [2, 4]),
+            (7, []), (4, [7]), (5, [])]
+    got = _every_split(_args([values, valid, train, test], fams, cuda))
+    s = got.scores.cpu()
+    assert bool((s[:8] == -math.inf).all()) and bool(torch.isfinite(s[8]))
+
+
+def test_wrapper_rejects_a_split_the_kernel_does_not_take(cuda):
+    frame = _frame(cuda, n=200, D=4, K=2)
+    for split in (0, 3, 16):
+        with pytest.raises(ValueError, match="split"):
+            lg_cv_stats(*_args(frame, [(0, [1])], cuda), split=split)
+    for chunk in (0, 3):
+        with pytest.raises(ValueError, match="chunk"):
+            lg_cv_stats(*_args(frame, [(0, [1])], cuda), chunk=chunk)
