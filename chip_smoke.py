@@ -40,7 +40,11 @@ the script exits non-zero and prints no result:
    at every cluster size S (1, 2, 4, 8) on those inputs and on the mix's
    and the one-parent LG families: bit-equal to the planned launch,
    timed, and each family alone and in its batch, with each kernel's
-   registers and spills from the build;
+   registers and spills from the build; the fold reduce at every cluster
+   size S (1 to min(K, 8)) on those inputs and, against its plain version
+   and timed, on rows made from a seed at the 100,000-row call's shape
+   (F 15, K 10, 10,000 test rows, -inf and NaN rows of weight 0, one
+   degenerate fold), each S bit-equal to the planned launch;
 5. the KDE kernel (``kde_logl``) against its plain version: small ragged
    cases (G 1 and 2, d 1 to 20, an all-invalid first train tile) and the
    TPU kernel's own shape (10,240 × 10,240 rows, d 3), timed with its
@@ -81,10 +85,11 @@ the script exits non-zero and prints no result:
    linear-Gaussian batch) and two-route difference (the holdout batch
    against a fitted factor per node; a gate: the validation cache that
    ``hc`` seeds holds every node's ``vlocal_score`` bit for bit, on the
-   start and the learned model); the whitening (the learned model's
-   families, both channels) and the LG kernel (every one-parent family,
-   both channels) at every S, bit-equal to the planned launch, timed, and
-   each family alone and in its batch; one LG CV call's host ms on both
+   start and the learned model); the whitening and the fold reduce (the
+   learned model's families, both channels) and the LG kernel (every
+   one-parent family, both channels) at every S, bit-equal to the planned
+   launch, timed, and (whitening, LG) each family alone and in its batch;
+   one LG CV call's host ms on both
    routes;
    a ``score="cv-lik"`` search (no validation
    guard): its iterations and how many of its steps undo an earlier one;
@@ -826,8 +831,9 @@ def compare_reduce(torch, args, label, card=None, phase="4 main path",
     """The fold-reduce kernel against its plain version's float64 sums of
     the same float32 rows at :data:`REDUCE_RTOL`; timed, with its bound,
     when ``card`` is given; printed unless ``quiet``."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _sm_count
     from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
-        ckde_cv_fold_reduce, ckde_cv_fold_reduce_reference)
+        _reduce_plan, ckde_cv_fold_reduce, ckde_cv_fold_reduce_reference)
 
     out, wte, lndiff, ok = args
     got = ckde_cv_fold_reduce(*args)
@@ -844,6 +850,7 @@ def compare_reduce(torch, args, label, card=None, phase="4 main path",
     err = float(diff.max()) if diff.numel() else 0.0
     F, K, nte = out.shape
     fields = {"case": label, "F_K_nte": f"{F}x{K}x{nte}",
+              "cluster": _reduce_plan(F, K, _sm_count(out.device)),
               "max_abs_err": f"{err:.3e}",
               "nan_families": int(torch.isnan(got).sum())}
     result = {"err": err}
@@ -857,6 +864,51 @@ def compare_reduce(torch, args, label, card=None, phase="4 main path",
     if not quiet:
         say(phase, kernel="ckde_cv_fold_reduce", **fields)
     return result
+
+
+def reduce_rows(torch, F, K, nte, seed):
+    """Fold-reduce arguments made from ``seed``: rows of log-likelihood
+    values, weights 1 (a few 0.5) with about one row in 7 at 0, those rows
+    -inf or NaN in turn (both count 0), lndiff around -1.4, and one
+    degenerate fold (ok 0: NaN for its family)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(-4.0, 2.0, (F, K, nte)).astype(np.float32)
+    wte = np.where(rng.random((F, K, nte)) < 0.05, 0.5, 1.0)
+    zero = rng.random((F, K, nte)) < 1 / 7
+    wte[zero] = 0.0
+    rows[zero] = np.where(np.arange(zero.sum()) % 2 == 0, -np.inf, np.nan)
+    ok = np.ones((F, K))
+    ok[F // 2, K // 2] = 0.0
+    lndiff = rng.normal(-1.4, 0.3, (F, K))
+    return [torch.as_tensor(rows, device="cuda"),
+            torch.as_tensor(wte, dtype=torch.float32, device="cuda"),
+            torch.as_tensor(lndiff, device="cuda"),
+            torch.as_tensor(ok, dtype=torch.float32, device="cuda")]
+
+
+def reduce_split_sweep(torch, args, label, phase):
+    """The fold reduce on ``args`` at every cluster size S it takes (1 to
+    min(K, 8)), each result held bit-equal to the planned launch's and
+    timed (one launch per window)."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _sm_count
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        _reduce_plan, ckde_cv_fold_reduce)
+
+    F, K, _ = args[0].shape
+    want = ckde_cv_fold_reduce(*args).view(torch.int32)
+    times = {}
+    for split in range(1, min(K, 8) + 1):
+        got = ckde_cv_fold_reduce(*args, split=split)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want):
+            raise AssertionError(f"fold reduce {label} S {split}: not "
+                                 "bit-equal to the planned launch")
+        ms = cuda_median_ms(
+            torch, lambda: ckde_cv_fold_reduce(*args, split=split))
+        times[f"S{split}_ms"] = f"{ms:.4f}"
+    say(phase, kernel="ckde_cv_fold_reduce", case=label,
+        planned_S=_reduce_plan(F, K, _sm_count(args[0].device)),
+        bit_equal_at_every_S=True, **times)
 
 
 def lg_inputs_cv(engine, fams):
@@ -1432,8 +1484,16 @@ def phase_main_path(torch, frame32, frame64, k, card):
                           [(v, ps) for v, ps, _ in batches[0]],
                           "main-path-inputs", "4 main path")
     parts = ckde_cv_whiten(*args, **kw)
-    reduce = compare_reduce(torch, reduce_inputs(torch, parts),
-                            "main-path-inputs", card)
+    reduce_args = reduce_inputs(torch, parts)
+    reduce = compare_reduce(torch, reduce_args, "main-path-inputs", card)
+    say_ptxas("4 main path", "cv_whiten.cu", "fold_reduce_kernel")
+    reduce_split_sweep(torch, reduce_args, "main-path-inputs", "4 main path")
+    # the 100,000-row CV call's fold sums (F 15, K 10, 10,000 test rows a
+    # fold) on rows made from a seed
+    rows_100k = reduce_rows(torch, len(batches[0]), k, 10_000, seed=100_000)
+    compare_reduce(torch, rows_100k, "rows-100k", card)
+    reduce_split_sweep(torch, rows_100k, "rows-100k", "4 main path")
+    del rows_100k
     plain_ops, plain_ms, _ = device_kernels(
         torch, lambda: ckde_cv_whiten_reference(*args, **kw))
     kernel_ops, kernel_ms, _ = device_kernels(
@@ -2106,12 +2166,15 @@ def hc_kernel_cases(torch, score, model, card):
 
 
 def split_cases(torch, score, model):
-    """Both redesigned kernels at every cluster size S on the inputs that
-    ``hc``'s score builds: the whitening of ``model``'s families on the CV
-    and holdout channels and the LG kernel on every one-parent family of
-    both (the cache pass's), bit-equal to the planned launch and timed,
-    and each family alone and in its batch; the builds' registers and
-    spills of both kernels."""
+    """The cluster kernels at every cluster size S on the inputs that
+    ``hc``'s score builds: the whitening and the fold reduce of
+    ``model``'s families on the CV and holdout channels and the LG kernel
+    on every one-parent family of both (the cache pass's), bit-equal to
+    the planned launch and timed, and (whitening, LG) each family alone
+    and in its batch; the builds' registers and spills of the whitening
+    and LG kernels."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_whiten
+
     say_ptxas("8 hc", "cv_whiten.cu", "whiten_kernel")
     say_ptxas("8 hc", "lg_cv.cu", "lg_kernel")
     nodes = model.nodes()
@@ -2120,6 +2183,9 @@ def split_cases(torch, score, model):
                             ("holdout", score.holdout_lik._engine)):
         args, kw = engine_whiten_inputs(torch, engine, learned)
         whiten_split_sweep(torch, args, kw, f"hc-{channel}-learned", "8 hc")
+        reduce_split_sweep(
+            torch, reduce_inputs(torch, ckde_cv_whiten(*args, **kw)),
+            f"hc-{channel}-learned", "8 hc")
         whiten_alone_in_batch(torch, engine, learned,
                               f"hc-{channel}-learned", "8 hc")
     one_parent = [(t, [s]) for t in nodes for s in nodes if s != t]

@@ -24,7 +24,7 @@
 // output is one rounding of a float64 value.
 //
 // 2. ckde_cv_fold_reduce_f32 computes `_flash_reduce` (pybnesian_tpu/ops/
-// kde.py:404, XLA there too), one block per family:
+// kde.py:404, XLA there too), one thread-block cluster per family:
 //
 //   out[f] = sum_k (ok[g] ? sum_i rows[g, i] wte[g, i] + lndiff[g] *
 //                           sum_i wte[g, i] : NaN),  g = f * K + k
@@ -81,6 +81,25 @@
 //   a NaN cell of a row reaches every column of it there too.
 // - An out-of-range row or column index reads NaN; nothing is read out of
 //   bounds.
+//
+// Design of the fold reduce. Its work is two loads and a float64 fma chain
+// per test row, so its time is the latency of the loads and of the block's
+// reduction tree, paid once per fold by a block that walks its folds one
+// after another. So:
+//
+// - A thread-block cluster of S blocks per family (S up to the portable 8
+//   and up to K, chosen by the wrapper from F and the SM count): rank q
+//   takes folds q, q + S, ..., so F S blocks work where F did.
+// - A rank's folds go side by side, up to kMaxFolds at a time: each thread
+//   loads R rows of every fold before it adds them, in each fold's own
+//   row order, and one block_sum (three barriers) merges all their sums.
+// - The folds are added in order by one thread of rank 0, from the values
+//   that every rank writes into rank 0's shared memory through distributed
+//   shared memory: no atomics, no scratch buffer, one launch.
+// - The order of every sum is the one-block order (thread t's rows t, t +
+//   256, ... of a fold, the block tree, the folds 0 .. K - 1), so the
+//   result is the same bits at every S, and a family's result does not
+//   depend on the others in its batch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -101,12 +120,23 @@ constexpr int kLeafRows = 256;   // least rows of a leaf, with two or more
 constexpr int kMaxSplit = 8;     // most blocks of a cluster (portable)
 constexpr int kResidentBytes = 160 * 1024;  // most shared memory a rank's
                                             // staged rows may take
+constexpr int kMaxFolds = 18;  // folds a rank of the fold reduce sums side
+                               // by side: two sums each in one block sum
+static_assert(2 * kMaxFolds <= kMaxSums, "a round's sums in one block sum");
 constexpr double kLog2Pi = 1.8378770664093454835606594728112;  // log(2 pi)
 
 // Rows a thread has in flight while gathering. Deeper pipelines measured
 // slower at phase 4's inputs (4 and 8 rows: their slots cost blocks per
 // SM; tools/kernel_sweeps.py stages, PERF.md), so two at every width.
 __host__ __device__ constexpr int stages_for(int) { return 2; }
+
+// Rows of each of nf folds that a thread of the fold reduce loads before it
+// adds them: as many as keep the batch's 2 nf R floats and the nf folds'
+// float64 sums (4 nf registers) within 40 registers, at least one. Above
+// that ptxas held four folds at 64 registers by spilling (R 4 at nf 4).
+__host__ __device__ constexpr int reduce_batch(int nf) {
+  return 20 / nf - 2 > 1 ? 20 / nf - 2 : 1;
+}
 
 __device__ __forceinline__ double qnan() {
   return __longlong_as_double(0x7ff8000000000000LL);
@@ -742,32 +772,117 @@ __global__ void __launch_bounds__(kThreads)
   if (split > 1) cluster_wait();  // no block leaves while another reads it
 }
 
-// One block per family: each fold's weighted row sum and weight sum in the
-// block's fixed tree, then the folds in order by one thread.
+// A thread-block cluster of `split` blocks per family f: rank q sums the
+// folds k = q, q + split, q + 2 split, ... in rounds of NF side by side,
+// round r taking folds [r NF split, (r + 1) NF split). For each fold of
+// a round, thread t sums rows t, t + 256, ... in order (fma(v, w, s0),
+// s1 + w), loading R rows of every fold of the round before it adds them;
+// one block_sum then merges all the round's 2 NF sums, each in the tree
+// that a block_sum of its fold's two sums alone would use. The rank
+// writes each fold's value into rank 0's shared memory (distributed
+// shared memory) at its place in the round, and after a cluster barrier
+// one thread of rank 0 adds the round's folds in order to the family's
+// total. Every fold's value and the order of the folds are those of one
+// block summing the folds one after another, at every split.
+template <int NF>
 __global__ void __launch_bounds__(kThreads)
-    fold_reduce_kernel(const float* rows, const float* wte,
-                       const double* lndiff, const float* ok, float* out,
-                       int K, int nte) {
+    fold_reduce_kernel(const float* __restrict__ rows,
+                       const float* __restrict__ wte,
+                       const double* __restrict__ lndiff,
+                       const float* __restrict__ ok, float* __restrict__ out,
+                       int K, int nte, int split) {
+  constexpr int R = reduce_batch(NF);
   __shared__ double s_red[kWarps][kMaxSums];
-  __shared__ double s_sum[2];
-  const int f = blockIdx.x;
+  __shared__ double s_sum[kMaxSums];
+  __shared__ double s_fold[2][NF * kMaxSplit];  // rank 0's: a round's folds
+  const int f = blockIdx.x / split, q = blockIdx.x % split;
+  const int t = threadIdx.x;
+  const int per_round = NF * split;
+  double* dst = &s_fold[0][0];  // rank 0's s_fold
+  if (split > 1) {
+    dst = cg::this_cluster().map_shared_rank(dst, 0);
+    cluster_arrive();  // started: rank 0's shared memory may be written
+  }
+  const size_t stride = static_cast<size_t>(split) * nte;  // fold j to j + 1
   double total = 0.0;
-  for (int k = 0; k < K; ++k) {
-    const size_t g = static_cast<size_t>(f) * K + k;
-    const float* rg = rows + g * nte;
-    const float* wg = wte + g * nte;
-    double s[2] = {0.0, 0.0};
-    for (int i = threadIdx.x; i < nte; i += kThreads) {
-      const double w = wg[i];
-      const double v = w > 0.0 ? static_cast<double>(rg[i]) : 0.0;
-      s[0] = fma(v, w, s[0]);
-      s[1] = __dadd_rn(s[1], w);
+  for (int k0 = 0, r = 0; k0 < K; k0 += per_round, ++r) {
+    const int first = k0 + q;  // the rank's first fold of the round
+    const size_t g0 = static_cast<size_t>(f) * K + first;
+    // thread j < NF: the term of the round's fold j, read before the rows
+    const int kt = first + t * split;
+    const bool term = t < NF && kt < K;
+    double ld = 0.0;
+    float okt = 0.0f;
+    if (term) {
+      ld = lndiff[g0 + static_cast<size_t>(t) * split];
+      okt = ok[g0 + static_cast<size_t>(t) * split];
+    }
+    const float* rg = rows + g0 * nte;
+    const float* wg = wte + g0 * nte;
+    double s[2 * NF];
+#pragma unroll
+    for (int e = 0; e < 2 * NF; ++e) s[e] = 0.0;
+    for (int i0 = t; i0 < nte; i0 += R * kThreads) {
+      float v[NF][R], w[NF][R];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          const int i = i0 + m * kThreads;
+          const bool in = first + j * split < K && i < nte;
+          const size_t at = j * stride + i;
+          v[j][m] = in ? rg[at] : 0.0f;
+          w[j][m] = in ? wg[at] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          if (first + j * split < K && i0 + m * kThreads < nte) {
+            const double wd = w[j][m];
+            const double vd = wd > 0.0 ? static_cast<double>(v[j][m]) : 0.0;
+            s[2 * j] = fma(vd, wd, s[2 * j]);
+            s[2 * j + 1] = __dadd_rn(s[2 * j + 1], wd);
+          }
+        }
+      }
     }
     block_sum(s, s_red, s_sum);
-    const double fold = fma(lndiff[g], s_sum[1], s_sum[0]);
-    total = __dadd_rn(total, ok[g] > 0.0f ? fold : qnan());
+    if (split > 1 && r == 0) cluster_wait();  // every rank has started
+    if (term) {
+      const double fold = fma(ld, s_sum[2 * t + 1], s_sum[2 * t]);
+      dst[(r & 1) * NF * kMaxSplit + q + t * split] =
+          okt > 0.0f ? fold : qnan();
+    }
+    cluster_sync(split);  // the round's folds are in rank 0's s_fold
+    if (q == 0 && t == 0) {
+      const int n = min(per_round, K - k0);
+      for (int e = 0; e < n; ++e) total = __dadd_rn(total, s_fold[r & 1][e]);
+    }
   }
-  if (threadIdx.x == 0) out[f] = static_cast<float>(total);
+  if (q == 0 && t == 0) out[f] = static_cast<float>(total);
+}
+
+template <int NF>
+cudaError_t launch_reduce(const float* rows, const float* wte,
+                          const double* lndiff, const float* ok, float* out,
+                          int F, int K, int nte, int split, cudaStream_t s) {
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(F * split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fold_reduce_kernel<NF>, rows, wte, lndiff, ok, out, K, nte,
+      split);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // The stage of a launch: a rank's train rows resident when they fit in
@@ -868,15 +983,45 @@ extern "C" int ckde_cv_whiten_f32(
 
 // Launches on `stream` without synchronising; returns the launch's CUDA
 // error code. rows and wte (F, K, nte) float32, lndiff (F, K) float64, ok
-// (F, K) float32, out (F,) float32; 1 <= F < 2^31, K >= 1, nte >= 0.
+// (F, K) float32, out (F,) float32; 1 <= F, K >= 1, nte >= 0, and the
+// launch plan: `split` S in 1 .. min(K, 8), the blocks of each family's
+// cluster, with F * S < 2^31; anything else returns cudaErrorInvalidValue.
+// The result is the same bits at every S.
 extern "C" int ckde_cv_fold_reduce_f32(const float* rows, const float* wte,
                                        const double* lndiff, const float* ok,
                                        float* out, int F, int K, int nte,
-                                       void* stream) {
-  if (F < 1 || K < 1 || nte < 0) {
+                                       int split, void* stream) {
+  if (F < 1 || K < 1 || nte < 0 || split < 1 || split > kMaxSplit ||
+      split > K || static_cast<long long>(F) * split >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  fold_reduce_kernel<<<F, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, wte, lndiff, ok, out, K, nte);
-  return static_cast<int>(cudaGetLastError());
+  const int folds = (K + split - 1) / split;  // of rank 0
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (folds < kMaxFolds ? folds : kMaxFolds) {
+#define REDUCE_CASE(NF) \
+  case NF:              \
+    return static_cast<int>(                                              \
+        launch_reduce<NF>(rows, wte, lndiff, ok, out, F, K, nte, split, s));
+    REDUCE_CASE(1)
+    REDUCE_CASE(2)
+    REDUCE_CASE(3)
+    REDUCE_CASE(4)
+    REDUCE_CASE(5)
+    REDUCE_CASE(6)
+    REDUCE_CASE(7)
+    REDUCE_CASE(8)
+    REDUCE_CASE(9)
+    REDUCE_CASE(10)
+    REDUCE_CASE(11)
+    REDUCE_CASE(12)
+    REDUCE_CASE(13)
+    REDUCE_CASE(14)
+    REDUCE_CASE(15)
+    REDUCE_CASE(16)
+    REDUCE_CASE(17)
+    REDUCE_CASE(18)
+#undef REDUCE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -17,7 +17,8 @@ Pallas kernel). What lives here:
   for CUDA tensors, with launch counters ``.launches``;
 - :func:`whiten_leaves` and :func:`_launch_plan`, the whitening's fixed
   leaves of a program's train rows and the cluster size S that spreads
-  them over a thread-block cluster;
+  them over a thread-block cluster; :func:`_reduce_plan`, the cluster size
+  S that spreads a family's folds over the fold reduce's cluster;
 - the ctypes binding of those kernels (built at first use by
   :mod:`.cuda_build`).
 
@@ -25,8 +26,10 @@ Both kernels sum in float64 in an order fixed by the shapes (ntr, nte, K)
 alone, no atomics: the whitening over :func:`whiten_leaves` leaves of
 fixed row strides per thread, a fixed tree over the block and a balanced
 tree over the leaves, whichever of the S blocks of its cluster sweeps a
-leaf; the fold sums one block per family. So a family's whitened rows and
-CV score are the same bits alone and in any batch, at every S, and, since
+leaf; the fold sums each fold in one block's fixed order and tree and the
+folds in order, whichever of the S blocks of its family's cluster sums a
+fold. So a family's whitened rows and CV score are the same bits alone and
+in any batch, at every S, and, since
 every sum is a column's or an entry's own, whatever the batch's widest
 family. The torch reductions of the plain version choose their order by
 shape and device.
@@ -75,6 +78,9 @@ MAX_SPLIT = 8
 TARGET_BLOCKS_PER_SM = 4
 #: widest family that the plan gives TARGET_BLOCKS_PER_SM blocks per SM
 WIDE_DPAD = 8
+#: most folds a block of the fold reduce sums side by side in one round
+#: (kMaxFolds): their two sums each go through one block sum of kMaxSums
+MAX_FOLDS = 18
 
 
 def whiten_leaves(ntr):
@@ -108,6 +114,17 @@ def _launch_plan(G, ntr, dpad, sm_count):
     while split < need and split < leaves:
         split *= 2
     return split
+
+
+def _reduce_plan(F, K, sm_count):
+    """S, the blocks of the thread-block cluster that sums each of F
+    families' K folds on a card of ``sm_count`` SMs: enough for F·S to
+    reach the SM count, at most :data:`MAX_SPLIT` and K, then the least S
+    that leaves its ranks as few folds each (rank q sums folds q, q + S,
+    ...): a block more shortens nothing. S only decides which block sums
+    which fold: the result is the same at every S."""
+    split = min(K, MAX_SPLIT, -(-sm_count // F))
+    return -(-K // -(-K // split))
 
 
 def _check_split(split):
@@ -354,7 +371,7 @@ def ckde_cv_whiten(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
 ckde_cv_whiten.launches = 0
 
 
-def ckde_cv_fold_reduce(out, wte, lndiff, ok):
+def ckde_cv_fold_reduce(out, wte, lndiff, ok, *, split=None):
     """(F,) float32 CV log-likelihood of F families from the pairs kernel's
     rows ``out`` (F, K, nte) float32, the test weights ``wte`` (F, K, nte)
     float32, ``lndiff`` (F, K) float64 and ``ok`` (F, K) float32, all
@@ -363,7 +380,8 @@ def ckde_cv_fold_reduce(out, wte, lndiff, ok):
 
     CPU tensors take :func:`ckde_cv_fold_reduce_reference`. CUDA tensors
     launch the kernel, counted in ``ckde_cv_fold_reduce.launches``, or
-    raise."""
+    raise; its cluster size is ``split`` (1 to min(K, 8)) when given, else
+    :func:`_reduce_plan`'s, and gives the same bits either way."""
     if not isinstance(out, torch.Tensor) or out.dim() != 3:
         raise ValueError("out must be an (F, K, nte) torch.Tensor")
     F, K, nte = out.shape
@@ -372,6 +390,9 @@ def ckde_cv_fold_reduce(out, wte, lndiff, ok):
             "lndiff": torch.float64, "ok": torch.float32},
            {"out": (F, K, nte), "wte": (F, K, nte), "lndiff": (F, K),
             "ok": (F, K)}, out.device)
+    if split is not None and split not in range(1, min(K, MAX_SPLIT) + 1):
+        raise ValueError(f"split {split!r} is not in 1..min(K {K}, "
+                         f"{MAX_SPLIT})")
     if out.device.type == "cpu":
         return ckde_cv_fold_reduce_reference(out, wte, lndiff, ok)
     if out.device.type != "cuda":
@@ -381,14 +402,20 @@ def ckde_cv_fold_reduce(out, wte, lndiff, ok):
         return result
     if K == 0:
         return result.zero_()
+    if split is None:
+        split = _reduce_plan(F, K, _sm_count(out.device))
+    if F * split >= 2**31:
+        raise ValueError(f"{F} families of {split} blocks exceed the grid's "
+                         "2**31 - 1")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = _load_library().ckde_cv_fold_reduce_f32(
             out.data_ptr(), wte.data_ptr(), lndiff.data_ptr(), ok.data_ptr(),
-            result.data_ptr(), F, K, nte, stream)
+            result.data_ptr(), F, K, nte, split, stream)
     if err != 0:
         raise RuntimeError(f"ckde_cv_fold_reduce kernel launch failed (F "
-                           f"{F}, K {K}, nte {nte}): CUDA error {err}")
+                           f"{F}, K {K}, nte {nte}, split {split}): CUDA "
+                           f"error {err}")
     ckde_cv_fold_reduce.launches += 1
     return result
 
@@ -405,7 +432,7 @@ def _load_library():
     ]
     fn.restype = ctypes.c_int
     fn = lib.ckde_cv_fold_reduce_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int

@@ -343,7 +343,8 @@ def test_cv_whiten_source_matches_its_binding():
     """The C entry points of csrc/cv_whiten.cu take their arguments in the
     order the wrappers pass them (19 pointers, 9 ints, the last the
     launch plan's cluster size, and the stream for the whitening; 5
-    pointers, 3 ints and the stream for the fold sums),
+    pointers, 4 ints, the last the cluster size, and the stream for the
+    fold sums),
     the kernel's widest family is the wrapper's, and nothing sums with
     atomics: the order of every sum is fixed."""
     import re
@@ -364,10 +365,84 @@ def test_cv_whiten_source_matches_its_binding():
         "zv_te", "no_ev", "lm_const", "wte", "lndiff", "ok", "n", "D", "F",
         "K", "ntr", "nte", "dpad", "rule", "split", "stream"]
     assert params("ckde_cv_fold_reduce_f32") == [
-        "rows", "wte", "lndiff", "ok", "out", "F", "K", "nte", "stream"]
+        "rows", "wte", "lndiff", "ok", "out", "F", "K", "nte", "split",
+        "stream"]
     binding = Path(cw.__file__).read_text()
     assert "[ctypes.c_void_p] * 19 + [ctypes.c_int] * 9" in binding
-    assert "[ctypes.c_void_p] * 5 + [ctypes.c_int] * 3" in binding
+    assert "[ctypes.c_void_p] * 5 + [ctypes.c_int] * 4" in binding
     constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
     assert int(constants["kMaxD"]) == cw.MAX_DPAD
     assert "atomicAdd" not in text and "atomicCAS" not in text
+
+
+# (F, K): phase 4's CV call, ``hc``'s CV batches (F 1–8 and its cache
+# pass's 56), the holdout batches (K 1), the 100,000-row call, a wide batch
+# and folds past a round of MAX_FOLDS
+REDUCE_SHAPES = [(15, 10), (1, 10), (2, 10), (8, 10), (56, 10), (1, 1),
+                 (8, 1), (80, 10), (150, 10), (1, 3), (4, 17), (1, 40),
+                 (2, 200), (1000, 10)]
+
+
+def _rank_folds(K, split, max_folds):
+    """The fold reduce's rounds, as csrc/cv_whiten.cu's fold_reduce_kernel
+    takes them: {rank: [folds of round 0, of round 1, ...]}, rank q taking
+    folds q, q + S, ... and each round the next max_folds of them."""
+    rounds = -(-K // (max_folds * split))
+    return {q: [[k for j in range(max_folds)
+                 if (k := r * max_folds * split + q + j * split) < K]
+                for r in range(rounds)]
+            for q in range(split)}
+
+
+@pytest.mark.parametrize("sms", [1, 16, 78, 132])
+@pytest.mark.parametrize("F,K", REDUCE_SHAPES)
+def test_reduce_plan(F, K, sms):
+    """The fold reduce's cluster size: 1 ≤ S ≤ min(K, 8); every fold goes
+    to exactly one rank, each round's folds in order and a block's sums
+    within one block sum (kMaxSums / 2 folds); F·S reaches the SM count
+    unless S is at K or 8; no smaller S would leave its ranks as few
+    folds."""
+    import re
+    from pathlib import Path
+
+    from pybnesian_tpu_torch.ops import cv_whiten_kernel as cw
+
+    text = (Path(cw.__file__).resolve().parent.parent / "csrc"
+            / "cv_whiten.cu").read_text()
+    constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    max_folds = int(constants["kMaxFolds"])
+    assert max_folds == cw.MAX_FOLDS == int(constants["kMaxSums"]) // 2
+    assert cw.MAX_SPLIT == int(constants["kMaxSplit"])
+    split = cw._reduce_plan(F, K, sms)
+    assert 1 <= split <= min(K, 8)
+    ranks = _rank_folds(K, split, max_folds)
+    folds = sorted(k for rounds in ranks.values() for r in rounds for k in r)
+    assert folds == list(range(K))
+    assert all(len(r) <= max_folds for rounds in ranks.values()
+               for r in rounds)
+    # round r of every rank covers folds [r·NF·S, (r + 1)·NF·S): rank 0
+    # adds them in order as the round ends
+    for r in range(len(ranks[0])):
+        span = sorted(k for q in ranks for k in ranks[q][r])
+        assert span == list(range(r * max_folds * split,
+                                  min(K, (r + 1) * max_folds * split)))
+    per_rank = -(-K // split)
+    assert F * split >= sms or split == min(K, 8) or (
+        -(-K // min(K, 8, -(-sms // F))) == per_rank)
+    if split > 1:
+        assert -(-K // (split - 1)) > per_rank
+
+
+def test_reduce_wrapper_rejects_a_split_the_kernel_does_not_take():
+    """On the CPU too: S outside 1..min(K, 8) raises before any launch."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ckde_cv_fold_reduce
+
+    F, K, nte = 2, 3, 5
+    args = (torch.zeros((F, K, nte)), torch.ones((F, K, nte)),
+            torch.zeros((F, K), dtype=torch.float64), torch.ones((F, K)))
+    for split in (0, 4, 9, -1):
+        with pytest.raises(ValueError, match="split"):
+            ckde_cv_fold_reduce(*args, split=split)
+    for split in (1, 2, 3):
+        assert torch.equal(ckde_cv_fold_reduce(*args, split=split),
+                           ckde_cv_fold_reduce(*args))

@@ -441,3 +441,113 @@ def test_wrapper_rejects_a_split_the_kernel_does_not_take(cuda):
     for split in (0, 3, 16):
         with pytest.raises(ValueError, match="split"):
             ckde_cv_whiten(*args, split=split)
+
+
+# The fold reduce's shapes: folds of one round and past the 8 blocks of a
+# cluster, test rows at a block's edges (256 threads) and at 100,000 rows'
+# folds, one family to a wide batch.
+REDUCE_K = (1, 3, 8, 10, 17)
+REDUCE_NTE = (0, 1, 255, 256, 257, 1000, 10_000)
+REDUCE_F = (1, 15, 80)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _reduce_args(device, F, K, nte, seed=0):
+    """Fold-reduce arguments from a seed: rows of log-likelihood values,
+    weights 1 (a few 0.5) with about one row in 7 at 0, those rows -inf or
+    NaN in turn (both must count 0), lndiff around -1.4, every fold ok."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(-4.0, 2.0, (F, K, nte))
+    wte = np.where(rng.random((F, K, nte)) < 0.05, 0.5, 1.0)
+    zero = rng.random((F, K, nte)) < 1 / 7
+    wte[zero] = 0.0
+    rows[zero] = np.where(np.arange(zero.sum()) % 2 == 0, -np.inf, np.nan)
+    lndiff = rng.normal(-1.4, 0.3, (F, K))
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    return [t(rows), t(wte), t(lndiff, torch.float64), t(np.ones((F, K)))]
+
+
+def _reduce_every_split(args):
+    """The fold reduce at every cluster size S the entry point takes (1 to
+    min(K, 8)) and at the plan's, each the same bits as S = 1's; returns
+    S = 1's result."""
+    K = args[0].shape[1]
+    first = ckde_cv_fold_reduce(*args, split=1)
+    for split in [*range(2, min(K, 8) + 1), None]:
+        got = ckde_cv_fold_reduce(*args, split=split)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(first)), split
+    return first
+
+
+def _hold_reduce(got, args):
+    """``got`` within REDUCE_RTOL of the plain version's float64 sums of
+    the same float32 rows, NaN in the same places."""
+    rows, wte, lndiff, ok = args
+    want = ckde_cv_fold_reduce_reference(rows.double(), wte.double(), lndiff,
+                                         ok.double())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got.double(), want, rtol=REDUCE_RTOL, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("F", REDUCE_F)
+@pytest.mark.parametrize("nte", REDUCE_NTE)
+@pytest.mark.parametrize("K", REDUCE_K)
+def test_fold_reduce_at_every_split(cuda, F, K, nte):
+    """Every S the same bits, against the float64 sums; the -inf and NaN
+    rows of weight 0 count 0, so every family is finite."""
+    args = _reduce_args(cuda, F, K, nte, seed=1000 * K + nte + F)
+    before = ckde_cv_fold_reduce.launches
+    got = _reduce_every_split(args)
+    assert ckde_cv_fold_reduce.launches == before + min(K, 8) + 1
+    assert got.shape == (F,) and torch.isfinite(got).all()
+    _hold_reduce(got, args)
+
+
+def test_fold_reduce_nan_row_with_weight_propagates(cuda):
+    """A NaN row of weight 1 in fold 9 of family 4: that family is NaN,
+    every other family is the bits it had, at every S."""
+    args = _reduce_args(cuda, 15, 10, 1000, seed=7)
+    clean = ckde_cv_fold_reduce(*args)
+    args[0][4, 9, 333] = math.nan
+    args[1][4, 9, 333] = 1.0
+    got = _reduce_every_split(args)
+    _hold_reduce(got, args)
+    others = torch.arange(15, device=cuda) != 4
+    assert torch.isnan(got[4])
+    assert torch.equal(_bits(got[others]), _bits(clean[others]))
+
+
+def test_fold_reduce_degenerate_fold_is_nan_for_its_family_only(cuda):
+    """ok 0 in fold 3 of family 2: NaN for family 2 alone, at every S."""
+    args = _reduce_args(cuda, 8, 10, 800, seed=8)
+    clean = ckde_cv_fold_reduce(*args)
+    args[3][2, 3] = 0.0
+    got = _reduce_every_split(args)
+    _hold_reduce(got, args)
+    others = torch.arange(8, device=cuda) != 2
+    assert torch.isnan(got[2])
+    assert torch.equal(_bits(got[others]), _bits(clean[others]))
+
+
+def test_fold_reduce_same_launch_twice_gives_the_same_bits(cuda):
+    args = _reduce_args(cuda, 15, 10, 10_000, seed=9)
+    for split in (None, 1, 5, 8):
+        a = ckde_cv_fold_reduce(*args, split=split)
+        b = ckde_cv_fold_reduce(*args, split=split)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(a), _bits(b)), split
+
+
+def test_reduce_wrapper_rejects_a_split_the_kernel_does_not_take(cuda):
+    args = _reduce_args(cuda, 2, 3, 10)
+    for split in (0, 4, 9):
+        with pytest.raises(ValueError, match="split"):
+            ckde_cv_fold_reduce(*args, split=split)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times the CV whitening kernel (``csrc/cv_whiten.cu``) and the
-linear-Gaussian kernel (``csrc/lg_cv.cu``) of two trees against each other
-in one process on one card.
+"""Times the CV whitening and fold-reduce kernels (``csrc/cv_whiten.cu``)
+and the linear-Gaussian kernel (``csrc/lg_cv.cu``) of two trees against
+each other in one process on one card.
 
-    python3 tools/whiten_lg_ab.py PARENT_TREE [OUT_JSON]
+    python3 tools/whiten_lg_ab.py PARENT_TREE [OUT_JSON] [--only KERNEL ...]
+
+``--only`` (whiten, lg, reduce) runs those kernels' cases alone.
 
 PARENT_TREE is the root of another checkout (or of a ``git archive`` of
 one), typically the parent commit unpacked into an ignored directory. Both
@@ -14,12 +16,15 @@ with ctypes and launched on the same inputs. An entry point that ends in
 plan argument is called without it, so a parent from before the cluster
 redesign runs as it was. At each shape the two run in turns, parent,
 change, change, parent, each the median of 10 CUDA-event windows of one
-launch (``ms``) and of 20 launches (``batched_ms``), beside
+launch (``ms``) and of 20 launches (``batched_ms``) (for the fold reduce
+also each launch's own device time under ``torch.profiler``,
+``device_ms``), beside
 ``chip_smoke.bound`` of the work, and the change's outputs are held to the
 parent's (one float32 rounding apart: 2e-6 for the whitening, 1e-6
 relative for the LG scores, BICs and Grams, the NaN and -inf places
-exactly); the change alone is also timed (batched) at every cluster size
-S, each S bit-equal to S = 1. Shapes (inputs random from a seed):
+exactly; the fold sums bit for bit); the change alone is also timed
+(batched) at every cluster size S it takes, each S bit-equal to S = 1.
+Shapes (inputs random from a seed):
 
 - whitening: phase 4's (15 families × 10 folds, 9,000 × 1,000 rows, dpad
   3: widths 1-3), dpad 1 and dpad 16 at the same rows, and 100,000 rows
@@ -27,7 +32,12 @@ S, each S bit-equal to S = 1. Shapes (inputs random from a seed):
 - LG: ``hc``'s one-parent CV batch (56 families × 10 folds of 8,000 rows),
   its holdout batch (one fold of 8,000 rows, 2,000 test rows), phase 4's
   7 families and 20 one-parent families (10,000 rows, 10 folds), and one
-  family of 15 parents (W 17) and one of 18 (W 20, the runtime width).
+  family of 15 parents (W 17) and one of 18 (W 20, the runtime width);
+- fold reduce (``chip_smoke.reduce_rows``: -inf and NaN rows of weight 0,
+  one degenerate fold): phase 4's (F 15, K 10, 1,000 test rows a fold),
+  ``hc``'s CV batch (F 8, K 10, 800), one family (F 1, K 10, 800), the
+  holdout (F 8, K 1, 2,000), 100,000 rows (F 15, K 10, 10,000) and a wide
+  batch (F 80, K 10, 800).
 
 Prints one line per shape and writes every number to OUT_JSON when given.
 Needs a GPU; imports neither JAX nor the JAX package.
@@ -48,6 +58,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 SOURCES = ("cv_whiten.cu", "lg_cv.cu")
 ORDER = ("parent", "change", "change", "parent")
+KERNELS = ("whiten", "lg", "reduce")
 WHITEN_TOL = 2e-6
 LG_RTOL = 1e-6
 
@@ -74,7 +85,7 @@ def takes_split(tree, entry):
     stream)."""
     import re
 
-    source = "cv_whiten.cu" if "whiten" in entry else "lg_cv.cu"
+    source = "lg_cv.cu" if entry.startswith("lg") else "cv_whiten.cu"
     with open(os.path.join(tree, "pybnesian_tpu_torch", "csrc",
                            source)) as f:
         params = re.search(entry + r"\(([^)]*)\)", f.read()).group(1)
@@ -155,6 +166,35 @@ def whiten_call(torch, lib, split_of, args, split=None):
     return launch, outs, split
 
 
+def reduce_call(torch, lib, split_of, args, split=None):
+    """A launcher of ``lib``'s fold reduce on (rows, wte, lndiff, ok) into
+    a fixed output: (launch, (out,), split); ``split`` forces the cluster
+    size of a source that takes one, else the plan's."""
+    from pybnesian_tpu_torch.ops.ckde_cv_kernel import _sm_count
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import _reduce_plan
+
+    F, K, nte = args[0].shape
+    out = torch.empty(F, dtype=torch.float32, device="cuda")
+    if split_of and split is None:
+        split = _reduce_plan(F, K, _sm_count(args[0].device))
+    fn = bind(lib, "ckde_cv_fold_reduce_f32", 5, 4 if split_of else 3)
+    ptrs = [t.data_ptr() for t in (*args, out)]
+    ints = [F, K, nte] + ([split] if split_of else [])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*ptrs, *ints, stream)
+        if err:
+            raise RuntimeError(f"fold reduce launch failed: CUDA error {err}")
+
+    return launch, (out,), split
+
+
+def bits_equal(torch, a, b):
+    """Whether two float32 tensors hold the same bits (NaN payloads too)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def lg_call(torch, lib, split_of, args, split=None, chunk=None):
     """A launcher of ``lib``'s LG kernel on ``lg_cv_stats``'s arguments
     into fixed outputs: (launch, (gram, bic, out), (chunk, split));
@@ -225,17 +265,49 @@ def same(torch, a, b, rtol, atol, label):
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def alternate(torch, chip_smoke, launches):
-    """{impl: [timings]} in the order parent, change, change, parent."""
+def device_ms(torch, launch, runs=20):
+    """The median device duration of one launch, in ms: ``runs`` launches
+    back to back under ``torch.profiler``, each kernel's own start to end
+    on the card (no launch gap, no host time)."""
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            launch()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if len(spans) != runs:
+        raise AssertionError(f"{len(spans)} device operations traced for "
+                             f"{runs} launches")
+    return statistics.median(spans) / 1e3
+
+
+def alternate(torch, chip_smoke, launches, device=False):
+    """{impl: [timings]} in the order parent, change, change, parent; with
+    ``device``, each timing also holds :func:`device_ms`."""
     times = {"parent": [], "change": []}
     for impl in ORDER:
-        times[impl].append(chip_smoke.time_kernel(torch, launches[impl]))
+        t = chip_smoke.time_kernel(torch, launches[impl])
+        if device:
+            t["device_ms"] = device_ms(torch, launches[impl])
+        times[impl].append(t)
     return times
 
 
-def split_times(torch, chip_smoke, call, splits):
+def split_times(torch, chip_smoke, call, splits, equal=None, device=False):
     """{"S<n>_ms": batched ms} of the change's kernel at every cluster
-    size, each launch's outputs the same bits as S = 1's."""
+    size (and {"S<n>_device_ms": :func:`device_ms`} with ``device``), each
+    launch's outputs the same bits as S = 1's (by ``equal``, default:
+    equal values, NaN in the same places)."""
+    equal = equal or (lambda a, b: torch.equal(a.nan_to_num(),
+                                               b.nan_to_num()))
     out, first = {}, None
     for split in splits:
         launch, outs, _ = call(split)
@@ -244,29 +316,36 @@ def split_times(torch, chip_smoke, call, splits):
         outs = [o.clone() for o in outs]
         if first is None:
             first = outs
-        elif not all(torch.equal(a.nan_to_num(), b.nan_to_num())
-                     for a, b in zip(first, outs)):
+        elif not all(equal(a, b) for a, b in zip(first, outs)):
             raise AssertionError(f"S {split} is not bit-equal to S 1")
         out[f"S{split}_batched_ms"] = round(chip_smoke.cuda_median_ms(
             torch, launch, batch=chip_smoke.KERNEL_BATCH), 4)
+        if device:
+            out[f"S{split}_device_ms"] = round(device_ms(torch, launch), 5)
     return out
 
 
 def main():
-    if len(sys.argv) not in (2, 3):
-        raise SystemExit(__doc__)
+    import argparse
+
+    parser = argparse.ArgumentParser(usage=__doc__)
+    parser.add_argument("parent")
+    parser.add_argument("out_json", nargs="?")
+    parser.add_argument("--only", nargs="+", choices=KERNELS,
+                        default=KERNELS)
+    opts = parser.parse_args()
     import torch
 
     import chip_smoke
     from pybnesian_tpu_torch.ops.gaussian import family_tensors
 
-    parent = os.path.abspath(sys.argv[1])
+    parent = os.path.abspath(opts.parent)
     card = chip_smoke.phase_environment(torch)
     libs = {"parent": build(parent, os.path.join(parent, "_ab_build")),
             "change": build(REPO, os.path.join(REPO, "_chipwork",
                                                "ab_build"))}
-    splits = {impl: {e: takes_split(tree, e) for e in ("ckde_cv_whiten_f32",
-                                                       "lg_cv_f32")}
+    entries = ("ckde_cv_whiten_f32", "lg_cv_f32", "ckde_cv_fold_reduce_f32")
+    splits = {impl: {e: takes_split(tree, e) for e in entries}
               for impl, tree in (("parent", parent), ("change", REPO))}
     results = []
 
@@ -275,12 +354,41 @@ def main():
         row = {"kernel": kernel, "case": label, "shape": shape,
                "change_split": split, "max_diff": err, "bound_ms": bound_ms,
                "bound_by": by,
-               **{f"{impl}_{key}": [round(t[key], 4) for t in times[impl]]
-                  for impl in times for key in ("ms", "batched_ms")},
+               **{f"{impl}_{key}": [round(t[key], 5) for t in times[impl]]
+                  for impl in times for key in ("ms", "batched_ms",
+                                                "device_ms")
+                  if key in times[impl][0]},
                **sweep}
         results.append(row)
         print("[ab] " + " ".join(f"{k}={v}" for k, v in row.items()),
               flush=True)
+
+    reduce_cases = [("phase4", 15, 10, 1000), ("hc-cv", 8, 10, 800),
+                    ("one-family", 1, 10, 800), ("holdout", 8, 1, 2000),
+                    ("rows-100k", 15, 10, 10_000), ("wide", 80, 10, 800)]
+    entry = "ckde_cv_fold_reduce_f32"
+    for label, F, K, nte in reduce_cases if "reduce" in opts.only else []:
+        args = chip_smoke.reduce_rows(torch, F, K, nte, seed=F * K + nte)
+        calls = {impl: reduce_call(torch, libs[impl]["cv_whiten.cu"],
+                                   splits[impl][entry], args)
+                 for impl in libs}
+        for impl in libs:
+            calls[impl][0]()
+        torch.cuda.synchronize()
+        if not bits_equal(torch, calls["parent"][1][0],
+                          calls["change"][1][0]):
+            raise AssertionError(f"fold reduce {label}: the change is not "
+                                 "bit-equal to the parent")
+        times = alternate(torch, chip_smoke,
+                          {impl: c[0] for impl, c in calls.items()},
+                          device=True)
+        sweep = split_times(torch, chip_smoke, lambda sp: reduce_call(
+            torch, libs["change"]["cv_whiten.cu"], True, args, sp),
+            range(1, min(K, 8) + 1), lambda a, b: bits_equal(torch, a, b),
+            device=True) if splits["change"][entry] else {}
+        report("ckde_cv_fold_reduce", label, f"F{F}xK{K}x{nte}", times,
+               calls["change"][2], 0.0, chip_smoke.reduce_work(args), sweep)
+        del args, calls
 
     cases = [
         ("phase4-dpad3", 10_000, 9000, 1000, [1 + f % 3 for f in range(15)]),
@@ -288,7 +396,7 @@ def main():
         ("dpad16", 10_000, 9000, 1000, [16] + [1 + f for f in range(14)]),
         ("rows-100k", 100_000, 90_000, 10_000, [1 + f % 3 for f in range(15)]),
     ]
-    for label, n, ntr, nte, widths in cases:
+    for label, n, ntr, nte, widths in cases if "whiten" in opts.only else []:
         args = whiten_inputs(torch, n, ntr, nte, widths, seed=n + len(widths))
         calls = {impl: whiten_call(torch, libs[impl]["cv_whiten.cu"],
                                    splits[impl]["ckde_cv_whiten_f32"], args)
@@ -328,7 +436,7 @@ def main():
         ("w17", [(19, list(range(15)))], [v20, m20, tr20], [v20, m20, te20]),
         ("w20", [(19, list(range(18)))], [v20, m20, tr20], [v20, m20, te20]),
     ]
-    for label, fams, tr, te in lg_cases:
+    for label, fams, tr, te in lg_cases if "lg" in opts.only else []:
         args = [*tr, *family_tensors(fams, np.float32, "cuda"), *te]
         calls = {impl: lg_call(torch, libs[impl]["lg_cv.cu"],
                                splits[impl]["lg_cv_f32"], args)
@@ -349,8 +457,8 @@ def main():
                f"x{te[0].shape[0]}", times, calls["change"][2], err,
                chip_smoke.lg_work(args), sweep)
     out = {"card": card["smi"], "parent": parent, "results": results}
-    if len(sys.argv) == 3:
-        with open(sys.argv[2], "w") as f:
+    if opts.out_json:
+        with open(opts.out_json, "w") as f:
             json.dump(out, f, indent=1)
 
 
