@@ -104,12 +104,22 @@ the script exits non-zero and prints no result:
    bandwidths at :data:`SCORE_RTOL`, the scores of the two searches' own
    bandwidths beside them, and the whitening (its given-bandwidths
    route), pairs and fold-reduce kernels against their plain versions on
-   these inputs (G = families × folds); the UCV pair-sums kernel
-   (``ucv_pair_sums``, launched by the float32 searches and never by the
-   float64 ones) against its plain version at :data:`UCV_RTOL` on the
-   searches' own inputs (per shape the first launch, and from an untimed
-   rerun the last and the one of the smallest bandwidth, with the range
-   of bandwidths visited printed beside :data:`UCV_FACTORS_CHECKED`) and
+   these inputs (G = families × folds); each float32 search (one per
+   family width) is ONE launch of the search kernel (``ucv_search``), run
+   with CUDA's sync debug mode at "error" (no device read inside it), and
+   no float64 search launches a UCV kernel; the kernel is held to its
+   plain version, the host loop, on the searches' own problems
+   (:func:`ucv_search_check`: its objective and bit-equal pair sums, its
+   first :data:`UCV_SEARCH_STEPS` steps, the whole search no worse than
+   the plain one's plus ``fatol``, the same bits alone, in the batch and
+   rerun; timed with its bound) and the CV scores of its bandwidths to
+   those of the plain search's at :data:`SCORE_RTOL`; the float32
+   searches then run as the plain host loop on the card (timed, and again
+   recording the pair-sums kernel's inputs), and the UCV pair-sums kernel
+   (``ucv_pair_sums``) is held against its plain version at
+   :data:`UCV_RTOL` on those inputs (per shape the first launch, the last
+   and the one of the smallest bandwidth, with the range of bandwidths
+   visited printed beside :data:`UCV_FACTORS_CHECKED`) and
    on an all-invalid problem, two invalid rows,
    N 4,097 and 100, d 1, 16, 17 and 20 and a NaN row, one problem's sums
    bit-equal alone, inside 30
@@ -117,7 +127,9 @@ the script exits non-zero and prints no result:
    (10, 9,000, 3) with its bound and two efficient-attention calls beside
    it; (c) one family with a
    user-defined selector (a scaled covariance); (d) ``KDE(vars,
-   UCV()).fit`` and its ``logl`` through the KDE kernel. Every search's
+   UCV()).fit`` (a search-kernel launch) and its ``logl`` through the KDE
+   kernel; (e) ``UCVScorer`` on the float32 frame, one pair-sums launch a
+   score, against float64 at :data:`SCORE_RTOL`. Every search's
    iterations per problem, objective evaluations and seconds are printed,
    with the share of them spent in the pair sums: the evaluations times
    one ``ucv_pair_sums_batch`` call's own time at the search's shape (the
@@ -269,13 +281,23 @@ KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
     "lg_cv_stats": ("pybnesian_tpu_torch/csrc/lg_cv.cu",
                     "pybnesian_tpu/ops/gaussian.py:118 and :44 (XLA-fused, "
                     "no Pallas kernel)"),
+    "ucv_search": ("pybnesian_tpu_torch/csrc/ucv_pairs.cu",
+                   "pybnesian_tpu/kde/ucv.py:106 and :171 with "
+                   "pybnesian_tpu/ops/nelder_mead.py:24 (XLA-fused, no "
+                   "Pallas kernel)"),
 }
 PAIR_TOL = 1e-3       # max abs difference per test row, kernel vs plain
 SCORE_RTOL = 1e-4     # float32 kernel route vs float64 plain route
 EXP_TOL = 1e-5        # max abs difference of the exp chain, kernel vs plain
 UCV_RTOL = 1e-5       # relative difference per UCV pair sum, kernel vs plain
                       # (float32 terms summed in another order, float64
-                      # above a thread's 1,024 terms in both)
+                      # above a thread's 1,024 terms in both); also the UCV
+                      # search kernel's objective, x and f against its plain
+                      # version's (float32 whitening and sums in other
+                      # orders)
+UCV_SEARCH_STEPS = (1, 2, 3, 5)  # max_iter of the search kernel's first
+                      # steps, held to its plain version's
+UCV_SEARCH_RUNS = 5   # CUDA-event windows of a search's ``ms``
 UCV_DOT_D = 16        # widest d of the UCV kernel's dot form (ucv_pairs.cu)
 UCV_FACTORS_CHECKED = (1.25, 1.0, 0.5, 0.25, 0.125, 0.0625)  # bandwidths as
 # factors of the normal reference, at which tools/ucv_dot_form_error.py
@@ -426,12 +448,13 @@ def counters():
     from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
     from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_cv_stats
     from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_cuda
+    from pybnesian_tpu_torch.ops.ucv_search_kernel import ucv_search_cuda
 
     return {"ckde_cv_pairs": ckde_cv_pairs, "kde_logl": kde_logl,
             "exp_chain": exp_chain, "ucv_pair_sums": ucv_pair_sums_cuda,
             "ckde_cv_whiten": ckde_cv_whiten,
             "ckde_cv_fold_reduce": ckde_cv_fold_reduce,
-            "lg_cv_stats": lg_cv_stats}
+            "lg_cv_stats": lg_cv_stats, "ucv_search": ucv_search_cuda}
 
 
 def reset_counts():
@@ -2433,16 +2456,12 @@ def add_counts(*counts):
 
 class UcvRecording:
     """While active, every launch of the UCV kernel through ``ops/kde.py``
-    (``ucv_pair_sums_batch``) is counted and the first launch's arguments
-    of each shape copied, as :class:`Recording` does for the KDE kernels.
-    With ``visits``, per shape also the last launch's arguments and those
-    of the smallest bandwidth, the launch whose smallest
-    :func:`ucv_bandwidth_factor` over its problems is the least (chosen on
-    the card, with no host read), and each launch's smallest factor: work
-    on every launch, so a timed run records without it."""
-
-    def __init__(self, visits=False):
-        self.visits = visits
+    (``ucv_pair_sums_batch``) is counted and, per shape, the arguments of
+    the first launch, of the last and of the smallest bandwidth (the launch
+    whose smallest :func:`ucv_bandwidth_factor` over its problems is the
+    least, chosen on the card with no host read) copied, with each launch's
+    smallest factor: work on every launch, so a timed run goes without
+    it."""
 
     def __enter__(self):
         import torch
@@ -2456,24 +2475,21 @@ class UcvRecording:
         def recording(white, valid=None):
             shape = (tuple(white.shape), valid is not None)
             self.launches += 1
+            args = (white.clone(), None if valid is None else valid.clone())
             if shape not in self.first:
-                self.first[shape] = (white.clone(), None if valid is None
-                                     else valid.clone())
-            if self.visits:
-                args = (white.clone(),
-                        None if valid is None else valid.clone())
-                factor = ucv_bandwidth_factor(white, valid).min()
-                self.factors.append(factor)
-                if shape not in self.smallest:
-                    self.smallest[shape] = (factor, *args)
-                else:
-                    least, w, v = self.smallest[shape]
-                    take = factor < least
-                    self.smallest[shape] = (
-                        torch.where(take, factor, least),
-                        torch.where(take, args[0], w),
-                        None if v is None else torch.where(take, args[1], v))
-                self.last[shape] = args
+                self.first[shape] = args
+            factor = ucv_bandwidth_factor(white, valid).min()
+            self.factors.append(factor)
+            if shape not in self.smallest:
+                self.smallest[shape] = (factor, *args)
+            else:
+                least, w, v = self.smallest[shape]
+                take = factor < least
+                self.smallest[shape] = (
+                    torch.where(take, factor, least),
+                    torch.where(take, args[0], w),
+                    None if v is None else torch.where(take, args[1], v))
+            self.last[shape] = args
             return self._wrapper(white, valid)
 
         kde_ops.ucv_pair_sums_cuda = recording
@@ -2567,14 +2583,15 @@ def library_ucv(torch, white):
     return cuda_median_ms(torch, calls), rel
 
 
-def ucv_kernel_check(torch, card, recorded, visits):
+def ucv_kernel_check(torch, card, visits):
     """The UCV kernel against its plain version on the inputs that the
-    searches gave it, per shape: the first launch (``recorded``, the
-    counted run's :class:`UcvRecording`), the last and the one of the
-    smallest bandwidth (``visits``, a rerun's recording with visits), with
-    the range of bandwidths the rerun's launches visited printed beside
-    the range that ``tools/ucv_dot_form_error.py`` emulates; and on edge
-    cases
+    float32 searches gave it when they ran as the plain host loop on the
+    card (``visits``, that run's :class:`UcvRecording`; the
+    search kernel sums its pairs with this kernel's tile body and order),
+    per shape: the first launch, the last and the one of the smallest
+    bandwidth, with the range of bandwidths the launches visited printed
+    beside the range that ``tools/ucv_dot_form_error.py`` emulates; and on
+    edge cases
     cut from the widest of them: an all-invalid problem, one with exactly
     two invalid rows, N odd and not a multiple of the tile, N below one
     tile, d 1, 16, 17 and 20, a NaN row;
@@ -2598,10 +2615,10 @@ def ucv_kernel_check(torch, card, recorded, visits):
         errs.append(err)
         return got
 
-    if not recorded.first:
+    if not visits.first:
         raise AssertionError("the UCV searches recorded no kernel launch")
     errs = []
-    for shape, (w, v) in recorded.first.items():
+    for shape, (w, v) in visits.first.items():
         d = w.shape[2]
         hold(w, v, f"search-inputs-{d}d")
         hold(*visits.last[shape], f"search-last-{d}d")
@@ -2609,14 +2626,13 @@ def ucv_kernel_check(torch, card, recorded, visits):
         hold(*wv, f"search-smallest-bandwidth-{d}d-factor-"
              f"{float(least):.4f}")
     low, high = visits.factor_range()
-    say("9 ucv kernel", launches_counted_run=recorded.launches,
-        launches_rerun=visits.launches,
+    say("9 ucv kernel", launches_plain_searches=visits.launches,
         bandwidth_factors_visited=f"{low:.4f}..{high:.4f}",
         bandwidth_factors_emulated=f"{min(UCV_FACTORS_CHECKED)}.."
                                    f"{max(UCV_FACTORS_CHECKED)}",
         visited_within_emulated=(low >= min(UCV_FACTORS_CHECKED)
                                  and high <= max(UCV_FACTORS_CHECKED)))
-    white, _ = max(recorded.first.values(), key=lambda wv: wv[0].shape[2])
+    white, _ = max(visits.first.values(), key=lambda wv: wv[0].shape[2])
     B, N, d = white.shape
     three = white[:3].contiguous()
     valid = torch.ones((3, N), dtype=torch.float32, device="cuda")
@@ -2681,13 +2697,217 @@ def ucv_kernel_check(torch, card, recorded, visits):
     return result
 
 
+class SearchRecording:
+    """While active, every UCV search that ``kde/ucv.py`` sends to the
+    search kernel (``ucv_search_cuda``) runs with CUDA's sync debug mode at
+    "error", so that a device read inside it raises; each call's arguments
+    are copied and its device time taken by CUDA events (read after the
+    run, with no host wait inside it)."""
+
+    def __enter__(self):
+        import torch
+
+        from pybnesian_tpu_torch.kde import ucv as ucv_module
+
+        self._module, self._wrapper = ucv_module, ucv_module.ucv_search_cuda
+        self.calls, self.events = [], []
+
+        def recording(X, valid, Ns, x0s, d, diagonal, max_iter):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                out = self._wrapper(X, valid, Ns, x0s, d, diagonal, max_iter)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.calls.append((X.clone(), None if valid is None
+                               else valid.clone(), Ns.clone(), x0s.clone(),
+                               d, diagonal, max_iter))
+            self.events.append((start, end))
+            return out
+
+        ucv_module.ucv_search_cuda = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._module.ucv_search_cuda = self._wrapper
+
+    def device_ms(self):
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+class PlainSearches:
+    """While active, a float32 UCV search on the card takes the plain host
+    loop (``ucv_search_reference``, whose evaluations launch the pair-sums
+    kernel), the route of the searches before the search kernel."""
+
+    def __enter__(self):
+        from pybnesian_tpu_torch.kde import ucv as ucv_module
+        from pybnesian_tpu_torch.ops.ucv_search_kernel import (
+            ucv_search_reference)
+
+        self._module, self._wrapper = ucv_module, ucv_module.ucv_search_cuda
+        ucv_module.ucv_search_cuda = ucv_search_reference
+        return self
+
+    def __exit__(self, *exc):
+        self._module.ucv_search_cuda = self._wrapper
+
+
+def search_work(X, valid, nv, iterations):
+    """(exps, FP32 ops, bytes) a UCV search of these problems needs at
+    least: per problem its nv + 1 starting vertices and one evaluation an
+    iteration (the reflection; the second point and the shrinks are not
+    counted), each an ``ucv_work`` pair-sum evaluation of its valid rows;
+    the rows read once, the results written once."""
+    B, N, d = X.shape
+    n = (np.full(B, float(N)) if valid is None
+         else (valid > 0).sum(1).double().cpu().numpy())
+    evals = nv + 1 + iterations.double().cpu().numpy()
+    pairs = float((evals * n * (n - 1) / 2).sum())
+    per_pair = 2 * d + 4 if d <= UCV_DOT_D else 3 * d + 3
+    nbytes = (4 * B * N * d + (0 if valid is None else 4 * B * N)
+              + 4 * B * (nv + 3))
+    return pairs, pairs * per_pair, nbytes
+
+
+def ucv_search_check(torch, card, calls, device_ms):
+    """The search kernel (``ucv_search``) against its plain version, the
+    host loop, on the problems of the float32 searches of (b) (one call per
+    family width, copied by :class:`SearchRecording`): (1) its objective at
+    the start, at 0.8 and 1.25 times it and at its own optimum within
+    :data:`UCV_RTOL` of the plain objective, and its pair sums on its own
+    whitened rows the same bits as the pair-sums kernel's; (2) x, f and
+    iterations at :data:`UCV_SEARCH_STEPS` against the plain loop's; (3)
+    the whole search per problem no worse than the plain search's best
+    plus its ``fatol``, nor than its start, with both searches' iterations,
+    evaluations and times; (5) problems 0 and B - 1 alone the same bits as
+    in the batch, and a second run the same bits; each instantiation's
+    registers and spills from the build. Returns the kernels-line
+    result at the widest search, with its error the largest of (1)."""
+    from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_cuda
+    from pybnesian_tpu_torch.ops.ucv_search_kernel import (
+        ucv_objective_reference, ucv_search_cuda, ucv_search_evaluate,
+        ucv_search_reference)
+
+    say_ptxas("9 ucv search kernel", "ucv_pairs.cu", "ucv_search_kernel")
+    errs = []
+    for (X, valid, Ns, x0, d, diagonal, max_iter), dev_ms in zip(calls,
+                                                                  device_ms):
+        B, N, _ = X.shape
+        shape = f"{B}x{N}x{d}"
+        got = ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_iter)
+        points = torch.stack([x0, 0.8 * x0, 1.25 * x0, got.x], 1)
+        f, sums, white = ucv_search_evaluate(
+            X, valid, Ns, x0, points.contiguous(), d, diagonal, white=True)
+        want = ucv_objective_reference(X, valid, Ns, x0, points, d, diagonal)
+        rel = max_rel(f, want)
+        hold_rel(rel, UCV_RTOL, f"ucv_search {shape}: objective")
+        errs.append(float((f - want).abs().max()))
+        for p in range(points.shape[1]):
+            s2h, sh = ucv_pair_sums_cuda(white[:, p].contiguous(), valid)
+            if not (torch.equal(s2h, sums[:, p, 0])
+                    and torch.equal(sh, sums[:, p, 1])):
+                raise AssertionError(f"ucv_search {shape}: its pair sums on "
+                                     "its own whitened rows differ from "
+                                     "the pair-sums kernel's")
+        steps = {}
+        for max_steps in UCV_SEARCH_STEPS:
+            k = ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_steps)
+            p = ucv_search_reference(X, valid, Ns, x0, d, diagonal,
+                                     max_steps)
+            rx, rf = max_rel(k.x, p.x), max_rel(k.f, p.f)
+            hold_rel(max(rx, rf), UCV_RTOL,
+                     f"ucv_search {shape} max_iter {max_steps}: x and f")
+            if not torch.equal(k.iterations, p.iterations):
+                raise AssertionError(f"ucv_search {shape} max_iter "
+                                     f"{max_steps}: iterations "
+                                     f"{k.iterations.tolist()} against "
+                                     f"{p.iterations.tolist()}")
+            steps[max_steps] = f"{max(rx, rf):.2e}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = ucv_search_reference(X, valid, Ns, x0, d, diagonal,
+                                     max_iter)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        fatol = 1e-4 * plain.start.abs() + 1e-12
+        if not bool((got.f <= plain.f + fatol).all()
+                    and (got.f <= got.start).all()):
+            raise AssertionError(f"ucv_search {shape}: f best {got.f} "
+                                 f"against the plain search's {plain.f} "
+                                 f"and the start {got.start}")
+        again = ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_iter)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        for b in (0, B - 1):
+            n = int(Ns[b])
+            one = ucv_search_cuda(
+                X[b:b + 1, :n].contiguous(), None, Ns[b:b + 1].contiguous(),
+                x0[b:b + 1].contiguous(), d, diagonal, max_iter)
+            same &= (torch.equal(one.x[0], got.x[b])
+                     and torch.equal(one.f[0], got.f[b])
+                     and int(one.iterations[0]) == int(got.iterations[b]))
+        if not same:
+            raise AssertionError(f"ucv_search {shape}: a problem alone, in "
+                                 "its batch and run again is not the same "
+                                 "bits")
+        say("9 ucv search kernel", case=f"search-inputs-{d}d", B_N_d=shape,
+            objective_max_rel_err=f"{rel:.3e}",
+            sums_bit_equal_to_pair_kernel=True,
+            first_steps_max_rel=repr(steps),
+            iterations_kernel=repr(got.iterations.tolist()),
+            iterations_plain=repr(plain.iterations.tolist()),
+            evaluations_kernel=int(got.evaluations),
+            evaluations_plain=int(plain.evaluations),
+            f_best_max_rel_vs_plain=f"{max_rel(got.f, plain.f):.3e}",
+            no_worse_than_plain_plus_fatol=True,
+            bit_equal_alone_in_batch_and_rerun=True,
+            device_ms=f"{dev_ms:.3f}", plain_s=f"{plain_s:.4f}")
+
+    X, valid, Ns, x0, d, diagonal, max_iter = max(calls,
+                                                  key=lambda c: c[4])
+
+    def search():
+        return ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_iter)
+
+    got = search()
+    result = {"err": max(errs),
+              "ms": cuda_median_ms(torch, search, runs=UCV_SEARCH_RUNS),
+              "batched_ms": cuda_median_ms(torch, search, runs=2, batch=3),
+              "plain_ms": cuda_median_ms(
+                  torch, lambda: ucv_search_reference(
+                      X, valid, Ns, x0, d, diagonal, max_iter), runs=3),
+              "work": search_work(X, valid, x0.shape[1], got.iterations),
+              "library_ms": None}
+    bound_ms, by = bound(card, *result["work"])
+    one_eval = bound(card, *ucv_work(X, valid))[0]
+    say("9 ucv search kernel", case=f"search-inputs-{d}d",
+        B_N_d="x".join(map(str, X.shape)),
+        kernel_ms=f"{result['ms']:.4f}",
+        kernel_batched_ms=f"{result['batched_ms']:.4f}",
+        plain_ms=f"{result['plain_ms']:.4f}",
+        plain_over_kernel=f"{result['plain_ms'] / result['ms']:.2f}",
+        iterations_max=int(got.iterations.max()),
+        ms_per_iteration=f"{result['ms'] / int(got.iterations.max()):.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=by,
+        bound_share=f"{bound_ms / result['ms']:.4f}",
+        batch_evaluations_times_one_bound_ms=(
+            f"{int(got.evaluations) * one_eval:.4f}"),
+        library="none computes it")
+    return result
+
+
 def phase_ucv(torch, frame32, frame64, k, card):
     """UCV and custom bandwidth selectors on the card. Returns the
-    launches of its path — the entry points of (b) in float32, (c) and
-    (d), each driven with the counts at 0 and read just after — the
+    launches of its path — the entry points of (b) in float32, (c), (d)
+    and (e), each driven with the counts at 0 and read just after — the
     whitening, pairs and fold-reduce kernels' errors on the UCV-scored
-    inputs (the given-bandwidths route), and the UCV kernel's checked and
-    timed case (:func:`ucv_kernel_check`)."""
+    inputs (the given-bandwidths route), and the checked and timed cases
+    of the UCV pair-sums kernel (:func:`ucv_kernel_check`) and of the
+    search kernel (:func:`ucv_search_check`)."""
     from pybnesian_tpu_torch import (
         KDE, UCV, Arguments, BandwidthSelector, CKDEType, CVLikelihood,
         DataFrame, KDENetwork, Kwargs)
@@ -2707,26 +2927,37 @@ def phase_ucv(torch, frame32, frame64, k, card):
               for tag, frame in frames.items()}
     own, walls, counted = {}, {}, {}
     for tag, score in scores.items():
-        with UcvRecording() as rec:
+        with SearchRecording() as rec:
             reset_counts()
             t0 = time.perf_counter()
             own[tag] = score.local_score_batch(model, typed)
             walls[tag] = time.perf_counter() - t0
             counted[tag] = read_counts()
         if tag == "f32":
-            recorded = rec
+            searched = rec
     launches_b = counted["f32"]
-    for name in ("ckde_cv_pairs", "ucv_pair_sums", "ckde_cv_whiten",
+    for name in ("ckde_cv_pairs", "ucv_search", "ckde_cv_whiten",
                  "ckde_cv_fold_reduce"):
         if launches_b[name] == 0:
             raise AssertionError(f"the UCV-selected families did not launch "
                                  f"{name}")
-    if recorded.launches != launches_b["ucv_pair_sums"]:
-        raise AssertionError(f"ucv_pair_sums counted "
-                             f"{launches_b['ucv_pair_sums']} launches, "
-                             f"recorded {recorded.launches}")
-    if counted["f64"]["ucv_pair_sums"] != 0:
-        raise AssertionError("the float64 searches launched the UCV kernel")
+    # one launch of the search kernel per family width, each run with the
+    # sync debug mode at "error" (SearchRecording): no device read inside
+    widths = len({len(ps) for _v, ps in fams})
+    if not launches_b["ucv_search"] == len(searched.calls) == widths:
+        raise AssertionError(f"ucv_search launched {launches_b['ucv_search']}"
+                             f" times ({len(searched.calls)} recorded) for "
+                             f"{widths} family widths")
+    if launches_b["ucv_pair_sums"] != 0:
+        raise AssertionError("the float32 searches launched the pair-sums "
+                             "kernel outside the search kernel")
+    if counted["f64"]["ucv_search"] or counted["f64"]["ucv_pair_sums"]:
+        raise AssertionError("the float64 searches launched a UCV kernel")
+    say("9 ucv", path="CVLikelihood+UCV", searches_f32=len(searched.calls),
+        ucv_search_launches=launches_b["ucv_search"],
+        device_reads_inside_a_search=0,
+        search_device_ms=repr([round(ms, 3)
+                               for ms in searched.device_ms()]))
     if not all(np.all(np.isfinite(v)) for v in own.values()):
         raise AssertionError(f"non-finite UCV scores {own}")
     # reported, not held to a tolerance: the two searches stop at
@@ -2755,15 +2986,36 @@ def phase_ucv(torch, frame32, frame64, k, card):
                 torch, frames[tag],
                 [(s, fold_rows, vech_width(s.x.shape[1])) for s in searches],
                 search_s))
-    # once more, untimed, recording the bandwidths the searches visit
-    with UcvRecording(visits=True) as visits:
-        scores["f32"]._engine._ucv_bandwidths(untyped)
+    # the float32 searches by the plain host loop on the card, as before
+    # the search kernel: timed, then again untimed, recording the inputs of
+    # the pair-sums kernel and the bandwidths the searches visit
+    with PlainSearches():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_maps, plain_searches = scores["f32"]._engine._ucv_bandwidths(
+            untyped)
+        plain_s = time.perf_counter() - t0
+        with UcvRecording() as visits:
+            scores["f32"]._engine._ucv_bandwidths(untyped)
+    say("9 ucv", path="CVLikelihood+UCV", dtype="f32 plain host loop",
+        families=len(fams), **search_fields(
+            torch, frame32,
+            [(s, fold_rows, vech_width(s.x.shape[1]))
+             for s in plain_searches], plain_s))
     # the float32 search's bandwidths, scored by both dtypes
     t0 = time.perf_counter()
     s32 = scores["f32"]._engine._ckde_host_batch(typed, h_maps=given)
     scoring_s = time.perf_counter() - t0
     s64 = scores["f64"]._engine._ckde_host_batch(typed, h_maps=given)
     rel_given = check_scores(s32, s64, "UCV scores, the same bandwidths")
+    # gate 4: the CV scores of the kernel's bandwidths against those of
+    # the plain search's
+    s_plain = scores["f32"]._engine._ckde_host_batch(
+        typed, h_maps=[plain_maps[i] for i in range(len(fams))])
+    rel_routes = float(np.max(np.abs(s32 - s_plain) / np.abs(s_plain)))
+    if not (np.all(np.isfinite(s_plain)) and rel_routes <= SCORE_RTOL):
+        raise AssertionError(f"UCV scores of the kernel's bandwidths {s32} "
+                             f"against the plain search's {s_plain}")
     if not np.allclose(s32, own["f32"], rtol=SCORE_RTOL):
         raise AssertionError("the float32 search is not reproducible: "
                              f"{s32} vs {own['f32']}")
@@ -2781,10 +3033,13 @@ def phase_ucv(torch, frame32, frame64, k, card):
             torch, reduce_inputs(torch, parts), "ucv-cv-families",
             phase="9 ucv kernel")["err"],
     }
-    ucv = ucv_kernel_check(torch, card, recorded, visits)
+    ucv = ucv_kernel_check(torch, card, visits)
+    search = ucv_search_check(torch, card, searched.calls,
+                              searched.device_ms())
     say("9 ucv", path="CVLikelihood+UCV", scoring_s_f32=f"{scoring_s:.4f}",
         scores_f32=repr([round(float(x), 3) for x in s32]),
         same_bandwidths_max_rel_vs_f64=f"{rel_given:.3e}",
+        kernel_vs_plain_search_scores_max_rel=f"{rel_routes:.3e}",
         own_scores_f32=repr([round(float(x), 3) for x in own["f32"]]),
         own_scores_f64=repr([round(float(x), 3) for x in own["f64"]]),
         own_bandwidths_max_rel=f"{rel_own:.3e}",
@@ -2819,16 +3074,18 @@ def phase_ucv(torch, frame32, frame64, k, card):
     cols = names[:2]
     selector = UCV()
     kde32 = KDE(cols, selector)
+    test32 = DataFrame.wrap(test)
+    reset_counts()
     t0 = time.perf_counter()
     kde32.fit(frame32)
     fit_s = time.perf_counter() - t0
-    search = selector.last_search
-    test32 = DataFrame.wrap(test)
-    reset_counts()
+    fitted = selector.last_search
     got = kde32.logl(test32)
     launches_d = read_counts()
-    if launches_d["kde_logl"] == 0:
-        raise AssertionError("KDE.logl did not launch the KDE kernel")
+    for name in ("kde_logl", "ucv_search"):
+        if launches_d[name] == 0:
+            raise AssertionError(f"KDE(UCV).fit and logl did not launch "
+                                 f"{name}")
     kde64 = KDE(cols)
     kde64.fit_with_bandwidth(
         frame64.to_numpy(cols, drop_null=True, dtype=np.float64),
@@ -2839,10 +3096,34 @@ def phase_ucv(torch, frame32, frame64, k, card):
     if not (np.all(np.isfinite(got)) and err_kde <= ROW_TOL):
         raise AssertionError(f"UCV KDE.logl vs float64: {err_kde} > {ROW_TOL}")
     say("9 ucv", path="KDE(UCV).fit+logl", columns=len(cols),
-        fit_s=f"{fit_s:.4f}", iterations=int(search.iterations[0]),
-        evaluations=search.evaluations,
+        fit_s=f"{fit_s:.4f}", iterations=int(fitted.iterations[0]),
+        evaluations=fitted.evaluations,
         logl_max_abs_vs_f64=f"{err_kde:.3e}", launches=launches_d)
-    return add_counts(launches_b, launches_c, launches_d), errs, ucv
+
+    # (e) the UCV score of a bandwidth on the float32 frame (UCVScorer):
+    # one launch of the pair-sums kernel a score
+    from pybnesian_tpu_torch import NormalReferenceRule
+    from pybnesian_tpu_torch.kde.ucv import UCVScorer
+
+    reset_counts()
+    scored = {}
+    for d in (1, 2, 3):
+        h = NormalReferenceRule().bandwidth(frame64, names[:d])
+        scored[d] = UCVScorer(frame32, names[:d]).score_unconstrained(h)
+    launches_e = read_counts()
+    if launches_e["ucv_pair_sums"] != 3:
+        raise AssertionError(f"UCVScorer launched the pair-sums kernel "
+                             f"{launches_e['ucv_pair_sums']} times for 3 "
+                             "scores")
+    rel = max(abs(scored[d] / UCVScorer(frame64, names[:d])
+                  .score_unconstrained(NormalReferenceRule().bandwidth(
+                      frame64, names[:d])) - 1.0) for d in scored)
+    if not rel <= SCORE_RTOL:
+        raise AssertionError(f"UCVScorer float32 vs float64: {rel}")
+    say("9 ucv", path="UCVScorer float32", columns="1,2,3",
+        max_rel_vs_f64=f"{rel:.3e}", launches=launches_e)
+    return (add_counts(launches_b, launches_c, launches_d, launches_e), errs,
+            ucv, search)
 
 
 def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0, fresh=0.3):
@@ -4439,8 +4720,8 @@ def main():
     })
     model_launches = phase_model_path(torch)
     hc_launches, hc_errs, lg = phase_hc(torch, card)
-    ucv_launches, ucv_errs, ucv = phase_ucv(torch, frame32, frame64, k,
-                                            card)
+    ucv_launches, ucv_errs, ucv, ucv_search = phase_ucv(
+        torch, frame32, frame64, k, card)
     phase_discrete(torch)
     t_new = time.perf_counter()
     hybrid_launches, hybrid_errs = phase_hybrid(torch)
@@ -4459,7 +4740,7 @@ def main():
              "independence": independence_launches,
              "parallel": parallel_launches}
     for name in ("ckde_cv_pairs", "kde_logl", "ucv_pair_sums",
-                 "ckde_cv_whiten", "ckde_cv_fold_reduce"):
+                 "ckde_cv_whiten", "ckde_cv_fold_reduce", "ucv_search"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
     # every launch of paths 11-14 and 16 was held at its shape
@@ -4480,7 +4761,8 @@ def main():
                "ckde_cv_fold_reduce": dict(reduce, err=worst(
                    "ckde_cv_fold_reduce", reduce["err"])),
                "lg_cv_stats": dict(lg, err=worst("lg_cv_stats", lg["err"],
-                                                 lg_cv_err))}
+                                                 lg_cv_err)),
+               "ucv_search": ucv_search}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {p: counts[name] for p, counts in paths.items()
@@ -4498,8 +4780,8 @@ def main():
             "bound_by": "bytes" if by == "bytes" else "operations",
             # one efficient-attention call (#2) or two (#1, the UCV sums):
             # their logsumexp output; one torch.einsum of the LG kernel's
-            # Gram stage; nothing computes the exp chain, the CV whitening
-            # or the fold sums
+            # Gram stage; nothing computes the exp chain, the CV whitening,
+            # the fold sums or the UCV search
             "library_ms": result.get("library_ms"),
         })
     say("all phases", wall_s=f"{time.perf_counter() - t_start:.1f}")

@@ -26,10 +26,10 @@ import numpy as np
 import torch
 
 from ..data import DataFrame
-from ..ops.kde import ucv_pair_sums, ucv_pair_sums_batch
-from ..ops.nelder_mead import nelder_mead_batch
+from ..ops.kde import kernel_route, ucv_pair_sums
+from ..ops.ucv_search_kernel import ucv_search_cuda, ucv_search_reference
+from ..ops.ucv_search_kernel import vech_indices as _vech_indices
 from ..runtime.device import host_to_device, resolve_device
-from ..utils import MACHINE_TOL
 from .bandwidth import BandwidthSelector, NormalReferenceRule
 
 __all__ = ["UCV", "UCVScorer", "UCVSearch", "vech", "invvech_triangular",
@@ -54,15 +54,6 @@ def invvech_triangular(v: np.ndarray) -> np.ndarray:
         out[j:, j] = v[pos: pos + d - j]
         pos += d - j
     return out
-
-
-def _vech_indices(d: int):
-    """(rows, cols) scattering a vech vector back into the lower triangle
-    in vech's COLUMN-major order (column by column) — NOT np.tril_indices,
-    whose row-major order would permute entries for d >= 3."""
-    rows = np.concatenate([np.arange(j, d) for j in range(d)])
-    cols = np.concatenate([np.full(d - j, j) for j in range(d)])
-    return rows, cols
 
 
 class UCVScorer:
@@ -131,65 +122,29 @@ def _minimize(X, valid, Ns, starts, d: int, diagonal: bool) -> UCVSearch:
     when every row is real; Ns: (B,) row counts; starts: the host float64
     (B, nv) starts — vech(chol(H_start)), or with ``diagonal`` the d square
     roots of a diagonal start. A bad point (determinant or score off the
-    guard rails, NaN) scores ``f_start + 1e-7``."""
-    log2 = math.log(2.0)
+    guard rails, NaN) scores ``f_start + 1e-7``.
+
+    Routed by :func:`~..ops.kde.kernel_route`: a float32 search on a GPU is
+    one launch of the search kernel (:func:`~..ops.ucv_search_kernel.
+    ucv_search_cuda`), every other search the plain host loop
+    (:func:`~..ops.ucv_search_kernel.ucv_search_reference`). Either way the
+    host reads the result once, after the search."""
     starts = np.asarray(starts, np.float64)
     x0s = torch.as_tensor(starts, dtype=X.dtype, device=X.device)
-    nv = x0s.shape[1]
-    rows, cols = _vech_indices(d)
-    rows = torch.as_tensor(rows, device=X.device)
-    cols = torch.as_tensor(cols, device=X.device)
-    Xt = X.mT
-    evaluations = 0
-
-    def raw(xs):
-        nonlocal evaluations
-        evaluations += 1
-        if diagonal:
-            L = torch.diag_embed(xs)
-        else:
-            L = torch.zeros((xs.shape[0], d, d), dtype=xs.dtype,
-                            device=xs.device)
-            L[:, rows, cols] = xs
-        logdiag = torch.log(
-            torch.abs(torch.diagonal(L, dim1=-2, dim2=-1)) + 1e-300)
-        det = torch.exp(2.0 * torch.sum(logdiag, dim=1))
-        W = torch.linalg.solve_triangular(L, Xt, upper=False).mT
-        s2h, sh = ucv_pair_sums_batch(W, valid)
-        lognorm_h = -torch.sum(logdiag, dim=1) - 0.5 * d * _LOG_2PI
-        lognorm_2h = lognorm_h - 0.5 * d * log2
-        score = (
-            torch.exp(lognorm_2h)
-            + 2.0 * s2h * torch.exp(lognorm_2h) / Ns
-            - 4.0 * sh * torch.exp(lognorm_h) / (Ns - 1.0)
-        )
-        return score, det
-
-    ss, sd = raw(x0s)
-
-    def objective(xs):
-        score, det = raw(xs)
-        bad = (
-            (det <= MACHINE_TOL)
-            | (det < 1e-3 * sd)
-            | (det > 1e3 * sd)
-            | torch.isnan(det)
-            | torch.isnan(score)
-            | (torch.abs(score) > 1e3 * torch.abs(ss))
-        )
-        return torch.where(bad, ss + 1e-7, score)
-
-    fatol = 1e-4 * torch.abs(ss) + 1e-12
-    xatol = 1e-4 * torch.amax(torch.abs(x0s), dim=1) + 1e-12
-    xb, fb, iters = nelder_mead_batch(objective, x0s, fatol, xatol,
-                                      max_iter=200 * nv)
-    x = xb.to(torch.float64).cpu().numpy().copy()
+    B, nv = x0s.shape
+    search = ucv_search_cuda if kernel_route(X) else ucv_search_reference
+    res = search(X, valid, Ns, x0s, d, diagonal, 200 * nv)
+    host = torch.cat([res.x.reshape(-1).double(), res.f.double(),
+                      res.start.double(), res.iterations.double(),
+                      res.evaluations.reshape(1).double()]).cpu().numpy()
+    x = host[: B * nv].reshape(B, nv).copy()
+    f, ss = host[B * nv: B * nv + B], host[B * nv + B: B * nv + 2 * B]
     # a search that did not improve on its start (a float32 plateau) keeps
     # the start
-    worse = (fb > ss).cpu().numpy()
+    worse = f > ss
     x[worse] = starts[worse]
-    return UCVSearch(x, iters.cpu().numpy(), evaluations,
-                     str(X.dtype).replace("torch.", ""))
+    return UCVSearch(x, host[B * nv + 2 * B: -1].astype(np.int32),
+                     int(host[-1]), str(X.dtype).replace("torch.", ""))
 
 
 def _device_minimize(scorer: UCVScorer, x0, diagonal: bool) -> UCVSearch:

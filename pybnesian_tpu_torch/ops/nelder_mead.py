@@ -7,7 +7,9 @@ in one ``lax.while_loop``; here the loop runs on the host over batched
 tensor steps, and reads the device twice per iteration: the scalar
 ``any(shrink)`` and the scalar ``all(done)``. Everything else stays on the
 tensors' device, so one iteration of B problems costs two batched objective
-calls whatever B is.
+calls whatever B is. On the card a float32 UCV search runs as one launch
+of a kernel instead (``ops/ucv_search_kernel.py``), and this loop over the
+UCV objective is its plain version.
 
 Coefficients and the initial simplex follow scipy.optimize's Nelder–Mead
 (rho=1, chi=2, psi=0.5, sigma=0.5; x0 perturbed 5% per coordinate, 0.00025
@@ -42,7 +44,13 @@ def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
     lane shrinks. ``fatol`` and ``xatol`` are scalars or (B,) tensors, one
     tolerance per lane. A lane that has converged, or has taken
     ``max_iter`` iterations, is frozen: its simplex no longer moves while
-    the others go on. Returns (x_best (B, n), f_best (B,), iters (B,))."""
+    the others go on; a lane whose best value is NaN (every value NaN:
+    the sort puts NaN last) never converges, and is done before the first
+    iteration. The centroid of the best n vertices is their sum in vertex
+    order divided by a tensor of n, operations that round the same on
+    every device (``torch.mean`` sums in an order of its own, and dividing
+    by a Python number multiplies by its reciprocal on the card). Returns
+    (x_best (B, n), f_best (B,), iters (B,))."""
     B, n = x0s.shape
     rho, chi, psi, sigma = 1.0, 2.0, 0.5, 0.5
 
@@ -64,10 +72,13 @@ def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
         return (fspread <= fatol) & (xspread <= xatol)
 
     iters = torch.zeros(B, dtype=torch.int32, device=x0s.device)
-    done = converged(simplex, fvals)
+    done = converged(simplex, fvals) | torch.isnan(fvals[:, 0])
     while not bool(done.all()):
         sim, fv = simplex, fvals
-        xbar = torch.mean(sim[:, :-1], dim=1)
+        xbar = sim[:, 0]
+        for k in range(1, n):
+            xbar = xbar + sim[:, k]
+        xbar = xbar / torch.full_like(xbar, n)
         xw = sim[:, -1]
         fw = fv[:, -1]
         xr = xbar + rho * (xbar - xw)

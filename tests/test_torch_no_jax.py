@@ -64,7 +64,8 @@ def test_no_import_statement_names_jax(path):
 
 
 KERNEL_MODULES = ["ops/ckde_cv_kernel.py", "ops/kde_kernel.py",
-                  "ops/ucv_kernel.py", "ops/cv_whiten_kernel.py",
+                  "ops/ucv_kernel.py", "ops/ucv_search_kernel.py",
+                  "ops/cv_whiten_kernel.py",
                   "ops/lg_cv_kernel.py", "ops/exp_chain.py",
                   "ops/cuda_build.py"]
 

@@ -17,12 +17,15 @@ search calls ``ucv_pair_sums_batch`` on a (10, 9000, 3) block. This script
    at the card's memory rate;
 2. profiles three float32 calls under ``torch.profiler``: the device's
    kernels by total time, and the kernels per call;
-3. runs one float32 search of that shape (``ucv_search_batch``) with a
-   profiled copy of it: per Nelder–Mead iteration its host wall, its
-   objective evaluations, the device kernels it launches, its device reads
-   (``aten::_local_scalar_dense``: each one a host wait on the card), and
-   the share of the device time in the pair-sums kernel, which says what
-   sets the search's pace once the pair sums are one kernel.
+3. runs one float32 search of that shape (``ucv_search_batch``) by each
+   route, the search kernel (one launch, ``ucv_search_cuda``) and the plain
+   host loop that it replaced (``ucv_search_reference``, its evaluations
+   through the pair-sums kernel), on the same problems, each timed and
+   then run again under the profiler: its wall, its device time (the sum
+   of its kernels' device times), its kernel launches, its device reads
+   (device-to-host copies: each one a host wait on the card), its
+   iterations and evaluations, per Nelder–Mead iteration, and the share of
+   the device time in the UCV kernels.
 
 Needs a GPU; imports neither JAX nor the JAX package.
 """
@@ -102,8 +105,10 @@ def profile_calls(torch, w32, calls=3):
 
 
 def search_profile(torch, white):
-    """One float32 search of the (PROBLEMS, ROWS, COLUMNS) block, timed,
-    then the same search again under the profiler."""
+    """One float32 search of the (PROBLEMS, ROWS, COLUMNS) block by each
+    route, timed, then the same search again under the profiler."""
+    import contextlib
+
     import chip_smoke
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,35 +120,43 @@ def search_profile(torch, white):
                     for x in white])
     args = (white, np.ones(white.shape[:2]), np.full(len(white), ROWS), x0s,
             d)
-    ucv_search_batch(*args, dtype=np.float32, device="cuda")  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    search = ucv_search_batch(*args, dtype=np.float32, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        again = ucv_search_batch(*args, dtype=np.float32, device="cuda")
-        torch.cuda.synchronize()
-    if not np.array_equal(again.x, search.x):
-        raise AssertionError("two float32 searches found different optima")
-    events = device_events(prof)
-    device_us = sum(e.device_time for e in events)
-    pair_us = sum(e.device_time for e in events if "ucv_" in e.name)
-    reads = sum(1 for e in prof.events()
-                if e.name == "aten::_local_scalar_dense")
-    iters = int(search.iterations.max())
-    chip_smoke.say(
-        "ucv profile search", problems=len(white), rows=ROWS, columns=d,
-        wall_s=f"{wall:.4f}", iterations_max=iters,
-        evaluations=search.evaluations,
-        ms_per_iteration=f"{wall / iters * 1e3:.4f}",
-        kernels_per_iteration=f"{len(events) / iters:.1f}",
-        device_reads_per_iteration=f"{reads / iters:.2f}",
-        device_ms=f"{device_us / 1e3:.4f}",
-        device_busy_share_of_wall=f"{device_us / 1e6 / wall:.4f}",
-        pair_sums_share_of_device=f"{pair_us / device_us:.4f}",
-        pair_sums_share_of_wall=f"{pair_us / 1e6 / wall:.4f}")
+    routes = {"kernel": contextlib.nullcontext,
+              "plain_host_loop": chip_smoke.PlainSearches}
+    for route, context in routes.items():
+        with context():
+            ucv_search_batch(*args, dtype=np.float32, device="cuda")  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search = ucv_search_batch(*args, dtype=np.float32, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                again = ucv_search_batch(*args, dtype=np.float32,
+                                         device="cuda")
+                torch.cuda.synchronize()
+        if not np.array_equal(again.x, search.x):
+            raise AssertionError(f"two float32 searches by the {route} "
+                                 "found different optima")
+        events = device_events(prof)
+        kernels = [e for e in events if "Memcpy" not in e.name
+                   and "Memset" not in e.name]
+        reads = sum(1 for e in events if "Memcpy DtoH" in e.name)
+        device_us = sum(e.device_time for e in events)
+        ucv_us = sum(e.device_time for e in kernels if "ucv_" in e.name)
+        iters = int(search.iterations.max())
+        chip_smoke.say(
+            "ucv profile search", route=route, problems=len(white),
+            rows=ROWS, columns=d, wall_s=f"{wall:.4f}",
+            iterations_max=iters, iterations=repr(search.iterations.tolist()),
+            evaluations=search.evaluations,
+            ms_per_iteration=f"{wall / iters * 1e3:.4f}",
+            kernel_launches=len(kernels), device_reads=reads,
+            kernels_per_iteration=f"{len(kernels) / iters:.1f}",
+            device_reads_per_iteration=f"{reads / iters:.2f}",
+            device_ms=f"{device_us / 1e3:.4f}",
+            device_busy_share_of_wall=f"{device_us / 1e6 / wall:.4f}",
+            ucv_kernels_share_of_device=f"{ucv_us / device_us:.4f}")
 
 
 def main():
