@@ -111,8 +111,15 @@ the script exits non-zero and prints no result:
    plain version, the host loop, on the searches' own problems
    (:func:`ucv_search_check`: its objective and bit-equal pair sums, its
    first :data:`UCV_SEARCH_STEPS` steps, the whole search no worse than
-   the plain one's plus ``fatol``, the same bits alone, in the batch and
-   rerun; timed with its bound) and the CV scores of its bandwidths to
+   the plain one's plus ``fatol`` and the plain loop's bits in x, f,
+   start, iterations, evaluations and each problem's lane evaluations,
+   the same bits alone, in the batch and rerun; timed with two bounds: one
+   evaluation a lane-iteration, and the evaluations each lane's search
+   needed, beside the schedule's efficiency against the pair kernel's rate
+   at full load; then the split of its block-time between tile work, lane
+   steps and waiting, from an instrumented build of its source,
+   ``tools/kernel_sweeps.py``'s, outside every timed window) and the CV
+   scores of its bandwidths to
    those of the plain search's at :data:`SCORE_RTOL`; the float32
    searches then run as the plain host loop on the card (timed, and again
    recording the pair-sums kernel's inputs), and the UCV pair-sums kernel
@@ -614,13 +621,26 @@ def say_ptxas(phase, source, kernel):
                     x.strip() for x in lines[i:i + 3])))
 
 
+def kernel_sweeps():
+    """``tools/kernel_sweeps.py`` of this checkout, as a module."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import kernel_sweeps as sweeps
+
+    return sweeps
+
+
 def phase_build():
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together, and the search kernel's
+    instrumented copy (``tools/kernel_sweeps.py``) beside them. Returns
+    that copy's library."""
     from pybnesian_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
+    with ThreadPoolExecutor(len(cuda_build.SOURCES) + 1) as pool:
+        stamped = pool.submit(kernel_sweeps().search_stamped)
         infos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
+        stamped = stamped.result()
     wall = time.perf_counter() - t0
     for source, info in zip(cuda_build.SOURCES, infos):
         cuda_build.load(source)
@@ -632,7 +652,9 @@ def phase_build():
             seconds=f"{info['seconds']:.2f}", ptxas_used=repr(regs),
             spilling=repr(ptxas_spills(info["ptxas"])),
             library=os.path.basename(info["path"]))
-    say("1 build", sources=len(infos), wall_s=f"{wall:.2f}")
+    say("1 build", sources=len(infos), wall_s=f"{wall:.2f}",
+        instrumented="ucv_pairs.cu (tools/kernel_sweeps.py search)")
+    return stamped
 
 
 def pair_inputs(torch, G, ntr, nte, dpad, seed, scale=3.0):
@@ -1104,14 +1126,20 @@ def compare_lg(torch, args, label, card=None, phase="8 hc lg kernel",
     return result
 
 
+def same_bits(torch, got, want):
+    """Whether two tensors are the same bits: NaN in the same places, the
+    rest equal."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
 def hold_same_bits(torch, got, want, label):
     """Each tensor of ``got`` the same bits as ``want``'s (NaN in the same
     places, the rest equal)."""
     for i, (g, w) in enumerate(zip(got, want)):
         if g is None and w is None:
             continue
-        if not (torch.equal(torch.isnan(g), torch.isnan(w))
-                and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))):
+        if not same_bits(torch, g, w):
             raise AssertionError(f"{label}: output {i} is not bit-equal")
 
 
@@ -2367,6 +2395,8 @@ def search_fields(torch, frame, searches, seconds):
             f"/max{max(iters)}",
             "objective_evaluations": sum(s.evaluations
                                          for s, _r, _c in searches),
+            "lane_evaluations": sum(int(s.lane_evaluations.sum())
+                                    for s, _r, _c in searches),
             "search_s": f"{seconds:.4f}", "pair_sums_s": f"{pair:.4f}",
             "pair_sums_share": f"{pair / seconds:.4f}"}
 
@@ -2757,16 +2787,19 @@ class PlainSearches:
         self._module.ucv_search_cuda = self._wrapper
 
 
-def search_work(X, valid, nv, iterations):
+def search_work(X, valid, nv, evaluations):
     """(exps, FP32 ops, bytes) a UCV search of these problems needs at
-    least: per problem its nv + 1 starting vertices and one evaluation an
-    iteration (the reflection; the second point and the shrinks are not
-    counted), each an ``ucv_work`` pair-sum evaluation of its valid rows;
-    the rows read once, the results written once."""
+    least, given ``evaluations`` (B,): per problem that many ``ucv_work``
+    pair-sum evaluations of its valid rows; the rows read once, the results
+    written once. With each problem's nv + 1 starting vertices and one
+    evaluation an iteration (the reflection alone) it is the bound kept
+    from the first version; with each problem's ``lane_evaluations`` the
+    evaluations its own search needed (the second points and shrinks
+    too)."""
     B, N, d = X.shape
     n = (np.full(B, float(N)) if valid is None
          else (valid > 0).sum(1).double().cpu().numpy())
-    evals = nv + 1 + iterations.double().cpu().numpy()
+    evals = evaluations.double().cpu().numpy()
     pairs = float((evals * n * (n - 1) / 2).sum())
     per_pair = 2 * d + 4 if d <= UCV_DOT_D else 3 * d + 3
     nbytes = (4 * B * N * d + (0 if valid is None else 4 * B * N)
@@ -2774,7 +2807,7 @@ def search_work(X, valid, nv, iterations):
     return pairs, pairs * per_pair, nbytes
 
 
-def ucv_search_check(torch, card, calls, device_ms):
+def ucv_search_check(torch, card, calls, device_ms, stamped):
     """The search kernel (``ucv_search``) against its plain version, the
     host loop, on the problems of the float32 searches of (b) (one call per
     family width, copied by :class:`SearchRecording`): (1) its objective at
@@ -2783,11 +2816,17 @@ def ucv_search_check(torch, card, calls, device_ms):
     whitened rows the same bits as the pair-sums kernel's; (2) x, f and
     iterations at :data:`UCV_SEARCH_STEPS` against the plain loop's; (3)
     the whole search per problem no worse than the plain search's best
-    plus its ``fatol``, nor than its start, with both searches' iterations,
-    evaluations and times; (5) problems 0 and B - 1 alone the same bits as
-    in the batch, and a second run the same bits; each instantiation's
-    registers and spills from the build. Returns the kernels-line
-    result at the widest search, with its error the largest of (1)."""
+    plus its ``fatol``, nor than its start, and the same bits as the plain
+    search's (x, f, start, iterations, evaluations and lane evaluations),
+    with both searches' times; (5) problems 0 and B - 1 alone the same
+    bits as in the batch, and a second run the same bits; each
+    instantiation's registers and spills from the build. Then the widest
+    search timed with its bounds and the schedule's efficiency (its lane
+    evaluations times the pair kernel's ms per problem at full load, over
+    its ms), and each search's block-time split from ``stamped`` (the
+    instrumented build), outside the timed windows. Returns the
+    kernels-line result at the widest search, with its error the largest
+    of (1) and its bound that of the lane evaluations."""
     from pybnesian_tpu_torch.ops.ucv_kernel import ucv_pair_sums_cuda
     from pybnesian_tpu_torch.ops.ucv_search_kernel import (
         ucv_objective_reference, ucv_search_cuda, ucv_search_evaluate,
@@ -2840,6 +2879,11 @@ def ucv_search_check(torch, card, calls, device_ms):
             raise AssertionError(f"ucv_search {shape}: f best {got.f} "
                                  f"against the plain search's {plain.f} "
                                  f"and the start {got.start}")
+        for name, g, w in zip(got._fields, got, plain):
+            if not same_bits(torch, g, w):
+                raise AssertionError(f"ucv_search {shape}: {name} "
+                                     f"{g.tolist()} against the plain "
+                                     f"loop's {w.tolist()}")
         again = ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_iter)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         for b in (0, B - 1):
@@ -2862,6 +2906,9 @@ def ucv_search_check(torch, card, calls, device_ms):
             iterations_plain=repr(plain.iterations.tolist()),
             evaluations_kernel=int(got.evaluations),
             evaluations_plain=int(plain.evaluations),
+            lane_evaluations_kernel=repr(got.lane_evaluations.tolist()),
+            lane_evaluations_plain=repr(plain.lane_evaluations.tolist()),
+            same_bits_as_plain_loop=True,
             f_best_max_rel_vs_plain=f"{max_rel(got.f, plain.f):.3e}",
             no_worse_than_plain_plus_fatol=True,
             bit_equal_alone_in_batch_and_rerun=True,
@@ -2880,10 +2927,25 @@ def ucv_search_check(torch, card, calls, device_ms):
               "plain_ms": cuda_median_ms(
                   torch, lambda: ucv_search_reference(
                       X, valid, Ns, x0, d, diagonal, max_iter), runs=3),
-              "work": search_work(X, valid, x0.shape[1], got.iterations),
+              "work": search_work(X, valid, x0.shape[1],
+                                  got.lane_evaluations),
               "library_ms": None}
     bound_ms, by = bound(card, *result["work"])
+    first_ms = bound(card, *search_work(
+        X, valid, x0.shape[1], x0.shape[1] + 1 + got.iterations))[0]
     one_eval = bound(card, *ucv_work(X, valid))[0]
+    # the pair kernel at full load: the rows the search whitens at its
+    # start, its B problems ten times over in one launch (many waves), timed
+    # in windows of KERNEL_BATCH launches
+    white = ucv_search_evaluate(X, valid, Ns, x0, x0[:, None].contiguous(),
+                                d, diagonal, white=True)[2][:, 0]
+    white = white.repeat(10, 1, 1).contiguous()
+    valid10 = None if valid is None else valid.repeat(10, 1).contiguous()
+    per_lane_ms = cuda_median_ms(
+        torch, lambda: ucv_pair_sums_cuda(white, valid10),
+        batch=KERNEL_BATCH) / white.shape[0]
+    lane_evals = int(got.lane_evaluations.sum())
+    efficiency = lane_evals * per_lane_ms / result["ms"]
     say("9 ucv search kernel", case=f"search-inputs-{d}d",
         B_N_d="x".join(map(str, X.shape)),
         kernel_ms=f"{result['ms']:.4f}",
@@ -2892,22 +2954,37 @@ def ucv_search_check(torch, card, calls, device_ms):
         plain_over_kernel=f"{result['plain_ms'] / result['ms']:.2f}",
         iterations_max=int(got.iterations.max()),
         ms_per_iteration=f"{result['ms'] / int(got.iterations.max()):.4f}",
+        lane_evaluations=lane_evals,
         bound_ms=f"{bound_ms:.4f}", bound_by=by,
         bound_share=f"{bound_ms / result['ms']:.4f}",
+        one_per_lane_iteration_bound_ms=f"{first_ms:.4f}",
+        one_per_lane_iteration_bound_share=f"{first_ms / result['ms']:.4f}",
         batch_evaluations_times_one_bound_ms=(
             f"{int(got.evaluations) * one_eval:.4f}"),
+        pair_kernel_ms_per_lane_evaluation=f"{per_lane_ms:.5f}",
+        schedule_efficiency=f"{efficiency:.4f}",
         library="none computes it")
+    sweeps = kernel_sweeps()
+    with sweeps.StampedSearches(torch, stamped) as stamps:
+        for X, valid, Ns, x0, d, diagonal, max_iter in calls:
+            for fields in sweeps.search_split_of(
+                    stamps, lambda: ucv_search_cuda(
+                        X, valid, Ns, x0, d, diagonal, max_iter),
+                    "x".join(map(str, X.shape)),
+                    2 if d <= UCV_DOT_D else 4):
+                say("9 ucv search stamps", **fields)
     return result
 
 
-def phase_ucv(torch, frame32, frame64, k, card):
+def phase_ucv(torch, frame32, frame64, k, card, stamped):
     """UCV and custom bandwidth selectors on the card. Returns the
     launches of its path — the entry points of (b) in float32, (c), (d)
     and (e), each driven with the counts at 0 and read just after — the
     whitening, pairs and fold-reduce kernels' errors on the UCV-scored
     inputs (the given-bandwidths route), and the checked and timed cases
     of the UCV pair-sums kernel (:func:`ucv_kernel_check`) and of the
-    search kernel (:func:`ucv_search_check`)."""
+    search kernel (:func:`ucv_search_check`, whose block-time split runs on
+    ``stamped``, the instrumented build)."""
     from pybnesian_tpu_torch import (
         KDE, UCV, Arguments, BandwidthSelector, CKDEType, CVLikelihood,
         DataFrame, KDENetwork, Kwargs)
@@ -3035,7 +3112,7 @@ def phase_ucv(torch, frame32, frame64, k, card):
     }
     ucv = ucv_kernel_check(torch, card, visits)
     search = ucv_search_check(torch, card, searched.calls,
-                              searched.device_ms())
+                              searched.device_ms(), stamped)
     say("9 ucv", path="CVLikelihood+UCV", scoring_s_f32=f"{scoring_s:.4f}",
         scores_f32=repr([round(float(x), 3) for x in s32]),
         same_bandwidths_max_rel_vs_f64=f"{rel_given:.3e}",
@@ -4701,7 +4778,7 @@ def main():
     card = phase_environment(torch)
     from pybnesian_tpu_torch import DataFrame
 
-    phase_build()
+    stamped = phase_build()
     k = 10
     data = make_data()
     frame32 = DataFrame.wrap(data)
@@ -4721,7 +4798,7 @@ def main():
     model_launches = phase_model_path(torch)
     hc_launches, hc_errs, lg = phase_hc(torch, card)
     ucv_launches, ucv_errs, ucv, ucv_search = phase_ucv(
-        torch, frame32, frame64, k, card)
+        torch, frame32, frame64, k, card, stamped)
     phase_discrete(torch)
     t_new = time.perf_counter()
     hybrid_launches, hybrid_errs = phase_hybrid(torch)

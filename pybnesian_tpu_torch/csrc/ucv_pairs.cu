@@ -56,8 +56,11 @@
 // - Off-diagonal tiles run a loop with no mask at all. Diagonal tiles
 //   (ti == tj) run their own: a warp (128 consecutive rows) skips the
 //   column groups that lie wholly below its first row, and in the groups
-//   it computes keeps the pairs i < j, the others multiplied by 0, which
-//   keeps a NaN, as the plain version's mask does.
+//   it computes keeps the pairs i < j, the others set to 0 unless NaN, as
+//   the plain version's mask gives them (a min that keeps a NaN, not a
+//   product with 0: a self-pair's exponent, 0 in exact arithmetic, may
+//   round past 128 in the dot form at a bandwidth far below the data's
+//   spread, and inf * 0 is NaN).
 // - Deterministic and batch-independent: per-thread FP32 sums in a fixed
 //   order, a fixed float64 tree over the block's threads, one float64
 //   partial per (problem, tile pair), no atomic in any sum (a shared
@@ -80,36 +83,68 @@
 // run (pybnesian_tpu/ops/nelder_mead.py:24): the whole Nelder–Mead search
 // of B UCV problems, every objective evaluation inside it, as one
 // cooperative launch whose blocks stay resident for the whole search (the
-// grid is the co-resident block count) and meet at grid-wide barriers.
-// The JAX package runs that search as one jitted `lax.while_loop` for the
-// same reason: a dispatch per evaluation would set the pace. Per
-// iteration, for the lanes (problems) still searching:
+// grid is the co-resident block count). The JAX package runs that search
+// as one jitted `lax.while_loop` for the same reason: a dispatch per
+// evaluation would set the pace.
 //
-//   (a) every block walks (lane, point, tile pair) work items: it builds L
-//       from the point (vech(L) or diag(L)) in shared memory, whitens its
-//       row tile and column tile into shared memory by forward
-//       substitution (d^2 FMAs a row against 256 d a row's pairs) and
-//       writes the tile's float64 partial, with the pair kernel's own tile
-//       body reading the whitened tiles;
-//   (b) one warp per lane sums the reflection's partials in the pair
-//       kernel's fixed order (the same bits as ucv_pair_sums_f32 on those
-//       whitened rows), forms the score and the guards in float32 as the
-//       plain objective does, and writes the second point (expansion or a
-//       contraction; none when the reflection is kept);
-//   (c) the second point's tiles; (d) one warp per lane takes the accept
-//       rule, and a lane that shrinks writes its n shrunk vertices;
-//   (e) only when some lane shrinks: their tiles, then their values;
-//   (f) one warp per lane orders its n + 1 vertices by a stable insertion
-//       sort of slot indices (the vertices stay in their slots), counts
-//       the iteration and tests convergence; the grid stops when every
-//       lane is done, which each block reads from the lanes' flags.
+// Each lane (problem) moves through its own phases, with no grid-wide
+// barrier after the set-up: a phase is the tiles of the points the lane
+// must evaluate next (its start and simplex; a reflection; the second
+// point, expansion or a contraction; its n shrunk vertices), one work
+// item a (point, tile pair), numbered 0 .. points x pairs - 1 over the
+// lane's own tiles. The lane's queue word holds the phase's item count and
+// the next item to claim (the phase's kind sits in the lane's state):
 //
-// A lane that has converged, or reached max_iter, costs nothing more; a
-// lane whose start scores NaN is done before the first iteration. Work
-// items come from a lane's own rows (up to its last valid row), whose
-// extra tiles in a padded batch would add only exact zeros, so a lane's
-// result is the same bits alone and in any batch. No atomic anywhere: the
-// flags and the evaluation count are written by one thread each.
+//   - a block claims an item with one atomicAdd on the word (its old
+//     value names the item, or lies past the phase's items: no claim);
+//     warp 0 scans the lanes from a block-dependent start, 32 words at a
+//     time;
+//   - it builds L from the point (vech(L) or diag(L)) in shared memory,
+//     whitens its row tile and column tile into shared memory by forward
+//     substitution (d^2 FMAs a row against 256 d a row's pairs) and
+//     writes the item's float64 partial to its fixed slot, with the pair
+//     kernel's own tile body reading the whitened tiles, then counts the
+//     item done (a fence, then an atomicAdd on the lane's count);
+//   - the block that counts a phase's last item runs the lane's step with
+//     one warp: it sums each point's partials in the pair kernel's fixed
+//     order (the same bits as ucv_pair_sums_f32 on those whitened rows),
+//     forms the score and the guards in float32 as the plain objective
+//     does, and takes the Nelder–Mead step: the second point (none when
+//     the reflection is kept), scipy's accept rules or a shrink, the order
+//     of the n + 1 vertices by a stable insertion sort of slot indices
+//     (the vertices stay in their slots), the iteration count and the
+//     convergence test; then it publishes the next phase's points and,
+//     after a fence, the next queue word;
+//   - idle blocks back off with __nanosleep and leave when the count of
+//     live lanes reaches 0; the last lane to finish writes the batched
+//     evaluation count.
+//
+// A lane's steps read its own state alone and its partials sit in fixed
+// slots, so a lane gives the same bits whichever block ran which item,
+// alone and in any batch: the plain loop's. Atomics only claim items,
+// count completions and lanes, and OR the shrink flags; no atomic touches
+// a value that is summed. A lane that has converged, or reached max_iter,
+// costs nothing more; a lane whose start scores NaN is done after its
+// first phase. Work items come from a lane's own rows (up to its last
+// valid row), whose extra tiles in a padded batch would add only exact
+// zeros.
+//
+// Bound: the exponentials of the pair evaluations the lanes' searches
+// need (their `lane_evals`, each a pair-kernel evaluation of the lane's
+// valid rows), on the SFU. Lanes converge after very different numbers of
+// iterations, and each step waits on its lane's last item: the queue keeps
+// every block on whatever lane has items left, so the card stays fed
+// until the last lanes' tail, and a step's latency (the reduce's loads
+// above all) stays short on its lane's critical path.
+//
+// Evaluations: the plain loop counts its batched objective calls, which
+// run in lockstep: 1 + (n + 1), then 2 a round while any lane runs, and n
+// more in a round where some lane shrinks. Round t is every lane's own
+// iteration t, so the kernel counts 2 + n + 2 max_b iterations_b + n |{t :
+// some lane shrank at its iteration t}|, the set kept as max_iter bits set
+// with atomicOr. Each lane also counts the evaluations its own search
+// needed (its n + 1 starting points, then per iteration its reflection,
+// its second point unless the reflection was kept, and n when it shrank).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -131,6 +166,7 @@ constexpr int kWideTile = 128;       // rows per tile, runtime width
 constexpr int kWideGroup = 32;       // columns per group, runtime width
 constexpr int kWideChunk = 32;       // coordinates staged at a time
 constexpr int kReduceThreads = 256;  // threads of the per-problem reduction
+constexpr int kSumBatch = 8;    // partial pairs a reducing thread loads at once
 constexpr float kScale = 0.60056120439322491f;  // sqrt(log2(e) / 4)
 constexpr float kFar = 1e30f;  // coordinate 0 of an invalid row, signed
 
@@ -140,10 +176,21 @@ constexpr double kLog2 = 0.69314718055994530942;
 // MACHINE_TOL of the port (4 float64 epsilons), compared in float32 as the
 // plain objective compares it
 constexpr float kMachineTol = static_cast<float>(2.220446049250313e-16 * 4);
-constexpr int kDone = 1, kBest = 2, kMid = 4, kOutside = 8, kShrink = 16;
-constexpr int kLaneInts = 4;    // flags, iterations, tiles, unused
+constexpr int kBest = 2, kMid = 4, kOutside = 8;  // a reflection's flags
+// flags, iterations, tiles, the lane's evaluations, the items of its
+// phase done, its phase
+constexpr int kLaneInts = 6;
 constexpr int kLaneFloats = 8;  // f start, det start, fatol, xatol, f of
                                 // the reflection, N, unused
+// blocks an SM that the search kernel's registers must allow: 8 up to 4
+// columns (128 registers), 6 wider (168), 4 of the runtime width's 128
+// threads (128), what the tile bodies take alone
+template <int D>
+constexpr int kSearchBlocksPerSm = D == 0 ? 4 : D <= 4 ? 8 : 6;
+// a lane's phase, in its state: the points whose tiles are its items
+constexpr int kNoItems = 0, kStartPoints = 1, kReflection = 2,
+              kSecondPoint = 3, kShrunk = 4;
+constexpr unsigned kNapMin = 64, kNapMax = 1024;  // ns an idle block sleeps
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -290,6 +337,13 @@ __device__ __forceinline__ void write_partial(double* out, float se,
   }
 }
 
+// A masked term: 0, or NaN when e is (e >= 0 here, so min(e, 0) by the
+// min that keeps a NaN); not e * 0, which is NaN for an e that is inf.
+__device__ __forceinline__ float zero_unless_nan(float e) {
+  asm("min.NaN.f32 %0, %0, 0f00000000;" : "+f"(e));
+  return e;
+}
+
 // Adds the terms of a group of T distance sums y (minus the distance in
 // log2 units) to (se, se2): four partial sums each, in a fixed order.
 // DIAG: keeps the pairs whose column `j0 + t` lies past `row`.
@@ -301,7 +355,7 @@ __device__ __forceinline__ void add_group(const float (&y)[T], int row,
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     float e = ex2(y[t]);
-    if (DIAG && !(row < j0 + t)) e *= 0.0f;  // keeps a NaN
+    if (DIAG && !(row < j0 + t)) e = zero_unless_nan(e);
     p[t % 4] += e;
     q[t % 4] = fmaf(e, e, q[t % 4]);
   }
@@ -501,8 +555,11 @@ __device__ __forceinline__ void pair_tile_wide(const RowSrc& rows,
 
 // ------------------------------------------------------------- reduction
 // Thread t's sums of one problem's partials (nt tiles, row-major upper
-// triangle): each row tile ti = t, t + kReduceThreads, ... over its column
-// tiles in order, those row sums in order of ti.
+// triangle, an (s2h, sh) pair a tile pair): each row tile ti = t, t +
+// kReduceThreads, ... over its column tiles in order, those row sums in
+// order of ti. A row's partials are loaded kSumBatch pairs at a time
+// ahead of their adds, which keep their order (in the search's lane steps
+// the loads' latency sets the pace).
 __device__ __forceinline__ void thread_sums(const double* part, int nt, int t,
                                             double& x, double& y) {
   x = 0.0;
@@ -511,9 +568,23 @@ __device__ __forceinline__ void thread_sums(const double* part, int nt, int t,
     const double* row =
         part + 2 * (static_cast<long long>(ti) * nt -
                     static_cast<long long>(ti) * (ti - 1) / 2);
+    const int len = nt - ti;
     double rx = 0.0, ry = 0.0;
+    int tj = 0;
+    for (; tj + kSumBatch <= len; tj += kSumBatch) {
+      double2 v[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        v[u] = __ldcg(reinterpret_cast<const double2*>(row) + tj + u);
+      }
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        rx += v[u].x;
+        ry += v[u].y;
+      }
+    }
 #pragma unroll 4
-    for (int tj = 0; tj < nt - ti; ++tj) {
+    for (; tj < len; ++tj) {
       rx += __ldcg(row + 2 * tj);
       ry += __ldcg(row + 2 * tj + 1);
     }
@@ -562,12 +633,14 @@ __global__ void __launch_bounds__(kReduceThreads)
 // ucv_reduce_kernel's sums by one warp: the kReduceThreads threads' sums
 // taken 32 at a time, each group by warp_sums, the groups in order (a
 // group past the last row tile adds exact zeros and is skipped). Lane 0
-// ends with the sums.
-__device__ __forceinline__ void warp_reduce(const double* part, int nt,
+// ends with the sums. Not inlined: its batched loads stay out of the
+// register budget of the search kernel's tile work.
+__device__ __noinline__ void warp_reduce(const double* part, int nt,
                                             double& sx, double& sy) {
   const int lane = threadIdx.x & 31;
   sx = 0.0;
   sy = 0.0;
+#pragma unroll 1
   for (int w = 0; w < kReduceThreads / 32 && w * 32 < nt; ++w) {
     double x, y;
     thread_sums(part, nt, w * 32 + lane, x, y);
@@ -671,6 +744,7 @@ struct SearchArgs {
   int P;               // > 0: evaluate the given points only
   int Q;               // point slots a lane: max(nv + 1, P + 1)
   int tile, pairs_max;  // rows a tile, tile pairs a point slot
+  int shrink_words;     // words of `shrunk`
   // scratch
   float* pts;       // (B, Q, nv) the points of the current evaluation
   float* sim;       // (B, nv + 1, nv) the vertices, by slot
@@ -678,17 +752,22 @@ struct SearchArgs {
   float* xbar;      // (B, nv) the centroid of the best nv vertices
   float* lanef;     // (B, kLaneFloats)
   float* Lrows;     // (B, d, d) L of an exported point
-  int* order;       // (B, nv + 1) slots, best first
-  int* state;       // (B, kLaneInts)
+  // (B,) a lane's queue word: its phase's items << 32 | the next to claim
+  unsigned long long* queue;
+  int* order;        // (B, nv + 1) slots, best first
+  int* state;        // (B, kLaneInts)
+  unsigned* shrunk;  // bit t: some lane shrank at its iteration t + 1
+  int* live;         // (1,) lanes not done
   double* partials;  // (B, Q, pairs_max, 2)
   // results
-  float* x_best;   // (B, nv)
-  float* f_out;    // (B,) f best; evaluate: (B, P) f at the given points
-  float* f_start;  // (B,) the start's score
-  int* iters;      // (B,)
-  int* evals;      // (1,) batched objective calls, as the plain loop counts
-  float* sums;     // evaluate: (B, P, 2) (s2h, sh) of the given points
-  float* white;    // evaluate: (B, P, N, d) their whitened rows, or null
+  float* x_best;    // (B, nv)
+  float* f_out;     // (B,) f best; evaluate: (B, P) f at the given points
+  float* f_start;   // (B,) the start's score
+  int* iters;       // (B,)
+  int* evals;       // (1,) batched objective calls, as the plain loop counts
+  int* lane_evals;  // (B,) the evaluations each lane's search needed
+  float* sums;      // evaluate: (B, P, 2) (s2h, sh) of the given points
+  float* white;     // evaluate: (B, P, N, d) their whitened rows, or null
 };
 
 __device__ __forceinline__ float* point(const SearchArgs& a, int b, int q) {
@@ -713,6 +792,49 @@ __device__ __forceinline__ int* state_of(const SearchArgs& a, int b) {
 }
 __device__ __forceinline__ float* floats_of(const SearchArgs& a, int b) {
   return a.lanef + static_cast<size_t>(b) * kLaneFloats;
+}
+
+// The points a phase evaluates; its first sits in slot phase_slot(kind).
+__device__ __forceinline__ int phase_points(const SearchArgs& a, int kind) {
+  switch (kind) {
+    case kStartPoints:
+      return a.P > 0 ? a.P + 1 : a.nv + 1;
+    case kReflection:
+    case kSecondPoint:
+      return 1;
+    case kShrunk:
+      return a.nv;
+    default:
+      return 0;
+  }
+}
+__device__ __forceinline__ int phase_slot(int kind) {
+  return kind == kSecondPoint || kind == kShrunk ? 1 : 0;
+}
+
+// The queue word of a phase of `items` work items, none claimed yet.
+__device__ __forceinline__ unsigned long long queue_word(int items) {
+  return static_cast<unsigned long long>(items) << 32;
+}
+
+// A load from device memory that another block may have just written,
+// read at the L2 each time (a spin loop's).
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
 // L[r][c] of the point x: vech(L) (column-major lower triangle) or diag(L).
@@ -825,15 +947,17 @@ __device__ __noinline__ void reflect(const SearchArgs& a, int b) {
 
 // Stable insertion sort of lane b's slots by value, by lane 0.
 __device__ __forceinline__ void sort_slots(const SearchArgs& a, int b) {
+  const int lane = threadIdx.x & 31;
   int* o = order_of(a, b);
   const float* f = values(a, b);
+  if (lane != 0) return;
   for (int i = 1; i <= a.nv; ++i) {
-    const int key = o[i];
-    const float fk = f[key];
+    const int key = __ldcg(o + i);
+    const float fk = __ldcg(f + key);
     int j = i - 1;
     while (j >= 0) {
-      const int oj = o[j];
-      if (!before(fk, f[oj])) break;
+      const int oj = __ldcg(o + j);
+      if (!before(fk, __ldcg(f + oj))) break;
       o[j + 1] = oj;
       --j;
     }
@@ -842,24 +966,25 @@ __device__ __forceinline__ void sort_slots(const SearchArgs& a, int b) {
 }
 
 // The end of an iteration of lane b: its order, its count, its
-// convergence and, if it goes on, its next reflection. One warp.
-__device__ __noinline__ void finish_iteration(const SearchArgs& a, int b) {
+// convergence and, if it goes on, its next reflection. Returns the lane's
+// next phase: kReflection, or kNoItems when it is done. One warp.
+__device__ __noinline__ int finish_iteration(const SearchArgs& a, int b) {
   const int lane = threadIdx.x & 31;
   int* s = state_of(a, b);
-  if (lane == 0) sort_slots(a, b);
+  sort_slots(a, b);
   __syncwarp();
-  const int it = __shfl_sync(kFull, lane == 0 ? s[1] + 1 : 0, 0);
+  const int it = __shfl_sync(kFull, lane == 0 ? __ldcg(s + 1) + 1 : 0, 0);
   const bool done = converged(a, b) || it >= a.max_iter;
   __syncwarp();
-  if (lane == 0) {
-    s[1] = it;
-    s[0] = done ? kDone : 0;
-  }
-  if (!done) reflect(a, b);
+  if (lane == 0) s[1] = it;
+  if (done) return kNoItems;
+  reflect(a, b);
+  return kReflection;
 }
 
 // Lane b's rows (up to its last row that counts or holds a NaN, which the
-// plain sums would carry), its point slots and its state. One warp.
+// plain sums would carry), its point slots, its state and its first
+// phase, the start and the simplex (or the given points). One warp.
 __device__ __noinline__ void setup_lane(const SearchArgs& a, int b) {
   const int lane = threadIdx.x & 31, n = a.nv;
   int last = -1;
@@ -889,18 +1014,24 @@ __device__ __noinline__ void setup_lane(const SearchArgs& a, int b) {
     }
   }
   if (lane == 0) {
+    const int nt = (last + a.tile) / a.tile;  // tiles up to row `last`
+    const int points = phase_points(a, kStartPoints);
     int* s = state_of(a, b);
     s[0] = 0;
     s[1] = 0;
-    s[2] = (last + a.tile) / a.tile;  // tiles up to row `last`
-    s[3] = 0;
+    s[2] = nt;
+    s[3] = points;
+    s[4] = 0;
+    s[5] = kStartPoints;
     floats_of(a, b)[5] = a.Ns[b];
+    a.queue[b] = queue_word(points * (nt * (nt + 1) / 2));
   }
 }
 
 // After the first evaluation: the start's raw score, the initial simplex
-// guarded and ordered, the tolerances, and the first reflection. One warp.
-__device__ __noinline__ void start_lane(const SearchArgs& a, int b) {
+// guarded and ordered, the tolerances, and the first reflection. Returns
+// kReflection, or kNoItems when the lane is done at once. One warp.
+__device__ __noinline__ int start_lane(const SearchArgs& a, int b) {
   const int lane = threadIdx.x & 31, n = a.nv;
   float* f = values(a, b);
   int* o = order_of(a, b);
@@ -930,15 +1061,17 @@ __device__ __noinline__ void start_lane(const SearchArgs& a, int b) {
     l[1] = sd;
     l[2] = __fadd_rn(__fmul_rn(1e-4f, fabsf(ss)), 1e-12f);
     l[3] = __fadd_rn(__fmul_rn(1e-4f, m), 1e-12f);
-    sort_slots(a, b);
   }
+  __syncwarp();
+  sort_slots(a, b);
   __syncwarp();
   // a lane whose best value is NaN (a NaN start: every value NaN) never
   // converges, and is done at once
   const bool done = isnan(__ldcg(f + __ldcg(o))) || converged(a, b);
   __syncwarp();
-  if (lane == 0) state_of(a, b)[0] = done ? kDone : 0;
-  if (!done) reflect(a, b);
+  if (done) return kNoItems;
+  reflect(a, b);
+  return kReflection;
 }
 
 // Evaluate mode, after the evaluation: the given points' guarded values,
@@ -972,20 +1105,24 @@ __device__ __noinline__ void finish_evaluate(const SearchArgs& a, int b) {
 }
 
 // After the reflection's evaluation: its guarded value, the step it calls
-// for and the second point, in slot 1 (none when the reflection is kept
-// as it is). One warp.
-__device__ __noinline__ void second_point(const SearchArgs& a, int b) {
+// for and the second point, in slot 1. Returns whether the second point
+// is needed (not when the reflection is kept as it is). One warp.
+__device__ __noinline__ bool second_point(const SearchArgs& a, int b) {
   const int lane = threadIdx.x & 31, n = a.nv;
   const float* l = floats_of(a, b);
   const float fr = guarded(evaluate_point(a, b, 0, nullptr), __ldcg(l),
                            __ldcg(l + 1));
   const int* o = order_of(a, b);
   const float* f = values(a, b);
-  const bool best = fr < __ldcg(f + __ldcg(o));
-  const bool mid = !best && fr < __ldcg(f + __ldcg(o + n - 1));
-  const bool outside = !best && !mid && fr < __ldcg(f + __ldcg(o + n));
+  const int o_best = __ldcg(o), o_next = __ldcg(o + n - 1),
+            o_worst = __ldcg(o + n);
+  const float f_best = __ldcg(f + o_best), f_next = __ldcg(f + o_next),
+              f_worst = __ldcg(f + o_worst);
+  const bool best = fr < f_best;
+  const bool mid = !best && fr < f_next;
+  const bool outside = !best && !mid && fr < f_worst;
   if (!mid) {
-    const float* xw = vertex(a, b, __ldcg(o + n));
+    const float* xw = vertex(a, b, o_worst);
     const float* xb = a.xbar + static_cast<size_t>(b) * n;
     float* x2 = point(a, b, 1);
     for (int j = lane; j < n; j += 32) {
@@ -1001,13 +1138,16 @@ __device__ __noinline__ void second_point(const SearchArgs& a, int b) {
         (best ? kBest : 0) | (mid ? kMid : 0) | (outside ? kOutside : 0);
     floats_of(a, b)[4] = fr;
   }
+  return !mid;
 }
 
-// After the second point's evaluation: scipy's accept rules. The accepted
-// point replaces the worst vertex and the iteration ends, or the lane
-// shrinks towards its best vertex and writes its n shrunk vertices into
-// slots 1..n. One warp.
-__device__ __noinline__ void accept(const SearchArgs& a, int b) {
+// After the second point's evaluation (or a kept reflection): scipy's
+// accept rules. The accepted point replaces the worst vertex and the
+// iteration ends, or the lane shrinks towards its best vertex, writes its
+// n shrunk vertices into slots 1..n and sets the bit of its iteration in
+// `shrunk`. Returns the lane's next phase: kReflection, kShrunk, or
+// kNoItems when it is done. One warp.
+__device__ __noinline__ int accept(const SearchArgs& a, int b) {
   const int lane = threadIdx.x & 31, n = a.nv;
   int* s = state_of(a, b);
   const float* l = floats_of(a, b);
@@ -1032,8 +1172,7 @@ __device__ __noinline__ void accept(const SearchArgs& a, int b) {
     for (int j = lane; j < n; j += 32) v[j] = __ldcg(src + j);
     if (lane == 0) f[worst] = use_r ? fr : f2;
     __syncwarp();
-    finish_iteration(a, b);
-    return;
+    return finish_iteration(a, b);
   }
   const float* v0 = vertex(a, b, __ldcg(o));
   for (int e = lane; e < n * n; e += 32) {
@@ -1044,13 +1183,17 @@ __device__ __noinline__ void accept(const SearchArgs& a, int b) {
         __fmul_rn(0.5f, __fsub_rn(__ldcg(vertex(a, b, __ldcg(o + k)) + j),
                                   x0)));
   }
-  __syncwarp();
-  if (lane == 0) s[0] = flags | kShrink;
+  if (lane == 0) {
+    const int t = __ldcg(s + 1);  // the iteration is t + 1
+    atomicOr(a.shrunk + t / 32, 1u << (t % 32));
+  }
+  return kShrunk;
 }
 
 // After the shrunk vertices' evaluation: they take their slots (the best
-// vertex stays), and the iteration ends. One warp.
-__device__ __noinline__ void finish_shrink(const SearchArgs& a, int b) {
+// vertex stays), and the iteration ends. Returns kReflection, or kNoItems
+// when the lane is done. One warp.
+__device__ __noinline__ int finish_shrink(const SearchArgs& a, int b) {
   const int lane = threadIdx.x & 31, n = a.nv;
   const float* l = floats_of(a, b);
   const float ss = __ldcg(l), sd = __ldcg(l + 1);
@@ -1065,7 +1208,7 @@ __device__ __noinline__ void finish_shrink(const SearchArgs& a, int b) {
     if (lane == 0) f[slot] = fk;
   }
   __syncwarp();
-  finish_iteration(a, b);
+  return finish_iteration(a, b);
 }
 
 __device__ __noinline__ void write_result(const SearchArgs& a, int b) {
@@ -1079,55 +1222,147 @@ __device__ __noinline__ void write_result(const SearchArgs& a, int b) {
     a.f_out[b] = __ldcg(values(a, b) + best);
     a.f_start[b] = __ldcg(floats_of(a, b));
     a.iters[b] = __ldcg(state_of(a, b) + 1);
+    a.lane_evals[b] = __ldcg(state_of(a, b) + 3);
   }
 }
 
-// Whether some lane's flags masked by `mask` equal `want`: the same answer
-// in every block, read after a grid barrier.
-__device__ __forceinline__ bool any_lane(const SearchArgs& a, int mask,
-                                         int want) {
-  int found = 0;
-  for (int b = threadIdx.x; b < a.B; b += blockDim.x) {
-    found |= (__ldcg(state_of(a, b)) & mask) == want;
+// The batched objective calls the plain loop would have made, by the warp
+// of the last lane to finish: 1 + (n + 1) for the starts and the simplex,
+// 2 a round up to the most iterations of any lane, n more for each round
+// in which some lane shrank (P + 1 in evaluate mode). One warp.
+__device__ __noinline__ void count_evaluations(const SearchArgs& a) {
+  const int lane = threadIdx.x & 31;
+  int rounds = 0;
+  unsigned shrinks = 0;
+  for (int b = lane; b < a.B; b += 32) {
+    rounds = max(rounds, __ldcg(state_of(a, b) + 1));
   }
-  return __syncthreads_or(found);
+  for (int w = lane; w < a.shrink_words; w += 32) {
+    shrinks += __popc(__ldcg(a.shrunk + w));
+  }
+  rounds = __reduce_max_sync(kFull, rounds);
+  shrinks = __reduce_add_sync(kFull, shrinks);
+  if (lane == 0) {
+    *a.evals = a.P > 0 ? a.P + 1
+                       : 2 + a.nv + 2 * rounds +
+                             a.nv * static_cast<int>(shrinks);
+  }
 }
 
-// The next work item at or after w of this block (w, w + G, ...) that
-// lies at or past `to`.
-__device__ __forceinline__ long long skip_to(long long w, long long to) {
-  const long long G = gridDim.x;
-  return w + (to - w + G - 1) / G * G;
-}
-
-// Rows base .. base + T - 1 of lane b whitened by L (shared, d x d) into
-// tile[k * T + t], those past the last row left as they are: one row a
-// thread at a time, the fixed width in registers.
-template <int D, int T>
-__device__ __forceinline__ void whiten_tile(const SearchArgs& a, int b,
-                                            int base, const float* L,
-                                            float* tile) {
-  constexpr int NT = D > 0 ? kThreads : kWideThreads;
-  const size_t first = static_cast<size_t>(b) * a.N + base;
-#pragma unroll 1
-  for (int t = threadIdx.x; t < T && base + t < a.N; t += NT) {
-    const float* x = a.X + (first + t) * a.d;
-    if constexpr (D > 0) {
-      float w[D];
-      whiten_fixed<D>(x, L, w);
-#pragma unroll
-      for (int k = 0; k < D; ++k) tile[k * T + t] = w[k];
+// Lane b's step after the points of phase `kind` are evaluated, by one
+// warp, and the steps after it while its phases have no items (a lane
+// with no rows): publishes the lane's next phase, its points written
+// first, or finishes the lane; the last lane to finish counts the
+// evaluations.
+__device__ __noinline__ void lane_step(const SearchArgs& a, int b,
+                                       int kind) {
+  const int lane = threadIdx.x & 31;
+  __threadfence();  // the phase's partials and the lane's state
+  int* s = state_of(a, b);
+  const int nt = __ldcg(s + 2), pairs = nt * (nt + 1) / 2;
+  int next;
+  do {
+    if (kind == kStartPoints) {
+      if (a.P > 0) {
+        finish_evaluate(a, b);
+        next = kNoItems;
+      } else {
+        next = start_lane(a, b);
+      }
+    } else if (kind == kReflection) {
+      if (second_point(a, b)) {
+        next = kSecondPoint;
+      } else {  // the reflection is kept: its flags to every lane
+        __threadfence();
+        __syncwarp();
+        next = accept(a, b);
+      }
+    } else if (kind == kSecondPoint) {
+      next = accept(a, b);
     } else {
-      whiten_var(x, L, a.d, tile + t, T);
+      next = finish_shrink(a, b);
+    }
+    __threadfence();  // every lane's writes of the step, before it goes on
+    __syncwarp();
+    if (lane == 0 && next != kNoItems) {
+      s[3] = __ldcg(s + 3) + phase_points(a, next);
+    }
+    kind = next;
+  } while (next != kNoItems && pairs == 0);
+  if (next != kNoItems) {
+    if (lane == 0) {
+      s[4] = 0;
+      s[5] = next;
+      __threadfence();  // the points and the state before the word
+      atomicExch(a.queue + b, queue_word(phase_points(a, next) * pairs));
+    }
+    return;
+  }
+  if (a.P == 0) write_result(a, b);
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) {
+    __threadfence();  // the lane's result before its count
+    last = atomicSub(a.live, 1) == 1;
+  }
+  if (__shfl_sync(kFull, last, 0)) {
+    __threadfence();  // every lane's state, as each left it
+    count_evaluations(a);
+  }
+}
+
+// The fixed width: the thread's rows t = threadIdx.x + r kThreads, r < R,
+// of rows base .. base + kTile - 1 of lane b, loaded all at once into
+// registers (those past the last row are not read) ...
+template <int D>
+__device__ __forceinline__ void load_rows(const SearchArgs& a, int b, int base,
+                                          float (&x)[kRowsPerThread][D]) {
+  const float* src = a.X + (static_cast<size_t>(b) * a.N + base) * D;
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int t = threadIdx.x + r * kThreads;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      x[r][k] = base + t < a.N ? src[static_cast<size_t>(t) * D + k] : 0.0f;
     }
   }
 }
 
+// ... then whitened by L (shared, D x D) into tile[k * kTile + t], those
+// past the last row left as they are.
+template <int D>
+__device__ __forceinline__ void whiten_rows(const SearchArgs& a, int base,
+                                            const float* L,
+                                            const float (&x)[kRowsPerThread][D],
+                                            float* tile) {
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int t = threadIdx.x + r * kThreads;
+    if (base + t >= a.N) continue;
+    float w[D];
+    whiten_fixed<D>(x[r], L, w);
+#pragma unroll
+    for (int k = 0; k < D; ++k) tile[k * kTile + t] = w[k];
+  }
+}
+
+// Any width: rows base .. base + kWideTile - 1 of lane b whitened by L
+// into tile[k * kWideTile + t], one row a thread.
+__device__ __forceinline__ void whiten_wide(const SearchArgs& a, int b,
+                                            int base, const float* L,
+                                            float* tile) {
+  const int t = threadIdx.x;
+  if (base + t >= a.N) return;
+  const size_t row = static_cast<size_t>(b) * a.N + base + t;
+  whiten_var(a.X + row * a.d, L, a.d, tile + t, kWideTile);
+}
+
 // Work item (lane b, point slot q, tile pair p) of a lane of nt tiles: the
 // point's L, the item's row tile and column tile whitened into shared
-// memory, their pair sums by the pair kernel's tile body and the partial.
-// Not inlined: the tile body keeps the registers and the code of the pair
-// kernel's own, apart from the search's phases around it.
+// memory (dynamic: L, then the two tiles), their pair sums by the pair
+// kernel's tile body and the partial. Not inlined: the tile body keeps the
+// registers and the code of the pair kernel's own, apart from the
+// search's work queue around it.
 template <int D>
 __device__ __noinline__ void tile_item(const SearchArgs& a, int b, int q,
                                        int p, int nt) {
@@ -1145,16 +1380,36 @@ __device__ __noinline__ void tile_item(const SearchArgs& a, int b, int q,
   const float* x = point(a, b, q);
   int ti, tj;
   tile_pair(p, nt, ti, tj);
+  // a diagonal item's column tile is its row tile, whitened once
+  const float* col_rows = ti == tj ? rows : cols;
   __syncthreads();  // the previous item's shared memory is read
-  for (int e = threadIdx.x; e < a.d * a.d; e += NT) {
-    L[e] = l_entry(x, a.d, a.diagonal, e / a.d, e % a.d);
+  if constexpr (D > 0) {
+    // the rows' loads in flight with the point's (up to 8 columns both
+    // tiles' at once, wider the column tile's after the row tile)
+    constexpr bool kBoth = D <= 8;
+    float xr[kRowsPerThread][D], xc[kRowsPerThread][D];
+    load_rows<D>(a, b, ti * T, xr);
+    if (kBoth && ti != tj) load_rows<D>(a, b, tj * T, xc);
+    for (int e = threadIdx.x; e < D * D; e += NT) {
+      L[e] = l_entry(x, D, a.diagonal, e / D, e % D);
+    }
+    __syncthreads();
+    whiten_rows<D>(a, ti * T, L, xr, rows);
+    if (ti != tj) {
+      if (!kBoth) load_rows<D>(a, b, tj * T, xc);
+      whiten_rows<D>(a, tj * T, L, xc, cols);
+    }
+  } else {
+    for (int e = threadIdx.x; e < a.d * a.d; e += NT) {
+      L[e] = l_entry(x, a.d, a.diagonal, e / a.d, e % a.d);
+    }
+    __syncthreads();
+    whiten_wide(a, b, ti * T, L, rows);
+    if (ti != tj) whiten_wide(a, b, tj * T, L, cols);
   }
   __syncthreads();
-  whiten_tile<D, T>(a, b, ti * T, L, rows);
-  whiten_tile<D, T>(a, b, tj * T, L, cols);
-  __syncthreads();
   const SharedTile<T> row_tile{rows, a.valid, a.N, ti * T};
-  const SharedTile<T> col_tile{cols, a.valid, a.N, tj * T};
+  const SharedTile<T> col_tile{col_rows, a.valid, a.N, tj * T};
   float se, se2;
   if constexpr (D > 0) {
     pair_tile<D>(row_tile, col_tile, b, ti, tj, s_col, &s_first, se, se2);
@@ -1165,100 +1420,117 @@ __device__ __noinline__ void tile_item(const SearchArgs& a, int b, int q,
   write_partial<NT>(partials_of(a, b, q) + 2 * p, se, se2);
 }
 
-// The tiles of `count` point slots from q0 of every lane whose flags
-// masked by `mask` equal `want`: one work item a (lane, slot, tile pair),
-// walked by the blocks in turn. A block builds the point's L, whitens the
-// item's row tile and column tile into shared memory (dynamic: L, then
-// the two tiles), sums the tile pair with the pair kernel's tile body
-// and writes its partial.
+// One work item for the block, claimed by warp 0: it reads the queue
+// words of the lanes from `start` on, 32 at a time, and claims an item of
+// the first lane whose phase has one left with one atomicAdd on the word
+// (whose old value may show that the phase ran out meanwhile, or that the
+// lane moved on to a new phase: then the item is of that phase). Returns
+// (lane, item, items of the phase), or lane -1 when none is left.
+__device__ __forceinline__ int3 claim_item(const SearchArgs& a, int start) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < a.B; base += 32) {
+    int b = start + base + lane;
+    if (b >= a.B) b -= a.B;
+    bool open = false;
+    if (base + lane < a.B) {
+      const unsigned long long w = load_relaxed(a.queue + b);
+      open = static_cast<unsigned>(w) < static_cast<unsigned>(w >> 32);
+    }
+    for (unsigned m = __ballot_sync(kFull, open); m != 0; m &= m - 1) {
+      const int src = __ffs(m) - 1;
+      int3 got = make_int3(-1, 0, 0);
+      if (lane == src) {
+        const unsigned long long w = atomicAdd(a.queue + b, 1ull);
+        const unsigned item = static_cast<unsigned>(w);
+        const unsigned items = static_cast<unsigned>(w >> 32);
+        if (item < items) {
+          got = make_int3(b, static_cast<int>(item), static_cast<int>(items));
+        }
+      }
+      got.x = __shfl_sync(kFull, got.x, src);
+      got.y = __shfl_sync(kFull, got.y, src);
+      got.z = __shfl_sync(kFull, got.z, src);
+      if (got.x >= 0) return got;
+    }
+  }
+  return make_int3(-1, 0, 0);
+}
+
+// The block's share of the search: claim an item, evaluate it, count it
+// done, and run the lane's step when it was the phase's last; sleep while
+// no item is left; leave when no lane is live.
 template <int D>
-__device__ void evaluate_tiles(const SearchArgs& a, int q0, int count,
-                               int mask, int want) {
-  const long long per_lane = static_cast<long long>(count) * a.pairs_max;
-  const long long total = per_lane * a.B;
-  long long w = blockIdx.x;
-  while (w < total) {
-    const int b = static_cast<int>(w / per_lane);
-    const long long rem = w - b * per_lane;
-    const int qi = static_cast<int>(rem / a.pairs_max);
-    const int p = static_cast<int>(rem - static_cast<long long>(qi) *
-                                             a.pairs_max);
-    const int* s = state_of(a, b);
-    if ((__ldcg(s) & mask) != want) {
-      w = skip_to(w, (b + 1) * per_lane);
-      continue;
+__device__ void run_lanes(const SearchArgs& a) {
+  __shared__ int3 s_item;
+  __shared__ int s_kind, s_last;
+  const bool lead = threadIdx.x < 32;
+  const int start = static_cast<int>(blockIdx.x % a.B);
+  unsigned nap = 0;
+  for (;;) {
+    if (lead) {
+      int3 got = claim_item(a, start);
+      if (got.x >= 0) {
+        nap = 0;
+        __threadfence();  // the phase's points and kind, as published
+        if (threadIdx.x == 0) s_kind = __ldcg(state_of(a, got.x) + 5);
+      } else if (load_relaxed(a.live) == 0) {
+        got.x = -2;  // every lane is done
+      } else {
+        nap = nap == 0 ? kNapMin : min(2 * nap, kNapMax);
+        __nanosleep(nap);
+      }
+      if (threadIdx.x == 0) s_item = got;
     }
-    const int nt = __ldcg(s + 2);
-    if (p >= nt * (nt + 1) / 2) {
-      w = skip_to(w, b * per_lane + static_cast<long long>(qi + 1) *
-                                        a.pairs_max);
-      continue;
+    __syncthreads();
+    const int3 item = s_item;
+    const int kind = s_kind;
+    __syncthreads();  // read before warp 0 claims again
+    if (item.x == -2) return;
+    if (item.x < 0) continue;
+    const int b = item.x;
+    const int nt = __ldcg(state_of(a, b) + 2), pairs = nt * (nt + 1) / 2;
+    tile_item<D>(a, b, phase_slot(kind) + item.y / pairs, item.y % pairs, nt);
+    if (threadIdx.x == 0) {
+      __threadfence();  // the partial before its count
+      s_last = atomicAdd(state_of(a, b) + 4, 1) + 1 == item.z;
     }
-    tile_item<D>(a, b, q0 + qi, p, nt);
-    w += gridDim.x;
+    __syncthreads();
+    if (s_last && lead) lane_step(a, b, kind);
   }
 }
 
 // The whole search (or, with P > 0, one evaluation of the given points):
-// every block runs the same phases, a grid barrier between phases.
+// the lanes set up, one grid barrier, then the work queue until every
+// lane is done.
 template <int D>
-__global__ void __launch_bounds__(D > 0 ? kThreads : kWideThreads)
+__global__ void __launch_bounds__(D > 0 ? kThreads : kWideThreads,
+                                  kSearchBlocksPerSm<D>)
     ucv_search_kernel(const SearchArgs a) {
   constexpr int NT = D > 0 ? kThreads : kWideThreads;
-  cg::grid_group grid = cg::this_grid();
   const int warps = gridDim.x * (NT / 32);
   const int gw = blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  const bool first = blockIdx.x == 0 && threadIdx.x == 0;
-
   for (int b = gw; b < a.B; b += warps) setup_lane(a, b);
-  grid.sync();
-  // the start (vertex 0) and the initial simplex, or the given points
-  const int points = a.P > 0 ? a.P + 1 : a.nv + 1;
-  evaluate_tiles<D>(a, 0, points, 0, 0);
-  grid.sync();
-  if (a.P > 0) {
-    for (int b = gw; b < a.B; b += warps) finish_evaluate(a, b);
-    if (first) *a.evals = points;
-    return;
+  for (int w = blockIdx.x * NT + threadIdx.x; w < a.shrink_words;
+       w += gridDim.x * NT) {
+    a.shrunk[w] = 0u;
   }
-  for (int b = gw; b < a.B; b += warps) start_lane(a, b);
-  if (first) *a.evals = 1 + points;  // the start, then the simplex
-  grid.sync();
-  while (any_lane(a, kDone, 0)) {
-    if (first) *a.evals += 2;
-    evaluate_tiles<D>(a, 0, 1, kDone, 0);  // the reflections
-    grid.sync();
-    for (int b = gw; b < a.B; b += warps) {
-      if (!(__ldcg(state_of(a, b)) & kDone)) second_point(a, b);
-    }
-    grid.sync();
-    evaluate_tiles<D>(a, 1, 1, kDone | kMid, 0);
-    grid.sync();
-    for (int b = gw; b < a.B; b += warps) {
-      if (!(__ldcg(state_of(a, b)) & kDone)) accept(a, b);
-    }
-    grid.sync();
-    if (any_lane(a, kShrink, kShrink)) {
-      if (first) *a.evals += a.nv;
-      evaluate_tiles<D>(a, 1, a.nv, kShrink, kShrink);
-      grid.sync();
-      for (int b = gw; b < a.B; b += warps) {
-        if (__ldcg(state_of(a, b)) & kShrink) finish_shrink(a, b);
-      }
-      grid.sync();
-    }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.live = a.B;
+  cg::this_grid().sync();
+  // a lane with no rows has no items: its steps run at once
+  for (int b = gw; b < a.B; b += warps) {
+    if (__ldcg(state_of(a, b) + 2) == 0) lane_step(a, b, kStartPoints);
   }
-  for (int b = gw; b < a.B; b += warps) write_result(a, b);
+  run_lanes<D>(a);
 }
 
 struct SearchShape {
-  int nv, Q, tile, pairs_max;
+  int nv, Q, tile, pairs_max, shrink_words;
   long long floats, ints, doubles;
 };
 
 // The scratch a search of these sizes takes; false when they are out of
 // range.
-bool search_shape(int B, int N, int d, int diagonal, int P,
+bool search_shape(int B, int N, int d, int diagonal, int P, int max_iter,
                   SearchShape& s) {
   if (B < 1 || N < 0 || d < 1 || P < 0) return false;
   const long long nv = diagonal ? d : static_cast<long long>(d) * (d + 1) / 2;
@@ -1272,9 +1544,11 @@ bool search_shape(int B, int N, int d, int diagonal, int P,
   s.nv = static_cast<int>(nv);
   s.Q = static_cast<int>(Q);
   s.pairs_max = static_cast<int>(pairs);
+  s.shrink_words = ((max_iter > 1 ? max_iter : 1) - 1) / 32 + 1;
   s.floats = B * (Q * nv + (nv + 1) * nv + (nv + 1) + nv + kLaneFloats +
                   static_cast<long long>(d) * d);
-  s.ints = B * ((nv + 1) + kLaneInts);
+  // the queue words (two ints each) first, 8-byte aligned
+  s.ints = 2ll * B + B * ((nv + 1) + kLaneInts) + s.shrink_words + 1;
   s.doubles = 2 * B * Q * pairs;
   return true;
 }
@@ -1387,9 +1661,9 @@ extern "C" int ucv_pair_sums_f32(const float* white, const float* valid,
 // int32 and float64 elements. Returns 0, or cudaErrorInvalidValue when the
 // sizes are out of range.
 extern "C" int ucv_search_scratch(int B, int N, int d, int diagonal, int P,
-                                  long long* sizes) {
+                                  int max_iter, long long* sizes) {
   SearchShape s;
-  if (!search_shape(B, N, d, diagonal, P, s)) {
+  if (!search_shape(B, N, d, diagonal, P, max_iter, s)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   sizes[0] = s.floats;
@@ -1407,8 +1681,9 @@ extern "C" int ucv_search_scratch(int B, int N, int d, int diagonal, int P,
 // X (B, N, d) training rows, valid (B, N) or null, Ns (B,) row counts, x0
 // (B, nv) starts (nv = d with `diagonal`, else d (d + 1) / 2: vech of the
 // lower-triangular L), scratch as ucv_search_scratch sizes it (fscratch,
-// iscratch int32, partials float64); results x_best (B, nv), f_out (B,),
-// f_start (B,), iters int32 (B,), evals int32 (1,).
+// iscratch int32 and 8-byte aligned, partials float64); results x_best
+// (B, nv), f_out (B,), f_start (B,), iters int32 (B,), evals int32 (1,),
+// lane_evals int32 (B,).
 // With P > 0 the launch evaluates the given points (B, P, nv) instead:
 // f_out (B, P) their guarded objective values, sums (B, P, 2) their pair
 // sums, white (B, P, N, d) their whitened rows unless null.
@@ -1419,9 +1694,11 @@ extern "C" int ucv_search_f32(const float* X, const float* valid,
                               float* fscratch, int* iscratch,
                               double* partials, float* x_best, float* f_out,
                               float* f_start, int* iters, int* evals,
-                              float* sums, float* white, void* stream) {
+                              int* lane_evals, float* sums, float* white,
+                              void* stream) {
   SearchShape s;
-  if (!search_shape(B, N, d, diagonal, P, s) || (P > 0) != (given != nullptr)) {
+  if (!search_shape(B, N, d, diagonal, P, max_iter, s) ||
+      (P > 0) != (given != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SearchArgs a{};
@@ -1440,6 +1717,7 @@ extern "C" int ucv_search_f32(const float* X, const float* valid,
   a.Q = s.Q;
   a.tile = s.tile;
   a.pairs_max = s.pairs_max;
+  a.shrink_words = s.shrink_words;
   const long long nv = s.nv;
   float* f = fscratch;
   a.pts = f;
@@ -1453,14 +1731,19 @@ extern "C" int ucv_search_f32(const float* X, const float* valid,
   a.lanef = f;
   f += static_cast<long long>(B) * kLaneFloats;
   a.Lrows = f;
-  a.order = iscratch;
-  a.state = iscratch + B * (nv + 1);
+  a.queue = reinterpret_cast<unsigned long long*>(iscratch);
+  a.order = iscratch + 2ll * B;
+  a.state = a.order + B * (nv + 1);
+  a.shrunk = reinterpret_cast<unsigned*>(a.state + static_cast<long long>(B) *
+                                                       kLaneInts);
+  a.live = reinterpret_cast<int*>(a.shrunk + s.shrink_words);
   a.partials = partials;
   a.x_best = x_best;
   a.f_out = f_out;
   a.f_start = f_start;
   a.iters = iters;
   a.evals = evals;
+  a.lane_evals = lane_evals;
   a.sums = sums;
   a.white = white;
   return static_cast<int>(

@@ -108,12 +108,15 @@ class UCVSearch(NamedTuple):
     float64 (B, nv) optima (a problem whose search did not improve on its
     start keeps the start), ``iterations`` the (B,) Nelder–Mead iterations
     of each problem, ``evaluations`` the batched objective calls (each
-    evaluates all B problems), ``dtype`` the name of the search's dtype."""
+    evaluates all B problems), ``dtype`` the name of the search's dtype,
+    ``lane_evaluations`` the (B,) evaluations each problem's own search
+    needed."""
 
     x: np.ndarray
     iterations: np.ndarray
     evaluations: int
     dtype: str
+    lane_evaluations: np.ndarray
 
 
 def _minimize(X, valid, Ns, starts, d: int, diagonal: bool) -> UCVSearch:
@@ -136,6 +139,7 @@ def _minimize(X, valid, Ns, starts, d: int, diagonal: bool) -> UCVSearch:
     res = search(X, valid, Ns, x0s, d, diagonal, 200 * nv)
     host = torch.cat([res.x.reshape(-1).double(), res.f.double(),
                       res.start.double(), res.iterations.double(),
+                      res.lane_evaluations.double(),
                       res.evaluations.reshape(1).double()]).cpu().numpy()
     x = host[: B * nv].reshape(B, nv).copy()
     f, ss = host[B * nv: B * nv + B], host[B * nv + B: B * nv + 2 * B]
@@ -143,8 +147,9 @@ def _minimize(X, valid, Ns, starts, d: int, diagonal: bool) -> UCVSearch:
     # the start
     worse = f > ss
     x[worse] = starts[worse]
-    return UCVSearch(x, host[B * nv + 2 * B: -1].astype(np.int32),
-                     int(host[-1]), str(X.dtype).replace("torch.", ""))
+    counts = host[B * nv + 2 * B: -1].astype(np.int32)
+    return UCVSearch(x, counts[:B], int(host[-1]),
+                     str(X.dtype).replace("torch.", ""), counts[B:])
 
 
 def _device_minimize(scorer: UCVScorer, x0, diagonal: bool) -> UCVSearch:

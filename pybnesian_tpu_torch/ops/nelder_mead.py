@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["nelder_mead", "nelder_mead_batch"]
+__all__ = ["nelder_mead", "nelder_mead_batch", "nelder_mead_batch_counted"]
 
 
 def _order(sim, fv):
@@ -34,7 +34,8 @@ def _order(sim, fv):
     )
 
 
-def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
+def nelder_mead_batch_counted(objective, x0s, fatol, xatol,
+                              max_iter: int = 400):
     """Lane-batched Nelder–Mead: ``objective`` maps (B, n) points to (B,)
     values (each lane closing over its own data), and every iteration costs
     exactly TWO batched objective calls: the reflection, then ONE second
@@ -50,7 +51,11 @@ def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
     order divided by a tensor of n, operations that round the same on
     every device (``torch.mean`` sums in an order of its own, and dividing
     by a Python number multiplies by its reciprocal on the card). Returns
-    (x_best (B, n), f_best (B,), iters (B,))."""
+    (x_best (B, n), f_best (B,), iters (B,), evaluations (B,)): int32
+    counts of the evaluations each lane's own search needed — its n + 1
+    starting vertices, then per iteration its reflection, its second point
+    unless the reflection was kept, and n when it shrank; none once it is
+    frozen."""
     B, n = x0s.shape
     rho, chi, psi, sigma = 1.0, 2.0, 0.5, 0.5
 
@@ -72,6 +77,7 @@ def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
         return (fspread <= fatol) & (xspread <= xatol)
 
     iters = torch.zeros(B, dtype=torch.int32, device=x0s.device)
+    needed = torch.full((B,), n + 1, dtype=torch.int32, device=x0s.device)
     done = converged(simplex, fvals) | torch.isnan(fvals[:, 0])
     while not bool(done.all()):
         sim, fv = simplex, fvals
@@ -128,9 +134,18 @@ def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
         sim2 = torch.where(done[:, None, None], sim, sim2)
         fv2 = torch.where(done[:, None], fv, fv2)
         simplex, fvals = _order(sim2, fv2)
+        needed = needed + torch.where(
+            done, 0, 1 + (~mid).to(torch.int32) + n * shrink.to(torch.int32))
         iters = iters + (~done).to(torch.int32)
         done = done | converged(simplex, fvals) | (iters >= max_iter)
-    return simplex[:, 0], fvals[:, 0], iters
+    return simplex[:, 0], fvals[:, 0], iters, needed
+
+
+def nelder_mead_batch(objective, x0s, fatol, xatol, max_iter: int = 400):
+    """:func:`nelder_mead_batch_counted` without the counts: (x_best (B,
+    n), f_best (B,), iters (B,))."""
+    return nelder_mead_batch_counted(objective, x0s, fatol, xatol,
+                                     max_iter)[:3]
 
 
 def nelder_mead(objective, x0, fatol, xatol, max_iter: int = 400):

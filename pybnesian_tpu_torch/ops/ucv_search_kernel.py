@@ -47,7 +47,7 @@ import torch
 from ..utils import MACHINE_TOL
 from . import cuda_build
 from .kde import ucv_pair_sums_batch
-from .nelder_mead import nelder_mead_batch
+from .nelder_mead import nelder_mead_batch_counted
 
 __all__ = ["UcvSearchResult", "ucv_search_cuda", "ucv_search_reference",
            "ucv_search_evaluate", "ucv_objective_reference", "vech_indices"]
@@ -61,13 +61,18 @@ class UcvSearchResult(NamedTuple):
     guarded objective, ``start`` (B,) the start's score, ``iterations``
     (B,) int32, ``evaluations`` a 0-d int32 tensor: the batched objective
     calls, counted as the plain loop makes them (1 for the starts, nv + 1
-    for the simplex, 2 an iteration, nv more when some problem shrinks)."""
+    for the simplex, 2 an iteration, nv more when some problem shrinks),
+    ``lane_evaluations`` (B,) int32: the evaluations each problem's own
+    search needed (nv + 1 for the simplex, then per iteration the
+    reflection, the second point unless the reflection was kept, and nv
+    when it shrank)."""
 
     x: torch.Tensor
     f: torch.Tensor
     start: torch.Tensor
     iterations: torch.Tensor
     evaluations: torch.Tensor
+    lane_evaluations: torch.Tensor
 
 
 def vech_indices(d: int):
@@ -155,12 +160,12 @@ def ucv_search_reference(X, valid, Ns, x0s, d: int, diagonal: bool,
     ss, sd = raw(x0s)
     fatol = 1e-4 * torch.abs(ss) + 1e-12
     xatol = 1e-4 * torch.amax(torch.abs(x0s), dim=1) + 1e-12
-    xb, fb, iters = nelder_mead_batch(
+    xb, fb, iters, needed = nelder_mead_batch_counted(
         lambda xs: _guarded(*raw(xs), ss, sd), x0s, fatol, xatol,
         max_iter=max_iter)
     return UcvSearchResult(xb, fb, ss, iters,
                            torch.tensor(evaluations, dtype=torch.int32,
-                                        device=X.device))
+                                        device=X.device), needed)
 
 
 def ucv_objective_reference(X, valid, Ns, x0s, points, d: int,
@@ -266,7 +271,8 @@ def _launch(X, valid, Ns, x0s, d, diagonal, max_iter, points=None,
         raise ValueError("rows must fit 32-bit indices")
     lib = _load_library()
     sizes = (ctypes.c_longlong * 3)()
-    if lib.ucv_search_scratch(B, N, d, int(diagonal), P, sizes) != 0:
+    if lib.ucv_search_scratch(B, N, d, int(diagonal), P, int(max_iter),
+                              sizes) != 0:
         raise ValueError(f"a UCV search of B {B}, N {N}, d {d} is out of "
                          "the kernel's range")
     device = X.device
@@ -276,7 +282,8 @@ def _launch(X, valid, Ns, x0s, d, diagonal, max_iter, points=None,
     # the results in one buffer, so that a caller reads them at once
     floats = torch.empty(B * nv + 2 * B if P == 0 else B * P + B,
                          dtype=torch.float32, device=device)
-    ints = torch.empty(B + 1, dtype=torch.int32, device=device)
+    # iterations (B,), evaluations (1,), lane evaluations (B,)
+    ints = torch.empty(2 * B + 1, dtype=torch.int32, device=device)
     sums = (torch.empty((B, P, 2), dtype=torch.float32, device=device)
             if P else None)
     rows = (torch.empty((B, P, N, d), dtype=torch.float32, device=device)
@@ -296,7 +303,8 @@ def _launch(X, valid, Ns, x0s, d, diagonal, max_iter, points=None,
             ptr(X), ptr(valid), ptr(Ns), ptr(x0s), ptr(points), B, N, d,
             int(diagonal), int(max_iter), P, ptr(fscratch), ptr(iscratch),
             ptr(partials), ptr(x_best), ptr(f_out), ptr(f_start),
-            ptr(ints[:B]), ptr(ints[B:]), ptr(sums), ptr(rows), stream,
+            ptr(ints[:B]), ptr(ints[B:B + 1]), ptr(ints[B + 1:]), ptr(sums),
+            ptr(rows), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -305,7 +313,7 @@ def _launch(X, valid, Ns, x0s, d, diagonal, max_iter, points=None,
     if P:
         return f_out.view(B, P), sums, rows
     return UcvSearchResult(x_best.view(B, nv), f_out, f_start, ints[:B],
-                           ints[B])
+                           ints[B], ints[B + 1:])
 
 
 @functools.cache
@@ -313,9 +321,9 @@ def _load_library():
     lib = cuda_build.load("ucv_pairs.cu")
     fn = lib.ucv_search_f32
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 11)
+                   + [ctypes.c_void_p] * 12)
     fn.restype = ctypes.c_int
-    lib.ucv_search_scratch.argtypes = [ctypes.c_int] * 5 + [
+    lib.ucv_search_scratch.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.ucv_search_scratch.restype = ctypes.c_int
     return lib

@@ -99,6 +99,22 @@ def test_a_nan_row_by_width(cuda, d):
     assert all(bool(torch.isfinite(s[0])) for s in got)
 
 
+@pytest.mark.parametrize("d", [1, 3, 16, 17])
+def test_rows_far_apart_in_bandwidths(cuda, d):
+    """Rows 1,000 bandwidths apart on a line (coordinate 0; the others of
+    unit spread), as a start far below the normal-reference bandwidth
+    whitens them: every term is 0. In the dot form a self-pair's exponent,
+    0 in exact arithmetic, rounds to some hundreds either way at that
+    spread (about a fifth of them past 128, an emulation in float32
+    finds), while every other pair's stays below -3e5; the diagonal tiles'
+    mask must give 0 there, as the plain version's does, not inf * 0."""
+    rng = np.random.default_rng(d)
+    white = rng.normal(0.0, 1.0, (3, 300, d))
+    white[:, :, 0] = 1000.0 * np.arange(300)
+    got = _check(torch.as_tensor(white, dtype=torch.float32, device=cuda))
+    assert float(got[0].abs().max()) == 0.0 == float(got[1].abs().max())
+
+
 def test_invalid_rows(cuda):
     """An all-invalid problem gives 0, 0; exactly two invalid rows (which
     a kernel staging both at one far coordinate would pair at distance 0);

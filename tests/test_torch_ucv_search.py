@@ -24,6 +24,7 @@ import torch
 
 from pybnesian_tpu.kde import ucv as jucv
 from pybnesian_tpu_torch.kde import ucv as tucv
+from pybnesian_tpu_torch.ops import nelder_mead as nm
 from pybnesian_tpu_torch.ops import ucv_search_kernel as usk
 from pybnesian_tpu_torch.runtime.device import use_device
 
@@ -33,10 +34,12 @@ JAX_CHUNK = 64     # the JAX pair sums want rows padded to their chunk
 NPAD = 256
 
 
-def _problems(B, d, seed=0, ragged=True, diagonal=False, npad=NPAD):
-    """B problems of a correlated d-column sample, ~200 rows each (ragged:
-    fewer in later problems), padded with zero rows marked invalid, and
-    their normal-reference starts: vech(chol(H)) or sqrt(diag(H))."""
+def _problems(B, d, seed=0, ragged=True, diagonal=False, npad=NPAD,
+              rows=200, step=17):
+    """B problems of a correlated d-column sample, ``rows`` rows each
+    (ragged: ``step`` fewer in each later problem), padded with zero rows
+    marked invalid, and their normal-reference starts: vech(chol(H)) or
+    sqrt(diag(H))."""
     rng = np.random.default_rng(seed)
     mix = np.tril(np.full((d, d), 0.4)) + np.eye(d)
     X = np.zeros((B, npad, d))
@@ -44,7 +47,7 @@ def _problems(B, d, seed=0, ragged=True, diagonal=False, npad=NPAD):
     Ns = np.zeros(B)
     x0 = []
     for b in range(B):
-        n = 200 - (17 * b if ragged else 0)
+        n = rows - (step * b if ragged else 0)
         x = rng.normal(0.0, 1.0 + 0.2 * b, (n, d)) @ mix.T
         X[b, :n], valid[b, :n], Ns[b] = x, 1.0, n
         knr = (4.0 / (n * (d + 2.0))) ** (2.0 / (d + 4.0))
@@ -58,8 +61,9 @@ def _tensors(*arrays, dtype=torch.float64):
     return [torch.as_tensor(a, dtype=dtype) for a in arrays]
 
 
-def _search(X, valid, Ns, x0, d, diagonal, max_iter=None):
-    Xt, Vt, Nt, x0t = _tensors(X, valid, Ns, x0)
+def _search(X, valid, Ns, x0, d, diagonal, max_iter=None,
+            dtype=torch.float64):
+    Xt, Vt, Nt, x0t = _tensors(X, valid, Ns, x0, dtype=dtype)
     return usk.ucv_search_reference(
         Xt, Vt, Nt, x0t, d, diagonal,
         200 * x0.shape[1] if max_iter is None else max_iter)
@@ -243,6 +247,140 @@ def test_evaluations_count_the_plain_loop(max_iter):
     assert extra >= 0 and extra % nv == 0
 
 
+# ------------------------------------------- what each lane's search needs
+def _small(B, d, seed):
+    """B problems of 60, 53, 46, ... rows, padded to 64."""
+    return _problems(B, d, seed=seed, npad=64, rows=60, step=7)
+
+
+@pytest.mark.parametrize("B,d,seed", [(3, 1, 70), (4, 2, 71), (5, 1, 72)])
+def test_lane_evaluations_are_the_calls_each_lane_needed(monkeypatch, B, d,
+                                                         seed):
+    """A lane needed a batched call when its value there can change the
+    lane's search: the call's values are replaced by -inf (which a needed
+    value keeps in the simplex as its best, so the lane ends elsewhere),
+    one call at a time, and the lanes whose result moved are counted.
+    Frozen lanes, a kept reflection's second point and the shrink calls of
+    the lanes that did not shrink must count nothing. In float32, where
+    the searches shrink on the objective's plateaus."""
+    X, valid, Ns, x0 = _small(B, d, seed)
+    max_iter = 25
+
+    def search():
+        return _search(X, valid, Ns, x0, d, False, max_iter=max_iter,
+                       dtype=torch.float32)
+
+    clean = search()
+    guarded, calls = usk._guarded, [0]
+
+    def poisoned(at):
+        def wrap(*args):
+            out = guarded(*args)
+            calls[0] += 1
+            return (torch.full_like(out, -np.inf) if calls[0] == at + 1
+                    else out)
+        return wrap
+
+    monkeypatch.setattr(usk, "_guarded", poisoned(-1))
+    search()
+    total, needed = calls[0], np.zeros(B, np.int64)
+    for at in range(total):
+        calls[0] = 0
+        monkeypatch.setattr(usk, "_guarded", poisoned(at))
+        got = search()
+        needed += [not (torch.equal(got.x[b], clean.x[b])
+                        and torch.equal(got.f[b], clean.f[b])
+                        and int(got.iterations[b]) == int(clean.iterations[b]))
+                   for b in range(B)]
+    nv = x0.shape[1]
+    assert total == int(clean.evaluations) - 1
+    np.testing.assert_array_equal(clean.lane_evaluations.numpy(), needed)
+    assert bool((clean.lane_evaluations >= nv + 1 + clean.iterations).all())
+    assert int(clean.lane_evaluations.sum()) < B * total
+
+
+def _shrink_rounds(run, lane_max_iters, nv, before):
+    """The iterations at which one lane shrank, from its solo runs cut at
+    max_iter 1, 2, ... (``before``: its calls before the first iteration):
+    an iteration that shrank made nv more calls."""
+    out = set()
+    for t in range(1, lane_max_iters + 1):
+        now = run(t)
+        if now - before == 2 + nv:
+            out.add(t)
+        else:
+            assert now - before == 2
+        before = now
+    return out
+
+
+def test_evaluations_are_two_a_round_and_nv_a_shrinking_round():
+    """The batched count of the plain loop is 1 + (nv + 1) + 2 max_b
+    iterations_b + nv |{t : some lane shrank at its iteration t}|, since
+    round t is each lane's own iteration t: the rule by which the kernel
+    counts them. Lanes 1 and 2 score every point alike, so they shrink at
+    each of their iterations, in the same rounds; lanes 0 and 3 are
+    quadratics."""
+    rng = np.random.default_rng(80)
+    B, n = 4, 2
+    x0 = torch.as_tensor(rng.normal(1.0, 0.3, (B, n)))
+    x0[2] *= 40.0  # a larger simplex: more shrinks before it converges
+    centre = torch.as_tensor(rng.normal(0.0, 1.0, (B, n)))
+    flat = torch.tensor([False, True, True, False])
+
+    def objective(lanes):
+        def f(xs):
+            counter[0] += 1
+            q = ((xs - centre[lanes]) ** 2).sum(1)
+            return torch.where(flat[lanes], torch.zeros_like(q), q)
+        return f
+
+    def run(lanes, max_iter):
+        counter[0] = 0
+        out = nm.nelder_mead_batch_counted(objective(lanes), x0[lanes], 1e-8,
+                                           1e-8, max_iter=max_iter)
+        return out, counter[0]
+
+    counter = [0]
+    (x, f, iters, needed), calls = run(list(range(B)), 60)
+    shrunk = [_shrink_rounds(lambda t: run([b], t)[1], int(iters[b]), n,
+                             n + 1) for b in range(B)]
+    rounds = set().union(*shrunk)
+    assert calls == n + 1 + 2 * int(iters.max()) + n * len(rounds)
+    assert shrunk[1] & shrunk[2], "no round where two lanes shrank at once"
+    assert shrunk[1] == set(range(1, int(iters[1]) + 1))
+    for b in range(B):
+        solo = run([b], 60)[0]
+        assert int(solo[3][0]) == int(needed[b])
+    assert bool((needed[1:3] == n + 1 + iters[1:3] * (2 + n)).all())
+
+
+@pytest.mark.parametrize("seed", [91, 99])
+def test_ucv_evaluations_follow_the_lanes_own_rounds(seed):
+    """The same identity on UCV problems through ``ucv_search_reference``
+    (its count adds 1 for the starts' scores), the shrink rounds read from
+    each problem's solo searches (its padded rows alone) cut at max_iter 1,
+    2, ... In float32, where the searches shrink on the objective's
+    plateaus."""
+    d = 1
+    X, valid, Ns, x0 = _small(3, d, seed=seed)
+    nv, max_iter = x0.shape[1], 20
+    got = _search(X, valid, Ns, x0, d, False, max_iter=max_iter,
+                  dtype=torch.float32)
+
+    def solo(b):
+        return lambda t: int(_search(X[b:b + 1], valid[b:b + 1],
+                                     Ns[b:b + 1], x0[b:b + 1], d, False,
+                                     max_iter=t,
+                                     dtype=torch.float32).evaluations)
+
+    rounds = set().union(*[_shrink_rounds(solo(b), int(got.iterations[b]),
+                                          nv, 2 + nv) for b in range(3)])
+    assert rounds
+    assert int(got.evaluations) == (2 + nv + 2 * int(got.iterations.max())
+                                    + nv * len(rounds))
+
+
 # ----------------------------------------------- against the JAX package
 @pytest.fixture(scope="module")
 def jax_optima():
@@ -282,9 +420,11 @@ SOURCE = (Path(usk.__file__).resolve().parent.parent / "csrc"
 
 def test_search_entry_point_matches_the_binding():
     """The C signature of ``ucv_search_f32``, in the order ``_launch``
-    passes its arguments: 5 input pointers, 6 ints, 11 output and scratch
-    pointers and the stream; the scratch sizer's; and no atomic anywhere
-    in the source (the flags and counts are written by one thread each)."""
+    passes its arguments: 5 input pointers, 6 ints, 12 output and scratch
+    pointers and the stream; the scratch sizer's; and atomics only where
+    the work queue claims an item, publishes a phase, counts items and
+    lanes done or sets a shrink flag (and the pair tile's origin row, a
+    minimum), never on a value that is summed."""
     text = SOURCE.read_text()
     params = re.search(r'extern "C" int ucv_search_f32\(([^)]*)\)',
                        text).group(1).split(",")
@@ -292,13 +432,32 @@ def test_search_entry_point_matches_the_binding():
     assert names == ["X", "valid", "Ns", "x0", "given", "B", "N", "d",
                      "diagonal", "max_iter", "P", "fscratch", "iscratch",
                      "partials", "x_best", "f_out", "f_start", "iters",
-                     "evals", "sums", "white", "stream"]
+                     "evals", "lane_evals", "sums", "white", "stream"]
     kinds = ["p" if "*" in p else "i" for p in params]
-    assert kinds == ["p"] * 5 + ["i"] * 6 + ["p"] * 11
+    assert kinds == ["p"] * 5 + ["i"] * 6 + ["p"] * 12
     assert re.search(r'extern "C" int ucv_search_scratch\(int B, int N, '
-                     r'int d, int diagonal, int P,\s+long long\* sizes\)',
-                     text)
-    assert "atomicAdd" not in text and "atomicCAS" not in text
+                     r'int d, int diagonal, int P,\s+int max_iter, '
+                     r'long long\* sizes\)', text)
+    assert _atomics(text) == {
+        ("atomicMin", "s_first, row0 + r"),
+        ("atomicAdd", "a.queue + b, 1ull"),
+        ("atomicExch", "a.queue + b, queue_word(phase_points(a, next) * "
+                       "pairs)"),
+        ("atomicAdd", "state_of(a, b) + 4, 1"),
+        ("atomicSub", "a.live, 1"),
+        ("atomicOr", "a.shrunk + t / 32, 1u << (t % 32)")}
+
+
+def _atomics(text):
+    """Each atomic call of ``text``: (function, its arguments)."""
+    found = set()
+    for m in re.finditer(r"\b(atomic\w+)\(", text):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            i += 1
+        found.add((m.group(1), " ".join(text[m.end():i - 1].split())))
+    return found
 
 
 def test_kernel_guard_constant_is_machine_tol():

@@ -31,6 +31,16 @@ And a problem whose start scores NaN takes no iteration. Below the
 normal-reference bandwidth (four clusters far apart, where the UCV
 optimum lies at a small fraction of it), the kernel's evaluations at the
 points the search visits hold to 1e-5 of the float64 plain objective.
+
+The schedule: the kernel's lanes move on through a work queue, each at
+its own pace, so the last group holds whole searches to the plain loop's
+bits (x, f, start, iterations, the batched ``evaluations`` and each
+problem's ``lane_evaluations``), alone against in the batch, where the
+lanes finish far apart: a NaN start, a lane that starts far below the
+normal-reference bandwidth, shrinks at each iteration and converges
+within its first few (its start scored as on the CPU), lanes cut by a small
+``max_iter``; one problem; more problems than the grid has warps; d 1,
+3, 5 and 17, full and diagonal; the same batch twice.
 """
 
 import math
@@ -140,6 +150,7 @@ def test_first_iterations_match_the_plain_loop(cuda, shape, max_iter):
     assert _rel(got.start, want.start) <= RTOL
     assert torch.equal(got.iterations, want.iterations)
     assert int(got.evaluations) == int(want.evaluations)
+    assert torch.equal(got.lane_evaluations, want.lane_evaluations)
 
 
 # ----------------------------------------------------------------- gate 3
@@ -291,3 +302,111 @@ def test_evaluations_far_below_the_normal_reference(cuda, monkeypatch):
           f"{found.tolist()}; max rel {rel:.3e}")
     assert float(found.max()) < 0.25
     assert rel <= RTOL
+
+
+# ------------------------------------------------------------ the schedule
+def _same(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _hold_to_the_plain_loop(X, valid, Ns, x0, d, diagonal, max_iter,
+                            alone=(0, -1)):
+    """The kernel's search against the plain loop's: every field the same
+    bits; a second run the same; problems ``alone`` (their padded rows as
+    a batch of one) the same as in the batch. Returns the kernel's."""
+    got = usk.ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_iter)
+    want = usk.ucv_search_reference(X, valid, Ns, x0, d, diagonal, max_iter)
+    for g, w in zip(got, want):
+        _same(g, w)
+    again = usk.ucv_search_cuda(X, valid, Ns, x0, d, diagonal, max_iter)
+    for g, w in zip(got, again):
+        _same(g, w)
+    for b in alone:
+        b = b % len(x0)
+        one = usk.ucv_search_cuda(
+            X[b:b + 1].contiguous(),
+            None if valid is None else valid[b:b + 1].contiguous(),
+            Ns[b:b + 1].contiguous(), x0[b:b + 1].contiguous(), d, diagonal,
+            max_iter)
+        for name in ("x", "f", "start", "iterations", "lane_evaluations"):
+            _same(getattr(one, name)[0], getattr(got, name)[b])
+    return got
+
+
+def test_lanes_that_finish_far_apart(cuda):
+    """Lane 1 starts with a NaN row (done at once); lane 2 starts at 1e-4
+    of its normal-reference factor, below the determinant's guard rail
+    (every point a bad point, scored alike: it shrinks at each iteration
+    and converges within its first few); lanes 0 and 3 search as usual,
+    max_iter set between their own iteration counts, so that one of them
+    is cut by it. d 3, diagonal. Lane 2's start, whose rows lie some 1e4
+    bandwidths apart, scores as the plain objective on the CPU scores it
+    (a finite value: the pair sums' masked self-pairs are 0 there)."""
+    d = 3
+    X, valid, Ns, x0 = _problems(cuda, 4, 1500, d, seed=70, diagonal=True)
+    X[1, 11, 0] = math.nan
+    x0[2] *= 1e-4
+    free = usk.ucv_search_reference(X, valid, Ns, x0, d, True, 400)
+    low, high = sorted(int(free.iterations[b]) for b in (0, 3))
+    assert low < high
+    max_iter = (low + high + 1) // 2
+    got = _hold_to_the_plain_loop(X, valid, Ns, x0, d, True, max_iter,
+                                  alone=(0, 1, 2, 3))
+    cpu = [t.cpu() for t in (X, valid, Ns, x0)]
+    start = usk.ucv_objective_reference(*cpu, cpu[3][:, None], d, True)
+    assert math.isfinite(float(start[2, 0]))
+    assert _rel(got.start[2:3].cpu(), start[2]) <= RTOL
+    iters = got.iterations.tolist()
+    nv = x0.shape[1]
+    assert iters[1] == 0 and int(got.lane_evaluations[1]) == nv + 1
+    assert 0 < iters[2] < 20
+    assert int(got.lane_evaluations[2]) == nv + 1 + iters[2] * (2 + nv)
+    assert sorted([iters[0], iters[3]]) == [low, max_iter]
+    print(f"\niterations {iters}, lane evaluations "
+          f"{got.lane_evaluations.tolist()}, evaluations "
+          f"{int(got.evaluations)}, lane 2's start {float(got.start[2])} "
+          f"(CPU {float(start[2, 0])})")
+
+
+def test_one_problem(cuda):
+    X, valid, Ns, x0 = _problems(cuda, 1, 2500, 3, seed=71)
+    _hold_to_the_plain_loop(X, valid, Ns, x0, 3, False, _max_iter(x0),
+                            alone=())
+
+
+@pytest.mark.parametrize("B,N,d", [(300, 600, 2), (2500, 300, 1)])
+def test_more_problems_than_warps(cuda, B, N, d):
+    """300 problems of 600 rows, and 2,500 problems (more than the grid's
+    warps, so a warp sets up several lanes and most lanes are no block's
+    first) of 300 rows."""
+    X, valid, Ns, x0 = _problems(cuda, B, N, d, seed=72)
+    _hold_to_the_plain_loop(X, valid, Ns, x0, d, False, _max_iter(x0),
+                            alone=(0, B // 2, -1))
+
+
+@pytest.mark.parametrize("d,diagonal", [(1, False), (3, False), (3, True),
+                                        (5, False), (5, True), (17, False),
+                                        (17, True)],
+                         ids=["d1", "d3", "d3-diag", "d5", "d5-diag", "d17",
+                              "d17-diag"])
+def test_widths(cuda, d, diagonal):
+    """d 1 (where the diagonal form is the full form), 3, 5 and 17."""
+    N = 700 if d == 17 else 1500
+    X, valid, Ns, x0 = _problems(cuda, 6, N, d, seed=73 + d,
+                                 diagonal=diagonal)
+    max_iter = 30 if d == 17 and not diagonal else _max_iter(x0)
+    _hold_to_the_plain_loop(X, valid, Ns, x0, d, diagonal, max_iter)
+
+
+def test_the_same_batch_twice(cuda):
+    """Two runs of one batch, and a third after another batch ran between:
+    the same bits, evaluations and lane evaluations."""
+    X, valid, Ns, x0 = _problems(cuda, 10, 2000, 3, seed=74)
+    first = usk.ucv_search_cuda(X, valid, Ns, x0, 3, False, _max_iter(x0))
+    second = usk.ucv_search_cuda(X, valid, Ns, x0, 3, False, _max_iter(x0))
+    Y = _problems(cuda, 3, 900, 3, seed=75)
+    usk.ucv_search_cuda(*Y, 3, False, 50)
+    third = usk.ucv_search_cuda(X, valid, Ns, x0, 3, False, _max_iter(x0))
+    for a, b, c in zip(first, second, third):
+        _same(a, b)
+        _same(a, c)
