@@ -1,0 +1,5 @@
+"""Families scored (10-fold CV each) over the whole window, per second."""
+
+
+def read(run):
+    return run.window.rate()
