@@ -22,6 +22,7 @@ from ..data import DataFrame
 from ..kde.bandwidth import BandwidthSelector, NormalReferenceRule
 from ..kde.kde import KDE
 from ..runtime.device import host_to_device
+from ..runtime.tracing import span
 from .base import Factor, FactorType
 
 __all__ = ["CKDEType", "CKDE", "batched_ckde_logl_many"]
@@ -76,21 +77,22 @@ def batched_ckde_logl_many(entries):
     jte = np.zeros((F, m, djmax))
     trm = np.zeros((F, ntr))
     lndiff = np.zeros(F)
-    for f, (cpd, mat) in enumerate(entries):
-        joint = cpd.kde_joint()
-        dj = 1 + len(cpd.evidence())
-        n_i = joint.num_instances()
-        perm = list(range(1, dj)) + [0]  # fitted layout is [var, *ev]
-        Hp = joint.bandwidth[np.ix_(perm, perm)]
-        Lp = np.linalg.cholesky(Hp)
-        jtr[f, :n_i, :dj] = solve_triangular(
-            Lp, joint._training[:, perm].T, lower=True
-        ).T
-        trm[f, :n_i] = 1.0
-        lndiff[f] = -math.log(Lp[dj - 1, dj - 1]) - 0.5 * _LOG_2PI
-        jte[f, : len(mat), :dj] = solve_triangular(
-            Lp, mat[:, perm].T, lower=True
-        ).T
+    with span("pb.slogl.ckde.whiten"):
+        for f, (cpd, mat) in enumerate(entries):
+            joint = cpd.kde_joint()
+            dj = 1 + len(cpd.evidence())
+            n_i = joint.num_instances()
+            perm = list(range(1, dj)) + [0]  # fitted layout is [var, *ev]
+            Hp = joint.bandwidth[np.ix_(perm, perm)]
+            Lp = np.linalg.cholesky(Hp)
+            jtr[f, :n_i, :dj] = solve_triangular(
+                Lp, joint._training[:, perm].T, lower=True
+            ).T
+            trm[f, :n_i] = 1.0
+            lndiff[f] = -math.log(Lp[dj - 1, dj - 1]) - 0.5 * _LOG_2PI
+            jte[f, : len(mat), :dj] = solve_triangular(
+                Lp, mat[:, perm].T, lower=True
+            ).T
     var_col = np.array([len(e[0].evidence()) for e in entries])
     rows = np.arange(F)
     zv_tr = jtr[rows, :, var_col]
@@ -100,10 +102,13 @@ def batched_ckde_logl_many(entries):
     def dev(a):
         return host_to_device(a, dtype)
 
-    out = batched_ckde_logl(
-        dev(jtr), dev(jte), dev(zv_tr), dev(zv_te), dev(trm), dev(lndiff),
-        no_ev=dev(no_ev),
-    ).cpu().numpy().astype(np.float64)
+    with span("pb.slogl.ckde.launch"):
+        out = batched_ckde_logl(
+            dev(jtr), dev(jte), dev(zv_tr), dev(zv_te), dev(trm), dev(lndiff),
+            no_ev=dev(no_ev),
+        )
+    with span("pb.slogl.wait"):
+        out = out.cpu().numpy().astype(np.float64)
     return [out[f, : len(entries[f][1])] for f in range(F)]
 
 
@@ -191,7 +196,9 @@ class CKDE(Factor):
             marg_test,
             float(self._joint._lognorm),
             float(self._marg._lognorm),
-        ).cpu().numpy().astype(np.float64)
+        )
+        with span("pb.factor.wait"):
+            out = out.cpu().numpy().astype(np.float64)
         out[~valid] = np.nan
         return out
 

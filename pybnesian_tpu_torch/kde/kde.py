@@ -15,6 +15,7 @@ import numpy as np
 
 from ..data import DataFrame
 from ..runtime.device import host_to_device
+from ..runtime.tracing import span
 from ..utils.exceptions import SingularCovarianceData
 from .bandwidth import BandwidthSelector, NormalReferenceRule
 
@@ -185,7 +186,8 @@ class KDE:
         test_white = self._to_device(self._whiten(np.nan_to_num(mat, nan=0.0)))
         out = kde_logl_whitened(self.whitened_training(), test_white,
                                 float(self._lognorm))
-        out = out.cpu().numpy().astype(np.float64)
+        with span("pb.factor.wait"):
+            out = out.cpu().numpy().astype(np.float64)
         out[~valid] = np.nan
         return out
 

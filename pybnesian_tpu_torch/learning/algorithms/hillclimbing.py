@@ -6,7 +6,11 @@ semantics are copied exactly from ``estimate_hc``
 validated scores track a held-out validation delta with patience ``p``,
 a tabu set of operator opposites, an accumulated offset, and rollback to the
 best validated model. The scoring inside each iteration is the batched
-device path (see operators / Score.local_score_batch).
+device path (see operators / Score.local_score_batch). While a profiler
+records, a learn is the span ``pb.hc.learn``, its first scores
+``pb.hc.cache``, each iteration ``pb.hc.iteration`` (with ``pb.hc.find_max``,
+``pb.hc.validate`` and ``pb.hc.update`` inside), and the counter
+``hc.iterations`` adds the iterations it ran.
 
 Copied from ``pybnesian_tpu/learning/algorithms/hillclimbing.py``.
 """
@@ -16,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...data import DataFrame
+from ...runtime.tracing import count, span
 from ...utils import MACHINE_TOL
 from ..operators import LocalScoreCache, OperatorTabuSet
 from ..scores.base import ValidatedScore
@@ -132,131 +137,142 @@ class GreedyHillClimbing:
         seed=None,
         verbose: int = 0,
     ):
-        arc_blacklist = list(arc_blacklist or [])
-        arc_whitelist = list(arc_whitelist or [])
-        type_blacklist = list(type_blacklist or [])
-        type_whitelist = list(type_whitelist or [])
+        with span("pb.hc.learn"):
+            arc_blacklist = list(arc_blacklist or [])
+            arc_whitelist = list(arc_whitelist or [])
+            type_blacklist = list(type_blacklist or [])
+            type_whitelist = list(type_whitelist or [])
 
-        # cross-check restrictions up front (hillclimbing.hpp:292-297)
-        if not score.compatible_bn(start):
-            raise ValueError(
-                "BayesianNetwork is not compatible with the score."
-            )
-        from ...utils.validate import (
-            validate_arc_restrictions,
-            validate_type_restrictions,
-        )
-
-        validate_arc_restrictions(start, arc_blacklist, arc_whitelist)
-        validate_type_restrictions(start, type_blacklist, type_whitelist)
-
-        from ...utils.progress import spinner
-
-        progress = spinner(verbose)
-        progress.update_status("Checking dataset...")
-
-        validated = isinstance(score, ValidatedScore)
-        zero_patience = patience == 0
-
-        current_model = start.clone()
-        current_model.force_type_whitelist(type_whitelist)
-        # resolve unknown node types from score data
-        if not current_model.type().is_homogeneous():
-            score_data = score.data()
-            if score_data is None:
+            # cross-check restrictions up front (hillclimbing.hpp:292-297)
+            if not score.compatible_bn(start):
                 raise ValueError(
-                    "The score does not have data to detect the node types."
+                    "BayesianNetwork is not compatible with the score."
                 )
-            current_model.set_unknown_node_types(score_data, type_blacklist)
-
-        _check_blacklist(current_model, arc_blacklist)
-        current_model.force_whitelist(arc_whitelist)
-
-        operators.set_arc_blacklist(arc_blacklist)
-        operators.set_arc_whitelist(arc_whitelist)
-        operators.set_type_blacklist(type_blacklist)
-        operators.set_type_whitelist(type_whitelist)
-        operators.set_max_indegree(max_indegree)
-
-        if callback is None and patience == 0 and not validated:
-            fast = _native_discrete_hc(
-                operators, score, current_model, max_indegree, max_iters,
-                epsilon,
+            from ...utils.validate import (
+                validate_arc_restrictions,
+                validate_type_restrictions,
             )
-            if fast is not None:
-                progress.mark_as_completed("Finished Hill-climbing!")
-                return fast
 
-        prev_current_model = current_model.clone()
-        best_model = current_model
+            validate_arc_restrictions(start, arc_blacklist, arc_whitelist)
+            validate_type_restrictions(start, type_blacklist, type_whitelist)
 
-        local_validation = None
-        if validated:
-            local_validation = LocalScoreCache()
-            local_validation.cache_vlocal_scores(current_model, score)
+            from ...utils.progress import spinner
 
-        operators.cache_scores(current_model, score)
-        p = 0
-        accumulated_offset = 0.0
-        tabu_set = OperatorTabuSet()
+            progress = spinner(verbose)
+            progress.update_status("Checking dataset...")
 
-        if callback is not None:
-            callback.call(current_model, None, score, 0)
+            validated = isinstance(score, ValidatedScore)
+            zero_patience = patience == 0
 
-        iteration = 0
-        while iteration < max_iters:
-            iteration += 1
-            best_op = (
-                operators.find_max(current_model)
-                if zero_patience
-                else operators.find_max_tabu(current_model, tabu_set)
-            )
-            if best_op is None or (best_op.delta() - epsilon) < MACHINE_TOL:
-                break
+            current_model = start.clone()
+            current_model.force_type_whitelist(type_whitelist)
+            # resolve unknown node types from score data
+            if not current_model.type().is_homogeneous():
+                score_data = score.data()
+                if score_data is None:
+                    raise ValueError(
+                        "The score does not have data to detect the node types."
+                    )
+                current_model.set_unknown_node_types(score_data, type_blacklist)
 
-            best_op.apply(current_model)
-            nodes_changed = best_op.nodes_changed(current_model)
+            _check_blacklist(current_model, arc_blacklist)
+            current_model.force_whitelist(arc_whitelist)
 
-            if validated:
-                validation_delta = _validation_delta_score(
-                    current_model, score, nodes_changed, local_validation
+            operators.set_arc_blacklist(arc_blacklist)
+            operators.set_arc_whitelist(arc_whitelist)
+            operators.set_type_blacklist(type_blacklist)
+            operators.set_type_whitelist(type_whitelist)
+            operators.set_max_indegree(max_indegree)
+
+            if callback is None and patience == 0 and not validated:
+                fast = _native_discrete_hc(
+                    operators, score, current_model, max_indegree, max_iters,
+                    epsilon,
                 )
-            else:
-                validation_delta = best_op.delta()
+                if fast is not None:
+                    progress.mark_as_completed("Finished Hill-climbing!")
+                    return fast
 
-            if (validation_delta + accumulated_offset) > MACHINE_TOL:
-                if not zero_patience:
-                    if p > 0:
-                        best_model = current_model
-                        p = 0
-                        accumulated_offset = 0.0
-                    tabu_set.clear()
-            else:
-                if zero_patience:
-                    best_model = prev_current_model
-                    break
-                else:
-                    if p == 0:
-                        best_model = prev_current_model.clone()
-                    p += 1
-                    if p > patience:
-                        break
-                    accumulated_offset += validation_delta
-                    tabu_set.insert(best_op.opposite(current_model))
+            prev_current_model = current_model.clone()
+            best_model = current_model
 
-            best_op.apply(prev_current_model)
+            local_validation = None
+            with span("pb.hc.cache"):
+                if validated:
+                    local_validation = LocalScoreCache()
+                    local_validation.cache_vlocal_scores(current_model, score)
+                operators.cache_scores(current_model, score)
+            p = 0
+            accumulated_offset = 0.0
+            tabu_set = OperatorTabuSet()
 
             if callback is not None:
-                callback.call(current_model, best_op, score, iteration)
+                callback.call(current_model, None, score, 0)
 
-            operators.update_scores(current_model, score, nodes_changed)
-            progress.update_status(best_op.ToString())
+            iteration = 0
+            while iteration < max_iters:
+                iteration += 1
+                with span("pb.hc.iteration"):
+                    with span("pb.hc.find_max"):
+                        best_op = (
+                            operators.find_max(current_model)
+                            if zero_patience
+                            else operators.find_max_tabu(current_model,
+                                                         tabu_set)
+                        )
+                    if (best_op is None
+                            or (best_op.delta() - epsilon) < MACHINE_TOL):
+                        break
 
-        operators.finished()
-        if callback is not None:
-            callback.call(best_model, None, score, iteration)
-        progress.mark_as_completed("Finished Hill-climbing!")
-        return best_model
+                    best_op.apply(current_model)
+                    nodes_changed = best_op.nodes_changed(current_model)
+
+                    if validated:
+                        with span("pb.hc.validate"):
+                            validation_delta = _validation_delta_score(
+                                current_model, score, nodes_changed,
+                                local_validation
+                            )
+                    else:
+                        validation_delta = best_op.delta()
+
+                    if (validation_delta + accumulated_offset) > MACHINE_TOL:
+                        if not zero_patience:
+                            if p > 0:
+                                best_model = current_model
+                                p = 0
+                                accumulated_offset = 0.0
+                            tabu_set.clear()
+                    else:
+                        if zero_patience:
+                            best_model = prev_current_model
+                            break
+                        else:
+                            if p == 0:
+                                best_model = prev_current_model.clone()
+                            p += 1
+                            if p > patience:
+                                break
+                            accumulated_offset += validation_delta
+                            tabu_set.insert(best_op.opposite(current_model))
+
+                    best_op.apply(prev_current_model)
+
+                    if callback is not None:
+                        callback.call(current_model, best_op, score,
+                                      iteration)
+
+                    with span("pb.hc.update"):
+                        operators.update_scores(current_model, score,
+                                                nodes_changed)
+                    progress.update_status(best_op.ToString())
+
+            count("hc.iterations", iteration)
+            operators.finished()
+            if callback is not None:
+                callback.call(best_model, None, score, iteration)
+            progress.mark_as_completed("Finished Hill-climbing!")
+            return best_model
 
 
 def _check_blacklist(model, arc_blacklist):

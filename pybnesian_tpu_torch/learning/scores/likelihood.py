@@ -42,6 +42,7 @@ from ...factors.discrete import DiscreteFactorType
 from ...factors.lineargaussian import LinearGaussianCPDType
 from ...ops.gaussian import family_tensors
 from ...runtime.device import host_to_device, numpy_dtype, resolve_device, use_device
+from ...runtime.tracing import count, enabled, span
 from ...utils.exceptions import SingularCovarianceData
 from .base import Score, ValidatedScore
 
@@ -98,9 +99,21 @@ def _family_bandwidths(fams, per_family, pos):
 def _finite_or_neg_inf(scores) -> np.ndarray:
     """Device scores as host float64; NaN (a degenerate family) and +inf
     become −inf."""
-    vals = scores.to(torch.float64).cpu().numpy().copy()
+    with span("pb.score.wait"):
+        vals = scores.to(torch.float64).cpu().numpy().copy()
     vals[~np.isfinite(vals)] = -math.inf
     return vals
+
+
+def _count_ucv_search(search, Ns, dj) -> None:
+    """Counts one batched UCV search of family width ``dj``: its problems,
+    their iterations and evaluations, and the pairs of valid rows those
+    evaluations summed, n(n−1)/2 an evaluation of a problem of n rows."""
+    lanes = np.asarray(search.lane_evaluations, np.float64)
+    count("ucv.searches", len(lanes))
+    count("ucv.iterations", int(np.sum(search.iterations)))
+    count("ucv.lane_evaluations", int(lanes.sum()))
+    count(f"ucv.lane_pairs.d{dj}", int(np.sum(lanes * Ns * (Ns - 1) / 2)))
 
 
 def _ckde_selector(node_type, model, variable, parents, args):
@@ -149,7 +162,8 @@ class _KFoldEngine:
         from ...ops.gaussian import batched_lg_cv_loglik
 
         out = batched_lg_cv_loglik(*self.lg_inputs(families))
-        return out.to(torch.float64).cpu().numpy()
+        with span("pb.score.wait"):
+            return out.to(torch.float64).cpu().numpy()
 
     # ---------------------------------------------------------------- CKDE
     def _family_arrays(self):
@@ -237,16 +251,18 @@ class _KFoldEngine:
             # dispatch every group before the first device-to-host copy
             pending = []
             for rule, idxs in device_groups.items():
-                col_idx, col_mask = _family_columns(
-                    [fams[i][:2] for i in idxs], pos
-                )
-                scores = _fused_cv_scores(
-                    data, null_mask,
-                    host_to_device(col_idx, np.int64, self.device),
-                    host_to_device(col_mask, numpy_dtype(data.dtype),
-                                   self.device),
-                    tr_idx, tr_mask, te_idx, te_mask, rule=rule,
-                )
+                with span("pb.cv.ckde.pack"):
+                    col_idx, col_mask = _family_columns(
+                        [fams[i][:2] for i in idxs], pos
+                    )
+                    col_idx = host_to_device(col_idx, np.int64, self.device)
+                    col_mask = host_to_device(
+                        col_mask, numpy_dtype(data.dtype), self.device)
+                with span("pb.cv.ckde.launch"):
+                    scores = _fused_cv_scores(
+                        data, null_mask, col_idx, col_mask,
+                        tr_idx, tr_mask, te_idx, te_mask, rule=rule,
+                    )
                 pending.append((idxs, scores))
             for idxs, scores in pending:
                 out[np.array(idxs)] = _finite_or_neg_inf(scores)
@@ -256,9 +272,10 @@ class _KFoldEngine:
                 [fams[i] for i in ucv_idx]
             )
         if fallback:
-            out[np.array(fallback)] = self._ckde_host_batch(
-                [fams[i] for i in fallback]
-            )
+            with span("pb.ckde.host"):
+                out[np.array(fallback)] = self._ckde_host_batch(
+                    [fams[i] for i in fallback]
+                )
         return out
 
     def _fold_trains(self, variable, parents):
@@ -288,9 +305,11 @@ class _KFoldEngine:
         h_maps, _searches = self._ucv_bandwidths(fams)
         if h_maps:
             idxs = sorted(h_maps)
-            out[np.array(idxs)] = self._ckde_host_batch(
-                [fams[i] for i in idxs], h_maps=[h_maps[i] for i in idxs],
-            )
+            with span("pb.ckde.host"):
+                out[np.array(idxs)] = self._ckde_host_batch(
+                    [fams[i] for i in idxs],
+                    h_maps=[h_maps[i] for i in idxs],
+                )
         return out
 
     def _ucv_bandwidths(self, fams):
@@ -303,48 +322,57 @@ class _KFoldEngine:
 
         K = len(self.folds)
         probs_by_dj: dict[int, list] = {}
-        for i, (v, ps, _sel) in enumerate(fams):
-            trains = self._fold_trains(v, ps)
-            if trains is None:
-                continue
-            dj = len(ps) + 1
-            starts = []
-            for _rows, train in trains:
-                n_k = len(train)
-                knr = (4.0 / (n_k * (dj + 2.0))) ** (2.0 / (dj + 4.0))
-                H0 = knr * np.cov(train, rowvar=False, ddof=1).reshape(dj, dj)
-                try:
-                    starts.append(vech(np.linalg.cholesky(H0)))
-                except np.linalg.LinAlgError:
-                    break
-            if len(starts) == K:
-                probs_by_dj.setdefault(dj, []).append((i, trains, starts))
+        with span("pb.ucv.starts"):
+            for i, (v, ps, _sel) in enumerate(fams):
+                trains = self._fold_trains(v, ps)
+                if trains is None:
+                    continue
+                dj = len(ps) + 1
+                starts = []
+                for _rows, train in trains:
+                    n_k = len(train)
+                    knr = (4.0 / (n_k * (dj + 2.0))) ** (2.0 / (dj + 4.0))
+                    H0 = knr * np.cov(train, rowvar=False,
+                                      ddof=1).reshape(dj, dj)
+                    try:
+                        starts.append(vech(np.linalg.cholesky(H0)))
+                    except np.linalg.LinAlgError:
+                        break
+                if len(starts) == K:
+                    probs_by_dj.setdefault(dj, []).append((i, trains, starts))
 
         h_maps: dict[int, list] = {}
         searches = []
         for dj, entries in probs_by_dj.items():
-            B = len(entries) * K
-            npad = max(len(train) for (_i, trains, _s) in entries
-                       for (_rows, train) in trains)
-            Xpad = np.zeros((B, npad, dj))
-            validm = np.zeros((B, npad))
-            Ns = np.zeros(B)
-            x0s = np.zeros((B, dj * (dj + 1) // 2))
-            for b, (_i, trains, starts) in enumerate(entries):
-                for k, ((_rows, train), x0) in enumerate(zip(trains, starts)):
-                    row = b * K + k
-                    Xpad[row, : len(train)] = train
-                    validm[row, : len(train)] = 1.0
-                    Ns[row] = len(train)
-                    x0s[row] = x0
-            search = ucv_search_batch(Xpad, validm, Ns, x0s, dj,
-                                      dtype=self._dtype(), device=self.device)
+            with span("pb.ucv.pack"):
+                B = len(entries) * K
+                npad = max(len(train) for (_i, trains, _s) in entries
+                           for (_rows, train) in trains)
+                Xpad = np.zeros((B, npad, dj))
+                validm = np.zeros((B, npad))
+                Ns = np.zeros(B)
+                x0s = np.zeros((B, dj * (dj + 1) // 2))
+                for b, (_i, trains, starts) in enumerate(entries):
+                    for k, ((_rows, train), x0) in enumerate(zip(trains,
+                                                                 starts)):
+                        row = b * K + k
+                        Xpad[row, : len(train)] = train
+                        validm[row, : len(train)] = 1.0
+                        Ns[row] = len(train)
+                        x0s[row] = x0
+            with span("pb.ucv.search"):
+                search = ucv_search_batch(Xpad, validm, Ns, x0s, dj,
+                                          dtype=self._dtype(),
+                                          device=self.device)
+            if enabled():
+                _count_ucv_search(search, Ns, dj)
             searches.append(search)
             xb = search.x
-            for b, (i, _trains, _starts) in enumerate(entries):
-                factors = [invvech_triangular(xb[b * K + k])
-                           for k in range(K)]
-                h_maps[i] = [L @ L.T for L in factors]
+            with span("pb.ucv.unpack"):
+                for b, (i, _trains, _starts) in enumerate(entries):
+                    factors = [invvech_triangular(xb[b * K + k])
+                               for k in range(K)]
+                    h_maps[i] = [L @ L.T for L in factors]
         return h_maps, searches
 
     def _ckde_host_batch(self, fams, h_maps=None) -> np.ndarray:
@@ -389,16 +417,18 @@ class _KFoldEngine:
         (pos, data, null_mask, tr_idx, tr_mask, te_idx, te_mask) = (
             self._device_cv_cache()
         )
-        col_idx, col_mask, H = _family_bandwidths(
-            [fams[i][:2] for i in kept], per_family, pos)
-        dtype = numpy_dtype(data.dtype)
-        scores = _fused_cv_scores(
-            data, null_mask,
-            host_to_device(col_idx, np.int64, self.device),
-            host_to_device(col_mask, dtype, self.device),
-            tr_idx, tr_mask, te_idx, te_mask,
-            bandwidths=host_to_device(H, dtype, self.device),
-        )
+        with span("pb.cv.ckde.pack"):
+            col_idx, col_mask, H = _family_bandwidths(
+                [fams[i][:2] for i in kept], per_family, pos)
+            dtype = numpy_dtype(data.dtype)
+            col_idx = host_to_device(col_idx, np.int64, self.device)
+            col_mask = host_to_device(col_mask, dtype, self.device)
+            H = host_to_device(H, dtype, self.device)
+        with span("pb.cv.ckde.launch"):
+            scores = _fused_cv_scores(
+                data, null_mask, col_idx, col_mask,
+                tr_idx, tr_mask, te_idx, te_mask, bandwidths=H,
+            )
         out[np.array(kept)] = _finite_or_neg_inf(scores)
         return out
 
@@ -485,6 +515,7 @@ class CVLikelihood(Score):
         parents = list(parents)
         from ...factors.ckde import CKDEType
 
+        count("score.families.cv")
         if node_type == LinearGaussianCPDType() and self._lg_ok(variable, parents):
             pos = {c: i for i, c in enumerate(self.df.continuous_columns())}
             fams = [(pos[variable], [pos[p] for p in parents])]
@@ -507,52 +538,59 @@ class CVLikelihood(Score):
         """families: sequence of (variable, parents) or (variable, parents,
         node_type). Linear-Gaussian families go in one batched call, CKDE
         families in one call per bandwidth rule. Returns (F,) float64."""
-        norm = []
-        for fam in families:
-            if len(fam) == 3:
-                v, ps, nt = fam
-                if nt is None:
-                    nt = self._node_type(model, v)
-            else:
-                v, ps = fam
-                nt = self._node_type(model, v)
-            norm.append((v, list(ps), nt))
-        out = np.empty(len(norm))
-        lg_idx = [
-            i
-            for i, (v, ps, nt) in enumerate(norm)
-            if nt == LinearGaussianCPDType() and self._lg_ok(v, ps)
-        ]
-        pos = {c: i for i, c in enumerate(self.df.continuous_columns())}
-        if lg_idx:
-            fams = [
-                (pos[norm[i][0]], [pos[p] for p in norm[i][1]]) for i in lg_idx
-            ]
-            out[np.array(lg_idx)] = self._engine.lg_batch(fams)
         from ...factors.ckde import CKDEType
 
-        ckde_idx = [
-            i
-            for i, (v, ps, nt) in enumerate(norm)
-            if nt == CKDEType() and self._lg_ok(v, ps)
-        ]
-        if ckde_idx:
-            fams = [
-                (
-                    norm[i][0],
-                    norm[i][1],
-                    _ckde_selector(norm[i][2], model, norm[i][0], norm[i][1],
-                                   self.args),
-                )
-                for i in ckde_idx
-            ]
-            out[np.array(ckde_idx)] = self._engine.ckde_scores_batch(fams)
-        handled = set(lg_idx) | set(ckde_idx)
-        for i, (v, ps, nt) in enumerate(norm):
-            if i in handled:
-                continue
-            out[i] = self.local_score_node_type(model, nt, v, ps)
-        return out
+        with span("pb.cv.batch"):
+            with span("pb.cv.families"):
+                norm = []
+                for fam in families:
+                    if len(fam) == 3:
+                        v, ps, nt = fam
+                        if nt is None:
+                            nt = self._node_type(model, v)
+                    else:
+                        v, ps = fam
+                        nt = self._node_type(model, v)
+                    norm.append((v, list(ps), nt))
+                out = np.empty(len(norm))
+                lg_idx = [
+                    i
+                    for i, (v, ps, nt) in enumerate(norm)
+                    if nt == LinearGaussianCPDType() and self._lg_ok(v, ps)
+                ]
+                pos = {c: i for i, c in enumerate(self.df.continuous_columns())}
+                lg_fams = [
+                    (pos[norm[i][0]], [pos[p] for p in norm[i][1]]) for i in lg_idx
+                ]
+                ckde_idx = [
+                    i
+                    for i, (v, ps, nt) in enumerate(norm)
+                    if nt == CKDEType() and self._lg_ok(v, ps)
+                ]
+                ckde_fams = [
+                    (
+                        norm[i][0],
+                        norm[i][1],
+                        _ckde_selector(norm[i][2], model, norm[i][0], norm[i][1],
+                                       self.args),
+                    )
+                    for i in ckde_idx
+                ]
+            if lg_idx:
+                with span("pb.cv.lg"):
+                    out[np.array(lg_idx)] = self._engine.lg_batch(lg_fams)
+            if ckde_idx:
+                with span("pb.cv.ckde"):
+                    out[np.array(ckde_idx)] = self._engine.ckde_scores_batch(
+                        ckde_fams)
+            handled = set(lg_idx) | set(ckde_idx)
+            for i, (v, ps, nt) in enumerate(norm):
+                if i in handled:
+                    continue
+                out[i] = self.local_score_node_type(model, nt, v, ps)
+            # the families above count themselves
+            count("score.families.cv", len(handled))
+            return out
 
     def ToString(self) -> str:
         return "CVLikelihood"
@@ -587,14 +625,16 @@ class HoldoutLikelihood(Score):
 
     def local_score_node_type(self, model, node_type, variable, parents) -> float:
         parents = list(parents)
-        a, kw = self.args.args(variable, node_type)
-        factor = node_type.new_factor(model, variable, parents, *a, **kw)
-        with use_device(self.device):
-            try:
-                factor.fit(self._train)
-            except SingularCovarianceData:
-                return -math.inf
-            return factor.slogl(self._test)
+        count("score.families.holdout")
+        with span("pb.holdout.refit"):
+            a, kw = self.args.args(variable, node_type)
+            factor = node_type.new_factor(model, variable, parents, *a, **kw)
+            with use_device(self.device):
+                try:
+                    factor.fit(self._train)
+                except SingularCovarianceData:
+                    return -math.inf
+                return factor.slogl(self._test)
 
     def _continuous_family(self, variable, parents) -> bool:
         return not self._train.is_discrete(variable) and not any(
@@ -605,60 +645,66 @@ class HoldoutLikelihood(Score):
         """families: sequence of (variable, parents) or (variable, parents,
         node_type). Linear-Gaussian families go in one batched call, CKDE
         families through the one-fold CV engine. Returns (F,) float64."""
-        from ...factors.ckde import CKDEType
-        from ...ops.gaussian import batched_lg_holdout_loglik
+        with span("pb.holdout.batch"):
+            from ...factors.ckde import CKDEType
+            from ...ops.gaussian import batched_lg_holdout_loglik
 
-        norm = []
-        for fam in families:
-            if len(fam) == 3:
-                v, ps, nt = fam
-                if nt is None:
+            norm = []
+            for fam in families:
+                if len(fam) == 3:
+                    v, ps, nt = fam
+                    if nt is None:
+                        nt = self._node_type(model, v)
+                else:
+                    v, ps = fam
                     nt = self._node_type(model, v)
-            else:
-                v, ps = fam
-                nt = self._node_type(model, v)
-            norm.append((v, list(ps), nt))
-        out = np.empty(len(norm))
-        cont = self._train.continuous_columns()
-        pos = {c: i for i, c in enumerate(cont)}
-        lg_idx = [
-            i
-            for i, (v, ps, nt) in enumerate(norm)
-            if nt == LinearGaussianCPDType() and self._continuous_family(v, ps)
-        ]
-        if lg_idx:
-            tv, tvalid = self._train.device_matrix(cont, device=self.device)
-            sv, svalid = self._test.device_matrix(cont, device=self.device)
-            fams = [
-                (pos[norm[i][0]], [pos[p] for p in norm[i][1]]) for i in lg_idx
+                norm.append((v, list(ps), nt))
+            out = np.empty(len(norm))
+            cont = self._train.continuous_columns()
+            pos = {c: i for i, c in enumerate(cont)}
+            lg_idx = [
+                i
+                for i, (v, ps, nt) in enumerate(norm)
+                if nt == LinearGaussianCPDType() and self._continuous_family(v, ps)
             ]
-            scores = batched_lg_holdout_loglik(
-                tv, tvalid, sv, svalid,
-                *family_tensors(fams, numpy_dtype(tv.dtype), self.device),
-            )
-            out[np.array(lg_idx)] = scores.to(torch.float64).cpu().numpy()
-        ckde_idx = [
-            i
-            for i, (v, ps, nt) in enumerate(norm)
-            if nt == CKDEType() and self._continuous_family(v, ps)
-        ]
-        if ckde_idx:
-            fams = [
-                (
-                    norm[i][0],
-                    norm[i][1],
-                    _ckde_selector(norm[i][2], model, norm[i][0], norm[i][1],
-                                   self.args),
-                )
-                for i in ckde_idx
+            if lg_idx:
+                with span("pb.holdout.lg"):
+                    tv, tvalid = self._train.device_matrix(cont, device=self.device)
+                    sv, svalid = self._test.device_matrix(cont, device=self.device)
+                    fams = [
+                        (pos[norm[i][0]], [pos[p] for p in norm[i][1]]) for i in lg_idx
+                    ]
+                    scores = batched_lg_holdout_loglik(
+                        tv, tvalid, sv, svalid,
+                        *family_tensors(fams, numpy_dtype(tv.dtype), self.device),
+                    )
+                    with span("pb.score.wait"):
+                        out[np.array(lg_idx)] = (
+                            scores.to(torch.float64).cpu().numpy())
+            ckde_idx = [
+                i
+                for i, (v, ps, nt) in enumerate(norm)
+                if nt == CKDEType() and self._continuous_family(v, ps)
             ]
-            out[np.array(ckde_idx)] = self._engine.ckde_scores_batch(fams)
-        handled = set(lg_idx) | set(ckde_idx)
-        for i, (v, ps, nt) in enumerate(norm):
-            if i in handled:
-                continue
-            out[i] = self.local_score_node_type(model, nt, v, ps)
-        return out
+            if ckde_idx:
+                fams = [
+                    (
+                        norm[i][0],
+                        norm[i][1],
+                        _ckde_selector(norm[i][2], model, norm[i][0], norm[i][1],
+                                       self.args),
+                    )
+                    for i in ckde_idx
+                ]
+                out[np.array(ckde_idx)] = self._engine.ckde_scores_batch(fams)
+            handled = set(lg_idx) | set(ckde_idx)
+            for i, (v, ps, nt) in enumerate(norm):
+                if i in handled:
+                    continue
+                out[i] = self.local_score_node_type(model, nt, v, ps)
+            # the families above count themselves
+            count("score.families.holdout", len(handled))
+            return out
 
     def ToString(self) -> str:
         return "HoldoutLikelihood"

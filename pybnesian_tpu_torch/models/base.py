@@ -18,6 +18,7 @@ import numpy as np
 from ..data import DataFrame
 from ..factors.base import Arguments, FactorType, UnknownFactorType
 from ..graph import ConditionalDag, Dag, NodeLookupError
+from ..runtime.tracing import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -30,25 +31,31 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # mle_LinearGaussianCPD.hpp:12-69, BayesianNetwork.hpp:960-1066).
 _LGFAST = None
 _LGFAST_TRIED = False
+# builds a process tries before it keeps a failure: each runs under the
+# build's lock, so a second finds what a concurrent build finished, or
+# compiles again where the first compiler failed for a moment
+_LGFAST_ATTEMPTS = 2
 
 
 def _lgfast_mod():
     global _LGFAST, _LGFAST_TRIED
     if not _LGFAST_TRIED:
+        import os
+
+        from .._native import build_ext_and_import
+
+        src = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "_native",
+            "lgfast.c",
+        )
+        for _ in range(_LGFAST_ATTEMPTS):
+            try:
+                _LGFAST = build_ext_and_import(src, "lgfast")
+                break
+            except Exception:
+                _LGFAST = None
         _LGFAST_TRIED = True
-        try:
-            import os
-
-            from .._native import build_ext_and_import
-
-            src = os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                "_native",
-                "lgfast.c",
-            )
-            _LGFAST = build_ext_and_import(src, "lgfast")
-        except Exception:
-            _LGFAST = None
     return _LGFAST
 
 
@@ -1256,13 +1263,15 @@ class BayesianNetworkBase:
 
         entries = []
         valid_rows = {}
-        for n in nodes:
-            cpd = self._cpds[n]
-            cols = [n, *cpd.evidence()]
-            mat = df.to_numpy(cols, drop_null=False, dtype=np.float64)
-            valid_rows[n] = df.combined_mask(*cols)
-            entries.append((cpd, np.nan_to_num(mat, nan=0.0)))
-        outs = batched_ckde_logl_many(entries)
+        with span("pb.slogl.ckde.pack"):
+            for n in nodes:
+                cpd = self._cpds[n]
+                cols = [n, *cpd.evidence()]
+                mat = df.to_numpy(cols, drop_null=False, dtype=np.float64)
+                valid_rows[n] = df.combined_mask(*cols)
+                entries.append((cpd, np.nan_to_num(mat, nan=0.0)))
+        with span("pb.slogl.ckde"):
+            outs = batched_ckde_logl_many(entries)
         result = {}
         for n, vals in zip(nodes, outs):
             vals = vals.copy()
@@ -1324,42 +1333,46 @@ class BayesianNetworkBase:
     def logl(self, df) -> np.ndarray:
         """Per-row joint log-likelihood. Rows with nulls in any family yield
         NaN (reference BNGeneric::logl accumulates NaN)."""
-        self._check_fitted()
-        df = DataFrame.wrap(df)
-        fast = self._lg_fast_logl_matrix(df)
-        if fast is not None:
-            return fast.sum(axis=1)
-        total = np.zeros(df.num_rows)
-        batched = self._batched_ckde_logl(df)
-        for n in self._fit_nodes():
-            if n in batched:
-                total = total + batched[n]
-            else:
-                total = total + np.asarray(self._cpds[n].logl(df))
-        return total
+        with span("pb.slogl"):
+            self._check_fitted()
+            df = DataFrame.wrap(df)
+            fast = self._lg_fast_logl_matrix(df)
+            if fast is not None:
+                return fast.sum(axis=1)
+            total = np.zeros(df.num_rows)
+            batched = self._batched_ckde_logl(df)
+            for n in self._fit_nodes():
+                if n in batched:
+                    total = total + batched[n]
+                else:
+                    with span("pb.slogl.lg"):
+                        total = total + np.asarray(self._cpds[n].logl(df))
+            return total
 
     def slogl(self, df) -> float:
         """Sum of per-factor slogl (each factor skips its own null rows,
         reference BNGeneric::slogl:1010)."""
-        st = self._lgfs
-        if st is not None:
-            out = self._lg_native_slogl(st, df)
-            if out is not None:
-                return out
-        self._check_fitted()
-        df = DataFrame.wrap(df)
-        # NOTE: no matrix shortcut here — slogl is the SUM of per-factor
-        # slogl values (reference BNGeneric::slogl:1010, asserted bitwise
-        # by its suite), and each LG factor's slogl is already one native
-        # call
-        batched = self._batched_ckde_logl(df)
-        total = 0.0
-        for n in self._fit_nodes():
-            if n in batched:
-                total += float(np.nansum(batched[n]))
-            else:
-                total += self._cpds[n].slogl(df)
-        return total
+        with span("pb.slogl"):
+            st = self._lgfs
+            if st is not None:
+                out = self._lg_native_slogl(st, df)
+                if out is not None:
+                    return out
+            self._check_fitted()
+            df = DataFrame.wrap(df)
+            # NOTE: no matrix shortcut here — slogl is the SUM of per-factor
+            # slogl values (reference BNGeneric::slogl:1010, asserted
+            # bitwise by its suite), and each LG factor's slogl is already
+            # one native call
+            batched = self._batched_ckde_logl(df)
+            total = 0.0
+            for n in self._fit_nodes():
+                if n in batched:
+                    total += float(np.nansum(batched[n]))
+                else:
+                    with span("pb.slogl.lg"):
+                        total += self._cpds[n].slogl(df)
+            return total
 
     # ---------------------------------------------------------------- sample
     def sample(self, n: int, seed: int | None = None, ordered: bool = False):

@@ -233,9 +233,8 @@ def ucv_search_evaluate(X, valid, Ns, x0s, points, d: int, diagonal: bool,
     """The kernel's objective at ``points`` (B, P, nv), the guard rails
     set by the starts ``x0s``: ``(f (B, P), sums (B, P, 2) (s2h, sh),
     whitened rows (B, P, N, d) or None)``, the same code as the search's
-    evaluations, in one launch (counted in ``ucv_search_evaluate.launches``,
-    not in the search's count). CPU tensors take the plain objective and
-    pair sums."""
+    evaluations, in one launch (not in the search's count). CPU tensors take
+    the plain objective and pair sums."""
     B, N, nv = _check_args(X, valid, Ns, x0s, d, diagonal, points)
     P = points.shape[1]
     if X.device.type == "cpu":
@@ -249,19 +248,14 @@ def ucv_search_evaluate(X, valid, Ns, x0s, points, d: int, diagonal: bool,
         return f, sums, W if white else None
     if P < 1:
         raise ValueError("points must hold at least one point a problem")
-    out = _launch(X, valid, Ns, x0s, d, diagonal, 0, points, white)
-    ucv_search_evaluate.launches += 1
-    return out
-
-
-ucv_search_evaluate.launches = 0
+    return _launch(X, valid, Ns, x0s, d, diagonal, 0, points, white)
 
 
 def _launch(X, valid, Ns, x0s, d, diagonal, max_iter, points=None,
             white=False):
     """One launch on checked CUDA arguments; the search's
     :class:`UcvSearchResult`, or with ``points`` the evaluation's (f, sums,
-    white). Counts nothing: the wrappers count their own launches."""
+    white). Counts nothing: the search's wrapper counts its own launches."""
     B, N, _ = X.shape
     nv = x0s.shape[1]
     P = 0 if points is None else points.shape[1]

@@ -16,7 +16,7 @@ from .config import (
     trace,
 )
 from .checkpoint import load_pytree, nuts_checkpointed, save_pytree
-from . import distributed
+from . import distributed, tracing
 
 __all__ = [
     "RuntimeConfig",

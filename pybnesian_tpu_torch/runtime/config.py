@@ -1,25 +1,23 @@
 """Runtime configuration of the torch port: the dtype policy, device
-discovery, the default mesh and the profiling hook.
+discovery and the default mesh.
 
 Counterpart of ``pybnesian_tpu/runtime/config.py`` (which replaced the
 reference's ``OpenCLConfig`` singleton, opencl/opencl_config.hpp:120-292).
 The device itself is chosen in :mod:`.device` (the card, unless the caller
-asks for the CPU); this module reports it. ``trace`` annotates a region
-with ``torch.profiler.record_function`` and, given a directory, writes a
-Chrome trace of the region there.
+asks for the CPU); this module reports it. The profiling hook, ``trace``,
+lives in :mod:`.tracing` with the port's spans and counters, and is
+exported here under the JAX package's name.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
 
 import numpy as np
-import torch
 
 from .device import default_device, visible_devices
 from .distributed import rank_and_size
+from .tracing import trace
 
 __all__ = [
     "RuntimeConfig",
@@ -73,23 +71,3 @@ def default_mesh():
     from ..parallel import make_mesh
 
     return make_mesh({"data": len(visible_devices())})
-
-
-@contextlib.contextmanager
-def trace(name: str, log_dir: str | None = None):
-    """Annotates the region as ``name`` (``torch.profiler.record_function``);
-    with ``log_dir``, also profiles it (CPU activity, and CUDA activity when
-    a card is visible) and writes its Chrome trace to
-    ``log_dir/<name>.pt.trace.json``."""
-    if log_dir is None:
-        with torch.profiler.record_function(name):
-            yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        with torch.profiler.record_function(name):
-            yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.pt.trace.json"))

@@ -8,7 +8,17 @@ estimates agree to 1e-12 and the p-values are equal, since both packages
 draw the same shuffles (numpy's per-test ``default_rng(seed)``, and the
 native ``lgf_local_shuffle``, whose presence on both sides is asserted).
 One JAX run per case is shared by the module's tests.
+
+Both native cores are loaded before the first test, under a lock of the
+module's own, asking again until both load: a test worker keeps a failed
+load for its whole process, and the JAX package builds its core in place
+with no lock, so a worker that loads it while another worker rewrites it
+fails to load it once.
 """
+
+import fcntl
+import os
+import time
 
 import numpy as np
 import pandas as pd
@@ -19,8 +29,10 @@ import jax.numpy as jnp
 
 import pybnesian_tpu as jpb
 import pybnesian_tpu_torch as tpb
+import pybnesian_tpu.models.base as jax_base
 from pybnesian_tpu.models.base import _lgfast_mod as jax_lgfast
 from pybnesian_tpu.ops import knn as jknn
+import pybnesian_tpu_torch.models.base as torch_base
 from pybnesian_tpu_torch.models.base import _lgfast_mod as torch_lgfast
 from pybnesian_tpu_torch.ops import knn as tknn
 
@@ -29,6 +41,28 @@ from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
 EST = dict(rtol=1e-12, atol=1e-12)
 K = 5
 N = 120
+# seconds the module waits for both native cores
+NATIVE_WAIT_S = 300
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _both_native_cores():
+    """Both packages' ``_lgfast_mod()`` loaded, asked again (their kept
+    failure cleared) every half second until both load or the wait ends,
+    under the module's own lock."""
+    path = os.path.join(os.path.dirname(torch_base.__file__), os.pardir,
+                        "_native", "lgfast.kmi_test.lock")
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    with open(path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            for base in (jax_base, torch_base):
+                while (base._lgfast_mod() is None
+                       and time.monotonic() < deadline):
+                    base._LGFAST_TRIED = False
+                    time.sleep(0.5)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def _ranks(a):
