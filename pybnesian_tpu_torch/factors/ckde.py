@@ -15,14 +15,16 @@ stay exactly as in the JAX package, so the same seed draws the same noise.
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
+import torch
 
 from ..data import DataFrame
 from ..kde.bandwidth import BandwidthSelector, NormalReferenceRule
 from ..kde.kde import KDE
-from ..runtime.device import host_to_device
-from ..runtime.tracing import span
+from ..runtime.device import default_device, host_to_device, torch_dtype
+from ..runtime.tracing import count, span
 from .base import Factor, FactorType
 
 __all__ = ["CKDEType", "CKDE", "batched_ckde_logl_many"]
@@ -48,6 +50,102 @@ class CKDEType(FactorType):
         return "CKDEFactor"
 
 
+class _TrainPlan:
+    """The training side of one fitted CKDE in the batched logl's layout
+    (columns permuted evidence first, variable last), built once a fit by
+    :meth:`CKDE._train_plan` with the host float64 operations the batched
+    path always used: ``perm`` and ``Lp``, the Cholesky factor of the
+    permuted bandwidth, which whiten the test rows; ``jtr`` (n, dj) and
+    ``zv_tr`` (n,), the whitened training rows and their variable
+    coordinate, cast to ``dtype`` on ``device``; ``lndiff`` = −log L_vv −
+    ½ log 2π. It is bound to the joint KDE and the bandwidth and training
+    arrays it was built from."""
+
+    def __init__(self, joint: KDE, dtype, device):
+        from scipy.linalg import solve_triangular
+
+        dj = joint.num_variables()
+        self.source = (joint, joint._bandwidth, joint._training)
+        self.key = (np.dtype(dtype), device)
+        self.dj = dj
+        self.perm = [*range(1, dj), 0]  # fitted layout is [var, *ev]
+        self.Lp = np.linalg.cholesky(
+            joint.bandwidth[np.ix_(self.perm, self.perm)])
+        self.lndiff = -math.log(self.Lp[dj - 1, dj - 1]) - 0.5 * _LOG_2PI
+        white = solve_triangular(
+            self.Lp, joint._training[:, self.perm].T, lower=True).T
+        self.jtr = host_to_device(white, dtype, device)
+        self.zv_tr = host_to_device(white[:, dj - 1], dtype, device)
+
+    def serves(self, joint: KDE, dtype, device) -> bool:
+        src = self.source
+        return (src[0] is joint and src[1] is joint._bandwidth
+                and src[2] is joint._training
+                and self.key == (np.dtype(dtype), device))
+
+    def whiten(self, mat: np.ndarray) -> np.ndarray:
+        """Rows of ``mat`` (columns ``[variable, *evidence]``), whitened in
+        the permuted layout, in float64."""
+        from scipy.linalg import solve_triangular
+
+        return solve_triangular(self.Lp, mat[:, self.perm].T, lower=True).T
+
+
+# The stacked train side of the last tuple of factor plans seen: (weak
+# references to the plans, the stacked tensors). It goes when one of its
+# plans is collected (its factor refitted or collected, or another dtype or
+# device asked for), so that it never holds device memory for a dead model.
+_LAST = None
+
+
+def _stack_plans(plans, dtype, device):
+    """The F plans as :func:`~..ops.kde.batched_ckde_logl_prepared`'s train
+    side, by device copies: ``jtr`` (F, ntr, djmax) and ``zv_tr`` (F, ntr)
+    zero-padded, ``neg``, the no-evidence flags and ``log n_valid`` from
+    the padding mask, and ``lndiff`` (F,)."""
+    from ..ops.kde import ckde_train_side
+
+    F = len(plans)
+    ntr = max(p.jtr.shape[0] for p in plans)
+    djmax = max(p.dj for p in plans)
+    jtr = torch.zeros((F, ntr, djmax), dtype=torch_dtype(dtype), device=device)
+    zv_tr = torch.zeros((F, ntr), dtype=jtr.dtype, device=device)
+    trm = torch.zeros((F, ntr), dtype=jtr.dtype, device=device)
+    for f, p in enumerate(plans):
+        n = p.jtr.shape[0]
+        jtr[f, :n, :p.dj] = p.jtr
+        zv_tr[f, :n] = p.zv_tr
+        trm[f, :n] = 1.0
+    no_ev = np.array([p.dj == 1 for p in plans], dtype=np.float64)
+    lndiff = np.array([p.lndiff for p in plans])
+    neg, flags, log_n_valid = ckde_train_side(
+        jtr, trm, host_to_device(no_ev, dtype, device))
+    return (jtr, neg, zv_tr, flags, log_n_valid,
+            host_to_device(lndiff, dtype, device))
+
+
+def _stacked(plans, dtype, device):
+    """The stacked train side of ``plans``: the kept one when the last call
+    stacked the same plans, else a new one (counted in
+    ``slogl.ckde.plan_reuses`` and ``slogl.ckde.plan_builds``)."""
+    global _LAST
+    last = _LAST
+    if (last is not None and len(last[0]) == len(plans)
+            and all(r() is p for r, p in zip(last[0], plans))):
+        count("slogl.ckde.plan_reuses")
+        return last[1]
+    count("slogl.ckde.plan_builds")
+
+    def forget(ref):
+        global _LAST
+        if _LAST is not None and any(r is ref for r in _LAST[0]):
+            _LAST = None
+
+    _LAST = ([weakref.ref(p, forget) for p in plans],
+             _stack_plans(plans, dtype, device))
+    return _LAST[1]
+
+
 def batched_ckde_logl_many(entries):
     """Per-row logl of many fitted CKDE factors in ONE device launch.
 
@@ -59,54 +157,34 @@ def batched_ckde_logl_many(entries):
     Uses the shared-Cholesky layout: columns are permuted evidence-first so
     the joint Cholesky's leading block is the marginal's (the reference's
     device-buffer sharing, CKDE.hpp:182-200), letting
-    :func:`pybnesian_tpu_torch.ops.kde.batched_ckde_logl` compute both
-    log-densities from one pass over the pairs. Factors with fewer train or
-    test rows than the largest are padded, their padding train rows masked;
-    the device arrays take the factors' data dtype.
-    """
-    from scipy.linalg import solve_triangular
+    :func:`pybnesian_tpu_torch.ops.kde.batched_ckde_logl_prepared` compute
+    both log-densities from one pass over the pairs. Factors with fewer
+    train or test rows than the largest are padded, their padding train
+    rows masked; the device arrays take the factors' data dtype.
 
-    from ..ops.kde import batched_ckde_logl
+    Everything but the test rows is fixed by the fits: each factor keeps
+    its whitened training rows on the device (:meth:`CKDE._train_plan`),
+    and their stacked, padded form is kept for the tuple of factors. A
+    call whitens its test rows on the host, uploads them and launches."""
+    from ..ops.kde import batched_ckde_logl_prepared
 
     F = len(entries)
-    ntr = max(e[0].num_instances() for e in entries)
     m = max(len(e[1]) for e in entries)
-    djmax = max(1 + len(e[0].evidence()) for e in entries)
     dtype = np.result_type(*(e[0].kde_joint()._dtype for e in entries))
-    jtr = np.zeros((F, ntr, djmax))
-    jte = np.zeros((F, m, djmax))
-    trm = np.zeros((F, ntr))
-    lndiff = np.zeros(F)
+    device = default_device()
     with span("pb.slogl.ckde.whiten"):
-        for f, (cpd, mat) in enumerate(entries):
-            joint = cpd.kde_joint()
-            dj = 1 + len(cpd.evidence())
-            n_i = joint.num_instances()
-            perm = list(range(1, dj)) + [0]  # fitted layout is [var, *ev]
-            Hp = joint.bandwidth[np.ix_(perm, perm)]
-            Lp = np.linalg.cholesky(Hp)
-            jtr[f, :n_i, :dj] = solve_triangular(
-                Lp, joint._training[:, perm].T, lower=True
-            ).T
-            trm[f, :n_i] = 1.0
-            lndiff[f] = -math.log(Lp[dj - 1, dj - 1]) - 0.5 * _LOG_2PI
-            jte[f, : len(mat), :dj] = solve_triangular(
-                Lp, mat[:, perm].T, lower=True
-            ).T
-    var_col = np.array([len(e[0].evidence()) for e in entries])
-    rows = np.arange(F)
-    zv_tr = jtr[rows, :, var_col]
-    zv_te = jte[rows, :, var_col]
-    no_ev = (var_col == 0).astype(np.float64)
-
-    def dev(a):
-        return host_to_device(a, dtype)
+        plans = [cpd._train_plan(dtype, device) for cpd, _ in entries]
+        train = _stacked(plans, dtype, device)
+        jte = np.zeros((F, m, max(p.dj for p in plans)))
+        for f, ((_, mat), plan) in enumerate(zip(entries, plans)):
+            jte[f, : len(mat), : plan.dj] = plan.whiten(mat)
+    var_col = np.array([p.dj - 1 for p in plans])
+    zv_te = jte[np.arange(F), :, var_col]
 
     with span("pb.slogl.ckde.launch"):
-        out = batched_ckde_logl(
-            dev(jtr), dev(jte), dev(zv_tr), dev(zv_te), dev(trm), dev(lndiff),
-            no_ev=dev(no_ev),
-        )
+        out = batched_ckde_logl_prepared(
+            *train, host_to_device(jte, dtype, device),
+            host_to_device(zv_te, dtype, device))
     with span("pb.slogl.wait"):
         out = out.cpu().numpy().astype(np.float64)
     return [out[f, : len(entries[f][1])] for f in range(F)]
@@ -119,6 +197,7 @@ class CKDE(Factor):
         self._joint: KDE | None = None
         self._marg: KDE | None = None
         self._fitted = False
+        self._plan: _TrainPlan | None = None
 
     def type(self) -> FactorType:
         return CKDEType()
@@ -172,7 +251,18 @@ class CKDE(Factor):
             )
         else:
             self._marg = None
+        self._plan = None
         self._fitted = True
+
+    def _train_plan(self, dtype, device) -> _TrainPlan:
+        """This factor's training side for :func:`batched_ckde_logl_many`
+        in ``dtype`` on ``device``: kept from the last call, and built anew
+        after a refit, a change of the joint's bandwidth or training rows,
+        or another dtype or device."""
+        plan = self._plan
+        if plan is None or not plan.serves(self._joint, dtype, device):
+            plan = self._plan = _TrainPlan(self._joint, dtype, device)
+        return plan
 
     # ----------------------------------------------------------------- logl
     def logl(self, df) -> np.ndarray:
@@ -314,3 +404,4 @@ class CKDE(Factor):
         self._fitted = state["fitted"]
         self._joint = state["joint"]
         self._marg = state["marg"]
+        self._plan = None

@@ -4,13 +4,15 @@ log-likelihoods and cross-validated conditional-KDE (CKDE) scores.
 Port of ``pybnesian_tpu/ops/kde.py``. The fitted-model functions
 (:func:`kde_logl_whitened`, :func:`kde_conditional_logsumexp`,
 :func:`batched_ckde_logl`, :func:`kde_logl_pair`) take whitened train and
-test rows. A float32 batch on a GPU goes to a hand-written kernel: the KDE
-kernel of :func:`kde_logl` for the first two, the CV pairs kernel of
-:func:`ckde_cv_pairs` for the batched one. Every other batch (float64, or
-CPU tensors) takes the plain torch port of the JAX function, whose pair
-distances are one matmul per test chunk. The JAX functions padded test
-rows to a multiple of their chunk; the kernels mask their own ragged edges
-and the plain forms chunk internally, so no caller pads.
+test rows (:func:`batched_ckde_logl_prepared` a train side prepared once
+by :func:`ckde_train_side`). A float32 batch on a GPU goes to a
+hand-written kernel: the KDE kernel of :func:`kde_logl` for the first two,
+the CV pairs kernel of :func:`ckde_cv_pairs` for the batched ones. Every
+other batch (float64, or CPU tensors) takes the plain torch port of the
+JAX function, whose pair distances are one matmul per test chunk. The JAX
+functions padded test rows to a multiple of their chunk; the kernels mask
+their own ragged edges and the plain forms chunk internally, so no caller
+pads.
 
 One CV call scores F CKDE families over K folds:
 
@@ -69,6 +71,8 @@ __all__ = [
     "kde_logl_pair",
     "kde_conditional_logsumexp",
     "batched_ckde_logl",
+    "batched_ckde_logl_prepared",
+    "ckde_train_side",
     "ckde_cv_whitened_parts",
     "ckde_cv_alldevice",
     "ckde_cv_alldevice_flash",
@@ -188,19 +192,40 @@ def batched_ckde_logl(jtr, jte, zv_tr, zv_te, trm, lndiff, no_ev=None):
     subtraction zeroes their marginal distances): the kernel then skips
     their marginal pass; the plain form needs no flag. Returns (F, nte).
 
-    On the kernel route this is :func:`ckde_cv_pairs` with one program per
-    factor."""
+    :func:`ckde_train_side`, then :func:`batched_ckde_logl_prepared`."""
+    neg, flags, log_n_valid = ckde_train_side(jtr, trm, no_ev)
+    return batched_ckde_logl_prepared(jtr, neg, zv_tr, flags, log_n_valid,
+                                      lndiff, jte, zv_te)
+
+
+def ckde_train_side(jtr, trm, no_ev=None):
+    """What :func:`batched_ckde_logl` derives from its train mask, the
+    arguments of :func:`batched_ckde_logl_prepared`: ``neg`` (F, ntr), 0 on
+    valid rows and −inf on padding, in ``jtr``'s dtype; the no-evidence
+    flags (F,) in float32 (zeros when ``no_ev`` is None); ``log n_valid``
+    (F,), each factor's valid train rows, at least one. A caller whose
+    train side is fixed computes them once."""
     neg = torch.where(trm > 0, 0.0, -math.inf).to(jtr.dtype)
+    flags = (torch.zeros(jtr.shape[0], device=jtr.device) if no_ev is None
+             else torch.as_tensor(no_ev, device=jtr.device))
+    n_valid = torch.sum((trm > 0).to(torch.float32), dim=1)
+    return (neg, flags.to(torch.float32).contiguous(),
+            torch.log(torch.clamp(n_valid, min=1.0)))
+
+
+def batched_ckde_logl_prepared(jtr, neg, zv_tr, flags, log_n_valid, lndiff,
+                               jte, zv_te):
+    """:func:`batched_ckde_logl` on a prepared train side: ``jtr``,
+    ``zv_tr`` and ``lndiff`` as there, ``neg``, ``flags`` and
+    ``log_n_valid`` from :func:`ckde_train_side`. Only ``jte`` and
+    ``zv_te`` are the call's own. Returns (F, nte).
+
+    On the kernel route this is :func:`ckde_cv_pairs` with one program per
+    factor; the plain form reads neither ``flags`` nor ``log_n_valid``."""
     if kernel_route(jtr):
-        F = jtr.shape[0]
-        flags = (torch.zeros(F, device=jtr.device) if no_ev is None
-                 else torch.as_tensor(no_ev, device=jtr.device))
-        n_valid = torch.sum((trm > 0).to(torch.float32), dim=1)
         out = ckde_cv_pairs(
             jtr.contiguous(), neg.contiguous(), zv_tr.contiguous(),
-            jte.contiguous(), zv_te.contiguous(),
-            flags.to(torch.float32).contiguous(),
-            torch.log(torch.clamp(n_valid, min=1.0)),
+            jte.contiguous(), zv_te.contiguous(), flags, log_n_valid,
         )
         return out + lndiff[:, None]
     return _dense_pairs(jtr, neg, zv_tr, jte, zv_te) + lndiff[:, None]

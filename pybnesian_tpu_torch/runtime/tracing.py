@@ -40,7 +40,10 @@ profiler puts annotations on the device's timeline too. By layer:
   ``pb.slogl.ckde.pack``, ``pb.slogl.ckde`` and inside it
   ``pb.slogl.ckde.whiten``, ``pb.slogl.ckde.launch``, ``pb.slogl.wait``
   (the CKDE nodes in one launch), ``pb.slogl.lg`` (each factor outside
-  that launch), ``pb.factor.wait`` (a fitted KDE's or CKDE's read-back).
+  that launch), ``pb.factor.wait`` (a fitted KDE's or CKDE's read-back);
+  the counters ``slogl.ckde.plan_builds`` and ``slogl.ckde.plan_reuses``
+  (a launch's stacked training side of the CKDE factors, built anew or
+  kept from an earlier call).
 
 :func:`trace` is the operator's entry point: ``with trace("learn",
 log_dir="traces"):`` profiles the region (which turns the spans and

@@ -234,6 +234,43 @@ def test_fitted_model_routes_launch_the_kernels(cuda):
     torch.testing.assert_close(got.double(), want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("flagged", [True, False], ids=["no_ev", "plain"])
+def test_prepared_train_side_gives_the_same_bits(cuda, flagged):
+    """``batched_ckde_logl_prepared`` on a train side prepared once by
+    ``ckde_train_side`` returns the float32 bits of ``batched_ckde_logl``
+    on the same inputs, each one launch of the pairs kernel, with and
+    without the no-evidence flags."""
+    rng = np.random.default_rng(5)
+    G, ntr, nte, d = 3, 2_000, 700, 3
+    jtr = rng.normal(size=(G, ntr, d)).astype(np.float32)
+    jtr[0, :, 1:] = 0.0  # factor 0 is evidence-free
+    jte = rng.normal(size=(G, nte, d)).astype(np.float32)
+    jte[0, :, 1:] = 0.0
+    var_col = [0, 2, 2]
+    trm = np.ones((G, ntr), np.float32)
+    trm[1, 1_500:] = 0.0
+    trm[2, 700:] = 0.0
+    jtr[trm == 0] = 0.0
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        jtr, jte, jtr[np.arange(G), :, var_col],
+        jte[np.arange(G), :, var_col], trm,
+        np.array([-1.2, -0.8, -1.0], np.float32))]
+    no_ev = (torch.tensor([1.0, 0.0, 0.0], device=cuda) if flagged
+             else None)
+    jtr_t, jte_t, zv_tr, zv_te, trm_t, lndiff = args
+    before = ckde_cv_pairs.launches
+    want = tkde.batched_ckde_logl(*args, no_ev=no_ev)
+    neg, flags, log_n = tkde.ckde_train_side(jtr_t, trm_t, no_ev)
+    got = tkde.batched_ckde_logl_prepared(jtr_t, neg, zv_tr, flags, log_n,
+                                          lndiff, jte_t, zv_te)
+    again = tkde.batched_ckde_logl_prepared(jtr_t, neg, zv_tr, flags,
+                                            log_n, lndiff, jte_t, zv_te)
+    torch.cuda.synchronize()
+    assert ckde_cv_pairs.launches == before + 3
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
 @pytest.mark.parametrize("ntr,nte,d", [(10_240, 10_240, 3), (600, 77, 20)],
                          ids=["tpu-shape", "wide"])
 def test_kde_program_bit_equal_alone_and_in_a_batch(cuda, ntr, nte, d):
