@@ -228,11 +228,15 @@ def test_program_bit_equal_alone_and_in_a_batch(cuda, ntr, nte, dpad):
     assert torch.equal(ckde_cv_pairs(*args), together)
 
 
-@pytest.mark.parametrize("ntr", [700, 1500, 9000])
-def test_every_split_gives_the_same_bits(cuda, ntr):
+@pytest.mark.parametrize("ntr,nte,G", [(700, 300, 3), (1500, 300, 3),
+                                       (9000, 300, 3), (90_000, 10_000, 150)],
+                         ids=["700", "1500", "9000", "cv-100k-rows"])
+def test_every_split_gives_the_same_bits(cuda, ntr, nte, G):
     """Forced splits 1 to 8, powers of two or not, only spread the fixed
-    leaves over the cluster: every one gives the planned launch's bits."""
-    args = _inputs(cuda, 3, G=3, ntr=ntr, nte=300, seed=ntr)
+    leaves over the cluster: every one gives the planned launch's bits.
+    The last case is the CV path's shape at 100,000 rows, where the plan
+    itself splits two ways."""
+    args = _inputs(cuda, 3, G=G, ntr=ntr, nte=nte, seed=ntr)
     want = ckde_cv_pairs(*args)
     for split in range(1, ckde_cv_kernel.MAX_SPLIT + 1):
         assert torch.equal(_run(args, (2, 16, split)), want), split
