@@ -132,7 +132,12 @@ the script exits non-zero and prints no result:
    bit-equal alone, inside 30
    problems, padded with invalid rows and run again, and its times at
    (10, 9,000, 3) with its bound and two efficient-attention calls beside
-   it; (c) one family with a
+   it; the starts kernel (``ucv_starts``), which formed each width's
+   search inputs in one launch, held to its plain version on the score's
+   own device tensors (starts at :data:`STARTS_RTOL`, rows, mask, counts
+   and ``ok`` exactly) for (b)'s families and bench.py's 15 (50 problems
+   a launch), and timed on the latter beside its plain version and its
+   bound; (c) one family with a
    user-defined selector (a scaled covariance); (d) ``KDE(vars,
    UCV()).fit`` (a search-kernel launch) and its ``logl`` through the KDE
    kernel; (e) ``UCVScorer`` on the float32 frame, one pair-sums launch a
@@ -246,8 +251,8 @@ set to 0 just before it and read just after. A JSON object with each kernel's la
 on those paths, its error against its plain version, its times, its plain
 version's time, its bound and its library yardstick's time (``library_ms``:
 the efficient-attention calls of phases 2, 5 and 9, a ``torch.einsum`` of
-the LG kernel's Gram stage; none for the exp chain, the CV whitening and
-the fold sums) comes two lines before the
+the LG kernel's Gram stage; none for the exp chain, the CV whitening,
+the fold sums and the UCV starts) comes two lines before the
 last, then the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -292,6 +297,9 @@ KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
                    "pybnesian_tpu/kde/ucv.py:106 and :171 with "
                    "pybnesian_tpu/ops/nelder_mead.py:24 (XLA-fused, no "
                    "Pallas kernel)"),
+    "ucv_starts": ("pybnesian_tpu_torch/csrc/cv_whiten.cu",
+                   "pybnesian_tpu/learning/scores/likelihood.py:414-433 "
+                   "(host NumPy, no Pallas kernel)"),
 }
 PAIR_TOL = 1e-3       # max abs difference per test row, kernel vs plain
 SCORE_RTOL = 1e-4     # float32 kernel route vs float64 plain route
@@ -316,6 +324,9 @@ WHITEN_TOL = {        # the CV whitening, kernel vs plain, per output
     "lndiff": 1e-12,  # relative, float64 on both sides
     "lm_const": 2e-7,  # relative, one rounding of a float64 log
 }                     # neg, wte, no_ev, ok and every NaN: exactly
+STARTS_RTOL = 1e-12   # the UCV starts kernel's float64 starts vs its plain
+                      # version's (float64 sums in another order); its rows,
+                      # mask, counts and ok are copies, held exactly
 LG_RTOL = 2e-7        # the LG kernel vs its plain version run in float64 on
                       # the same float32 inputs: one float32 rounding of a
                       # float64 score, BIC or Gram entry
@@ -450,7 +461,7 @@ def config3b_data(n, seed, d=8):
 def counters():
     from pybnesian_tpu_torch.ops.ckde_cv_kernel import ckde_cv_pairs
     from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
-        ckde_cv_fold_reduce, ckde_cv_whiten)
+        ckde_cv_fold_reduce, ckde_cv_whiten, ucv_starts)
     from pybnesian_tpu_torch.ops.exp_chain import exp_chain
     from pybnesian_tpu_torch.ops.kde_kernel import kde_logl
     from pybnesian_tpu_torch.ops.lg_cv_kernel import lg_cv_stats
@@ -461,7 +472,8 @@ def counters():
             "exp_chain": exp_chain, "ucv_pair_sums": ucv_pair_sums_cuda,
             "ckde_cv_whiten": ckde_cv_whiten,
             "ckde_cv_fold_reduce": ckde_cv_fold_reduce,
-            "lg_cv_stats": lg_cv_stats, "ucv_search": ucv_search_cuda}
+            "lg_cv_stats": lg_cv_stats, "ucv_search": ucv_search_cuda,
+            "ucv_starts": ucv_starts}
 
 
 def reset_counts():
@@ -2976,6 +2988,82 @@ def ucv_search_check(torch, card, calls, device_ms, stamped):
     return result
 
 
+def starts_work(G, ntr, d):
+    """(exps, FP32 ops, bytes, FP64 ops) of one ucv_starts call of G
+    problems of d columns over ntr train rows a fold, as csrc/cv_whiten.cu
+    states its bound: per problem and train row its d cells, d null cells,
+    mask and index read (8d + 12 bytes) and its d floats and mask written
+    (4(d + 1)); 2d + 2 float64 operations for the mean and 2d + d(d + 1)
+    for the covariance."""
+    rows = float(G) * ntr
+    return (0.0, 0.0, rows * (8 * d + 12 + 4 * (d + 1)),
+            rows * (4 * d + 2 + d * (d + 1)))
+
+
+def ucv_starts_check(torch, card, engine, fams, label):
+    """The UCV starts kernel (``ucv_starts``) against its plain version on
+    the CV engine's own device tensors, one call per family width of
+    ``fams`` as the score makes it: the float64 starts within
+    :data:`STARTS_RTOL`, NaN in the same places, the rows, mask, counts and
+    ``ok`` exactly; timed beside the plain version (torch on the card) and
+    the bound when ``card`` is given. Returns each width's result, keyed by
+    the width."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ucv_starts, ucv_starts_reference)
+
+    pos, data, null_mask, tr_idx, tr_mask, _te, _tm = (
+        engine._device_cv_cache())
+    K, ntr = tr_idx.shape
+    by_d = {}
+    for v, ps in fams:
+        by_d.setdefault(len(ps) + 1, []).append((v, ps))
+    results = {}
+    for d, fs in sorted(by_d.items()):
+        cols = torch.tensor([[pos[c] for c in (v, *ps)] for v, ps in fs],
+                            dtype=torch.int64, device=data.device)
+        args = (data, null_mask, cols, tr_idx, tr_mask)
+        got = ucv_starts(*args)
+        want = ucv_starts_reference(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g, w in zip(("X", "valid", "Ns", "starts", "ok"), got,
+                              want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(
+                    f"{label} d {d} {name}: {g.dtype} {tuple(g.shape)} "
+                    f"against {w.dtype} {tuple(w.shape)}")
+            if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                raise AssertionError(f"{label} d {d} {name}: NaN in other "
+                                     "places")
+            if name == "starts":
+                try:
+                    torch.testing.assert_close(g, w, rtol=STARTS_RTOL,
+                                               atol=1e-15, equal_nan=True)
+                except AssertionError as e:
+                    raise AssertionError(f"{label} d {d} starts: {e}") from None
+                diff = (g - w).abs()
+                diff = diff[torch.isfinite(diff)]
+                if diff.numel():
+                    err = max(err, float(diff.max()))
+            elif not torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)):
+                raise AssertionError(f"{label} d {d} {name}: not the plain "
+                                     "version's bits")
+        fields = {"case": label, "F_K_ntr_d": f"{len(fs)}x{K}x{ntr}x{d}",
+                  "starts_max_abs_err": f"{err:.3e}",
+                  "problems_ok": f"{int(got[4].sum())}/{len(fs) * K}"}
+        result = {"err": err}
+        if card is not None:
+            result.update(
+                time_kernel(torch, lambda: ucv_starts(*args)),
+                plain_ms=cuda_median_ms(
+                    torch, lambda: ucv_starts_reference(*args)),
+                work=starts_work(len(fs) * K, ntr, d))
+            fields.update(timing_fields(card, result))
+        say("9 ucv kernel", kernel="ucv_starts", **fields)
+        results[d] = result
+    return results
+
+
 def phase_ucv(torch, frame32, frame64, k, card, stamped):
     """UCV and custom bandwidth selectors on the card. Returns the
     launches of its path — the entry points of (b) in float32, (c), (d)
@@ -3014,21 +3102,26 @@ def phase_ucv(torch, frame32, frame64, k, card, stamped):
             searched = rec
     launches_b = counted["f32"]
     for name in ("ckde_cv_pairs", "ucv_search", "ckde_cv_whiten",
-                 "ckde_cv_fold_reduce"):
+                 "ckde_cv_fold_reduce", "ucv_starts"):
         if launches_b[name] == 0:
             raise AssertionError(f"the UCV-selected families did not launch "
                                  f"{name}")
     # one launch of the search kernel per family width, each run with the
-    # sync debug mode at "error" (SearchRecording): no device read inside
+    # sync debug mode at "error" (SearchRecording): no device read inside;
+    # and one of the starts kernel per width, which formed its inputs
     widths = len({len(ps) for _v, ps in fams})
     if not launches_b["ucv_search"] == len(searched.calls) == widths:
         raise AssertionError(f"ucv_search launched {launches_b['ucv_search']}"
                              f" times ({len(searched.calls)} recorded) for "
                              f"{widths} family widths")
+    if launches_b["ucv_starts"] != widths:
+        raise AssertionError(f"ucv_starts launched {launches_b['ucv_starts']}"
+                             f" times for {widths} family widths")
     if launches_b["ucv_pair_sums"] != 0:
         raise AssertionError("the float32 searches launched the pair-sums "
                              "kernel outside the search kernel")
-    if counted["f64"]["ucv_search"] or counted["f64"]["ucv_pair_sums"]:
+    if (counted["f64"]["ucv_search"] or counted["f64"]["ucv_pair_sums"]
+            or counted["f64"]["ucv_starts"]):
         raise AssertionError("the float64 searches launched a UCV kernel")
     say("9 ucv", path="CVLikelihood+UCV", searches_f32=len(searched.calls),
         ucv_search_launches=launches_b["ucv_search"],
@@ -3110,6 +3203,14 @@ def phase_ucv(torch, frame32, frame64, k, card, stamped):
             torch, reduce_inputs(torch, parts), "ucv-cv-families",
             phase="9 ucv kernel")["err"],
     }
+    # the starts kernel on (b)'s families, then timed on the benchmark's
+    # (bench.py's 15 families: 5 a width, 50 problems a launch)
+    engine = scores["f32"]._engine
+    checked = ucv_starts_check(torch, None, engine, fams, "ucv-cv-families")
+    starts = ucv_starts_check(torch, card, engine, families(len(names)),
+                              "kde5-15-families")
+    errs["ucv_starts"] = max(r["err"] for r in [*checked.values(),
+                                                *starts.values()])
     ucv = ucv_kernel_check(torch, card, visits)
     search = ucv_search_check(torch, card, searched.calls,
                               searched.device_ms(), stamped)
@@ -3200,7 +3301,7 @@ def phase_ucv(torch, frame32, frame64, k, card, stamped):
     say("9 ucv", path="UCVScorer float32", columns="1,2,3",
         max_rel_vs_f64=f"{rel:.3e}", launches=launches_e)
     return (add_counts(launches_b, launches_c, launches_d, launches_e), errs,
-            ucv, search)
+            ucv, search, starts[max(starts)])
 
 
 def discrete_data(n=DISCRETE_ROWS, d=DISCRETE_NODES, seed=0, fresh=0.3):
@@ -4797,7 +4898,7 @@ def main():
     })
     model_launches = phase_model_path(torch)
     hc_launches, hc_errs, lg = phase_hc(torch, card)
-    ucv_launches, ucv_errs, ucv, ucv_search = phase_ucv(
+    ucv_launches, ucv_errs, ucv, ucv_search, ucv_starts = phase_ucv(
         torch, frame32, frame64, k, card, stamped)
     phase_discrete(torch)
     t_new = time.perf_counter()
@@ -4817,7 +4918,8 @@ def main():
              "independence": independence_launches,
              "parallel": parallel_launches}
     for name in ("ckde_cv_pairs", "kde_logl", "ucv_pair_sums",
-                 "ckde_cv_whiten", "ckde_cv_fold_reduce", "ucv_search"):
+                 "ckde_cv_whiten", "ckde_cv_fold_reduce", "ucv_search",
+                 "ucv_starts"):
         if ucv_launches[name] == 0:
             raise AssertionError(f"the UCV path did not launch {name}")
     # every launch of paths 11-14 and 16 was held at its shape
@@ -4839,7 +4941,9 @@ def main():
                    "ckde_cv_fold_reduce", reduce["err"])),
                "lg_cv_stats": dict(lg, err=worst("lg_cv_stats", lg["err"],
                                                  lg_cv_err)),
-               "ucv_search": ucv_search}
+               "ucv_search": ucv_search,
+               "ucv_starts": dict(ucv_starts, err=worst("ucv_starts",
+                                                        ucv_starts["err"]))}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {p: counts[name] for p, counts in paths.items()
@@ -4858,7 +4962,7 @@ def main():
             # one efficient-attention call (#2) or two (#1, the UCV sums):
             # their logsumexp output; one torch.einsum of the LG kernel's
             # Gram stage; nothing computes the exp chain, the CV whitening,
-            # the fold sums or the UCV search
+            # the fold sums, the UCV search or its starts
             "library_ms": result.get("library_ms"),
         })
     say("all phases", wall_s=f"{time.perf_counter() - t_start:.1f}")

@@ -31,11 +31,31 @@
 //
 // with rows[g, i] taken as 0 where wte[g, i] is 0, in float64, rounded once.
 //
+// 3. ucv_starts_f32 forms the inputs of the UCV bandwidth searches of a
+// CV score (ucv_pairs.cu's ucv_search_f32) for B = F * K problems of one
+// width d, the columns given variable first, one thread-block cluster per
+// problem g = f * K + k as in 1, from the same gather, leaves and sums:
+//
+//   n       = sum_r w_r,  S = sum_r xc_r xc_r^T  (as in 1, every cm 1)
+//   start   = vech(chol(k_nr(n, d) * S / (n - 1)))   float64, column by
+//             column of the lower triangle; NaN unless ok
+//   ok      = n > d and every pivot positive
+//   X[g]    = the rows with w_r > 0 in fold order, then zeros: (ntr, d)
+//   valid   = 1 on those rows, 0 after;  Ns[g] = n
+//
+// the normal-reference start of the search and its padded rows, which the
+// host formed with a gather, np.cov and np.linalg.cholesky per problem.
+// The rows are copies of the data's float32 cells, so the block is the
+// bits the host packed. A NaN start makes its search lane end after its
+// first phase.
+//
 // Bound: bytes. The whitening writes (ntr + nte) * (dpad + 2) floats per
 // program and reads each data cell it needs from L2 (the data of a CV call
 // is a few hundred KB); its float64 work is ~3 d^2 operations a row. The
-// reduce reads two floats per test row. PERF.md has the measured times
-// against that bound.
+// reduce reads two floats per test row. The UCV starts read each train
+// row's d cells, d null cells, mask and index (from L2, as the whitening's)
+// and write its d + 1 floats: (8 d + 12) ntr bytes a problem read, 4 (d +
+// 1) ntr written. PERF.md has the measured times against that bound.
 //
 // Design of the whitening:
 //
@@ -81,6 +101,21 @@
 //   a NaN cell of a row reaches every column of it there too.
 // - An out-of-range row or column index reads NaN; nothing is read out of
 //   bounds.
+//
+// Design of the UCV starts. A kernel of its own beside the whitening, which
+// every CV score runs: its outputs (raw compacted rows, the factor in the
+// variable-first order) have no place there. It shares the whitening's
+// device functions and structure:
+//
+// - The same fixed leaves, cluster, cp.async gather (walk_rows), block and
+//   leaf sums and warp-0 Cholesky (factor_warp), so a problem's start is
+//   the same bits alone and in any batch, at every S.
+// - Compaction in fold order: pass 1's per-leaf counts of valid rows give
+//   each leaf its first output row; within a leaf, each step's 256 rows
+//   take their places by a block scan (a ballot per warp, the warps'
+//   counts in order).
+// - The padding (rows n .. ntr - 1 of X, the mask) is split over the
+//   cluster's ranks; the start, ok and Ns are written by rank 0.
 //
 // Design of the fold reduce. Its work is two loads and a float64 fma chain
 // per test row, so its time is the latency of the loads and of the block's
@@ -772,6 +807,235 @@ __global__ void __launch_bounds__(kThreads)
   if (split > 1) cluster_wait();  // no block leaves while another reads it
 }
 
+// What ucv_starts_kernel writes; it reads the WhitenArgs' data, null_mask,
+// col_idx (G / K families of D columns, the variable first), tr_idx,
+// tr_mask, n, D, K, ntr and its launch plan (split, cap, resident).
+struct StartsOut {
+  float* X;        // (G, ntr, D) the valid train rows in fold order, zeros
+  float* valid;    // (G, ntr) 1 on those rows, 0 after
+  float* Ns;       // (G,) the valid rows
+  double* starts;  // (G, D (D + 1) / 2) vech of the start's factor, or NaN
+  float* ok;       // (G,) 1: more than D valid rows and a positive factor
+};
+
+// Grid G * split, clusters of `split` blocks along x, as whiten_kernel's:
+// its passes 1 and 2 with every column mask 1, the normal-reference factor,
+// then the compacted rows.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    ucv_starts_kernel(const WhitenArgs a, const StartsOut o) {
+  constexpr int P = D * (D + 1) / 2;  // lower-triangle covariance entries
+  constexpr int C = P < kMaxSums ? P : kMaxSums;  // entries per pass
+  constexpr int M = D + 2;  // mean sums: the columns, n_eff, valid rows
+  constexpr int T = P > M ? P : M;
+  constexpr int ST = stages_for(D);
+  __shared__ double s_red[kWarps][kMaxSums];
+  __shared__ double s_sum[kMaxSums];
+  __shared__ double s_lmean[kMaxLeaves * M];  // this rank's leaves' sums
+  __shared__ double s_lcov[kMaxLeaves * P];
+  __shared__ double s_tot[T];                 // the program's merged sums
+  __shared__ double s_L[D][D];     // H, then its Cholesky factor in place
+  __shared__ double s_Linv[D][D];
+  __shared__ double s_lndiff;
+  __shared__ int s_first[kMaxLeaves];  // first output row of each leaf of
+                                       // the rank's
+  __shared__ int s_warp[kWarps];       // a step's valid rows by warp
+  __shared__ Family<D> fam;
+  extern __shared__ __align__(16) unsigned char s_stage[];
+
+  const int split = a.split;
+  const int g = blockIdx.x / split, rank = blockIdx.x % split;
+  const int f = g / a.K, k = g % a.K;
+  if (threadIdx.x < D) {
+    const int c = threadIdx.x;
+    const long long ci = a.col_idx[static_cast<size_t>(f) * D + c];
+    fam.col[c] = ci >= 0 && ci < a.D ? ci : -1;
+    fam.cm[c] = 1.0;
+    // factor_warp's lndiff is then -log L_00 - log(2 pi) / 2: NaN exactly
+    // when the factor failed
+    fam.vsel[c] = c == 0 ? 1.0 : 0.0;
+  }
+  __syncthreads();
+  Stage<D> st;
+  st.cap = a.cap;
+  st.w = reinterpret_cast<double*>(s_stage);
+  st.x = reinterpret_cast<float*>(st.w + a.cap);
+  st.nl = st.x + D * a.cap;
+  st.m = st.nl + ST * D * kThreads;
+  st.out = st.m + ST * kThreads;
+
+  const long long* tr_idx = a.tr_idx + static_cast<size_t>(k) * a.ntr;
+  const float* tr_mask = a.tr_mask + static_cast<size_t>(k) * a.ntr;
+  const int leaves = whiten_leaves(a.ntr);
+  const int size = (a.ntr + leaves - 1) / leaves;
+  const int l0 = first_leaf(rank, leaves, split);
+  const int l1 = first_leaf(rank + 1, leaves, split);
+  const Leaves train{0, a.ntr, size, l0, l1};
+  const int base = a.resident ? min(a.ntr, l0 * size) : -1;
+
+  // pass 1: per leaf, the column sums, n_eff and the count of valid rows;
+  // the rows are gathered
+  {
+    double m[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) m[i] = 0.0;
+    walk_rows(a, fam, st, tr_idx, tr_mask, train, base, true,
+              [&](const Cursor& c, bool active, auto& x, double w) {
+                if (active) {
+#pragma unroll
+                  for (int q = 0; q < D; ++q) m[q] = fma(x[q], w, m[q]);
+                  m[D] = __dadd_rn(m[D], w);
+                  m[D + 1] += w > 0.0 ? 1.0 : 0.0;
+                }
+                if (c.last()) {
+                  block_sum(m, s_red, s_sum);
+                  if (threadIdx.x < M) {
+                    s_lmean[(c.leaf - l0) * M + threadIdx.x] =
+                        s_sum[threadIdx.x];
+                  }
+#pragma unroll
+                  for (int i = 0; i < M; ++i) m[i] = 0.0;
+                }
+              });
+  }
+  cluster_sync(split);  // every leaf's sums are in place
+  if (threadIdx.x < M) {
+    s_tot[threadIdx.x] = merge_leaves(s_lmean, M, threadIdx.x, leaves, split);
+  }
+  if (threadIdx.x == 32) {
+    // the valid rows of the leaves before each of the rank's leaves
+    double before = 0.0;
+    for (int l = 0; l < l1; ++l) {
+      if (l >= l0) s_first[l - l0] = static_cast<int>(before);
+      const int owner = leaf_owner(l, leaves, split);
+      const double* part = s_lmean;
+      if (split > 1) part = cg::this_cluster().map_shared_rank(part, owner);
+      before += part[(l - first_leaf(owner, leaves, split)) * M + D + 1];
+    }
+  }
+  __syncthreads();
+  const double n_eff = s_tot[D];
+  const double n_valid = s_tot[D + 1];
+  if (threadIdx.x < D) {
+    fam.mean[threadIdx.x] = __ddiv_rn(s_tot[threadIdx.x], n_eff);
+  }
+  __syncthreads();
+
+  // pass 2: per leaf, the centred covariance, C entries (i, j), j <= i, per
+  // sweep of the rank's rows
+#pragma unroll
+  for (int p0 = 0; p0 < P; p0 += C) {
+    double acc[C];
+#pragma unroll
+    for (int e = 0; e < C; ++e) acc[e] = 0.0;
+    walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
+              [&](const Cursor& c, bool active, auto& x, double w) {
+                if (active) {
+#pragma unroll
+                  for (int q = 0; q < D; ++q) {
+                    x[q] = __dmul_rn(__dsub_rn(x[q], fam.mean[q]), w);
+                  }
+#pragma unroll
+                  for (int i = 0; i < D; ++i) {
+#pragma unroll
+                    for (int j = 0; j <= i; ++j) {
+                      const int p = i * (i + 1) / 2 + j;
+                      if (p >= p0 && p < p0 + C) {
+                        acc[p - p0] = fma(x[i], x[j], acc[p - p0]);
+                      }
+                    }
+                  }
+                }
+                if (c.last()) {
+                  block_sum(acc, s_red, s_sum);
+                  if (threadIdx.x < C && p0 + static_cast<int>(threadIdx.x) < P) {
+                    s_lcov[(c.leaf - l0) * P + p0 + threadIdx.x] =
+                        s_sum[threadIdx.x];
+                  }
+#pragma unroll
+                  for (int e = 0; e < C; ++e) acc[e] = 0.0;
+                }
+              });
+  }
+  cluster_sync(split);  // every leaf's covariance sums are in place
+  if (threadIdx.x < P) {
+    s_tot[threadIdx.x] = merge_leaves(s_lcov, P, threadIdx.x, leaves, split);
+  }
+  if (split > 1) cluster_arrive();  // done reading the cluster's sums
+  __syncthreads();
+  if (threadIdx.x < P) {
+    const int e = threadIdx.x;
+    int i = 0;
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    const int j = e - i * (i + 1) / 2;
+    const double factor = pow(4.0 / (n_eff * (D + 2.0)), 2.0 / (D + 4.0));
+    const double h = __dmul_rn(factor, __ddiv_rn(s_tot[e], n_eff - 1.0));
+    s_L[i][j] = h;
+    s_L[j][i] = h;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) factor_warp(s_L, s_Linv, fam, &s_lndiff);
+  __syncthreads();
+
+  // the valid rows, compacted: step by step, each leaf from its first
+  // output row
+  const size_t row0 = static_cast<size_t>(g) * a.ntr;
+  int run = 0;  // output rows the leaf's earlier steps took
+  walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
+            [&](const Cursor& c, bool active, auto& x, double w) {
+              const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+              const bool keep = active && w > 0.0;
+              const unsigned votes = __ballot_sync(0xffffffffu, keep);
+              if (lane == 0) s_warp[warp] = __popc(votes);
+              __syncthreads();
+              if (c.j == 0) run = s_first[c.leaf - l0];
+              int at = run + __popc(votes & ((1u << lane) - 1u));
+              int step = 0;
+#pragma unroll
+              for (int q = 0; q < kWarps; ++q) {
+                if (q < warp) at += s_warp[q];
+                step += s_warp[q];
+              }
+              if (keep) {
+                float* dst = o.X + (row0 + at) * D;
+#pragma unroll
+                for (int q = 0; q < D; ++q) dst[q] = static_cast<float>(x[q]);
+              }
+              run += step;
+              __syncthreads();  // s_warp is read before the next step
+            });
+
+  // the rank's share of the mask and of the zero rows after the valid ones
+  const int nv = static_cast<int>(n_valid);
+  const int per = (a.ntr + split - 1) / split;
+  const int lo = min(a.ntr, rank * per), hi = min(a.ntr, lo + per);
+  for (int r = lo + threadIdx.x; r < hi; r += kThreads) {
+    o.valid[row0 + r] = r < nv ? 1.0f : 0.0f;
+  }
+  for (size_t e = (row0 + max(lo, nv)) * D + threadIdx.x;
+       e < (row0 + hi) * D; e += kThreads) {
+    o.X[e] = 0.0f;
+  }
+  if (rank == 0) {
+    const bool good = n_eff > D && !isnan(s_lndiff);
+    if (threadIdx.x < P) {
+      // vech: the lower triangle column by column
+      int j = 0, e = threadIdx.x;
+      while (e >= D - j) {
+        e -= D - j;
+        ++j;
+      }
+      o.starts[static_cast<size_t>(g) * P + threadIdx.x] =
+          good ? s_L[j + e][j] : qnan();
+    }
+    if (threadIdx.x == 0) {
+      o.ok[g] = good ? 1.0f : 0.0f;
+      o.Ns[g] = static_cast<float>(n_valid);
+    }
+  }
+  if (split > 1) cluster_wait();  // no block leaves while another reads it
+}
+
 // A thread-block cluster of `split` blocks per family f: rank q sums the
 // folds k = q, q + split, q + 2 split, ... in rounds of NF side by side,
 // round r taking folds [r NF split, (r + 1) NF split). For each fold of
@@ -923,6 +1187,31 @@ cudaError_t launch_whiten(WhitenArgs a, int G, cudaStream_t s) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_starts(WhitenArgs a, const StartsOut& o, int G,
+                          cudaStream_t s) {
+  plan_stage(a, D);
+  const size_t bytes = stage_bytes(D, a.cap);
+  const cudaError_t set = cudaFuncSetAttribute(
+      ucv_starts_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G * a.split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = a.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, ucv_starts_kernel<D>, a, o);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t) without synchronising and returns
@@ -976,6 +1265,68 @@ extern "C" int ckde_cv_whiten_f32(
     WHITEN_CASE(15)
     WHITEN_CASE(16)
 #undef WHITEN_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches on `stream` without synchronising and returns the launch's CUDA
+// error code. Allocates nothing. data and null_mask (n, D) float32, col_idx
+// (F, d) int64 (each family's columns, the variable first), tr_idx (K, ntr)
+// int64, tr_mask (K, ntr) float32; outputs for G = F * K problems: X (G,
+// ntr, d), valid (G, ntr), Ns (G,), ok (G,) float32, starts (G, d (d + 1)
+// / 2) float64. 1 <= d <= 16, K >= 1, n, D, ntr >= 0, and the launch plan:
+// `split` S, a power of two up to 8 with 1 <= G * S < 2^31, as the
+// whitening's; anything else returns cudaErrorInvalidValue. The outputs are
+// the same bits at every S.
+extern "C" int ucv_starts_f32(const float* data, const float* null_mask,
+                              const long long* col_idx,
+                              const long long* tr_idx, const float* tr_mask,
+                              float* X, float* valid, float* Ns,
+                              double* starts, float* ok, int n, int D, int F,
+                              int K, int ntr, int d, int split,
+                              void* stream) {
+  const long long G = static_cast<long long>(F) * K;
+  if (F < 1 || K < 1 || split < 1 || split > kMaxSplit ||
+      (split & (split - 1)) != 0 || G * split >= (1LL << 31) || d < 1 ||
+      d > kMaxD || n < 0 || D < 0 || ntr < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WhitenArgs a{};
+  a.data = data;
+  a.null_mask = null_mask;
+  a.col_idx = col_idx;
+  a.tr_idx = tr_idx;
+  a.tr_mask = tr_mask;
+  a.n = n;
+  a.D = D;
+  a.K = K;
+  a.ntr = ntr;
+  a.split = split;
+  const StartsOut o{X, valid, Ns, starts, ok};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(G);
+  switch (d) {
+#define STARTS_CASE(DP) \
+  case DP:              \
+    return static_cast<int>(launch_starts<DP>(a, o, g, s));
+    STARTS_CASE(1)
+    STARTS_CASE(2)
+    STARTS_CASE(3)
+    STARTS_CASE(4)
+    STARTS_CASE(5)
+    STARTS_CASE(6)
+    STARTS_CASE(7)
+    STARTS_CASE(8)
+    STARTS_CASE(9)
+    STARTS_CASE(10)
+    STARTS_CASE(11)
+    STARTS_CASE(12)
+    STARTS_CASE(13)
+    STARTS_CASE(14)
+    STARTS_CASE(15)
+    STARTS_CASE(16)
+#undef STARTS_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -110,37 +110,49 @@ class UCVSearch(NamedTuple):
     of each problem, ``evaluations`` the batched objective calls (each
     evaluates all B problems), ``dtype`` the name of the search's dtype,
     ``lane_evaluations`` the (B,) evaluations each problem's own search
-    needed."""
+    needed, ``x0`` the host float64 (B, nv) starts it began from (read
+    back with the result where they were on the device)."""
 
     x: np.ndarray
     iterations: np.ndarray
     evaluations: int
     dtype: str
     lane_evaluations: np.ndarray
+    x0: np.ndarray
 
 
 def _minimize(X, valid, Ns, starts, d: int, diagonal: bool) -> UCVSearch:
     """B UCV searches at once, on the tensors' device and in their dtype.
     X: (B, N, d) training rows; valid: (B, N) 1.0 on real rows, or None
-    when every row is real; Ns: (B,) row counts; starts: the host float64
-    (B, nv) starts — vech(chol(H_start)), or with ``diagonal`` the d square
-    roots of a diagonal start. A bad point (determinant or score off the
-    guard rails, NaN) scores ``f_start + 1e-7``.
+    when every row is real; Ns: (B,) row counts; starts: the float64 (B, nv)
+    starts — vech(chol(H_start)), or with ``diagonal`` the d square roots of
+    a diagonal start — as a host array, or as a tensor on X's device (read
+    back with the result). A bad point (determinant or score off the guard
+    rails, NaN) scores ``f_start + 1e-7``.
 
     Routed by :func:`~..ops.kde.kernel_route`: a float32 search on a GPU is
     one launch of the search kernel (:func:`~..ops.ucv_search_kernel.
     ucv_search_cuda`), every other search the plain host loop
     (:func:`~..ops.ucv_search_kernel.ucv_search_reference`). Either way the
     host reads the result once, after the search."""
-    starts = np.asarray(starts, np.float64)
-    x0s = torch.as_tensor(starts, dtype=X.dtype, device=X.device)
+    parts = []
+    if isinstance(starts, torch.Tensor):
+        x0s = starts.to(X.dtype)
+        parts.append(starts.reshape(-1).double())
+    else:
+        starts = np.asarray(starts, np.float64)
+        x0s = torch.as_tensor(starts, dtype=X.dtype, device=X.device)
     B, nv = x0s.shape
     search = ucv_search_cuda if kernel_route(X) else ucv_search_reference
     res = search(X, valid, Ns, x0s, d, diagonal, 200 * nv)
     host = torch.cat([res.x.reshape(-1).double(), res.f.double(),
                       res.start.double(), res.iterations.double(),
                       res.lane_evaluations.double(),
-                      res.evaluations.reshape(1).double()]).cpu().numpy()
+                      res.evaluations.reshape(1).double(),
+                      *parts]).cpu().numpy()
+    if parts:
+        starts = host[-B * nv:].reshape(B, nv)
+        host = host[: -B * nv]
     x = host[: B * nv].reshape(B, nv).copy()
     f, ss = host[B * nv: B * nv + B], host[B * nv + B: B * nv + 2 * B]
     # a search that did not improve on its start (a float32 plateau) keeps
@@ -149,7 +161,7 @@ def _minimize(X, valid, Ns, starts, d: int, diagonal: bool) -> UCVSearch:
     x[worse] = starts[worse]
     counts = host[B * nv + 2 * B: -1].astype(np.int32)
     return UCVSearch(x, counts[:B], int(host[-1]),
-                     str(X.dtype).replace("torch.", ""), counts[B:])
+                     str(X.dtype).replace("torch.", ""), counts[B:], starts)
 
 
 def _device_minimize(scorer: UCVScorer, x0, diagonal: bool) -> UCVSearch:

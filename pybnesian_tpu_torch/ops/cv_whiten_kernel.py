@@ -1,5 +1,6 @@
 """Stages 1 and 3 of the CV-CKDE score: the per-(family, fold) whitening
-before the pairs kernel, and the per-fold sums after it.
+before the pairs kernel, and the per-fold sums after it; and the inputs of
+the UCV bandwidth searches of a CV score, from the same gather and sums.
 
 Replaces ``ckde_cv_whitened_parts`` and ``_flash_reduce`` of
 ``pybnesian_tpu/ops/kde.py``, which the JAX package runs as jitted XLA (no
@@ -15,6 +16,12 @@ Pallas kernel). What lives here:
   plain version for CPU tensors, the CUDA kernels ``ckde_cv_whiten_f32``
   and ``ckde_cv_fold_reduce_f32`` (``pybnesian_tpu_torch/csrc/cv_whiten.cu``)
   for CUDA tensors, with launch counters ``.launches``;
+- :func:`ucv_starts` and its plain version :func:`ucv_starts_reference`:
+  per (family, fold) the normal-reference start vech(chol(H)) of the UCV
+  search and the fold's valid train rows, compacted, for the search kernel
+  (``ucv_starts_f32``, in the same source; replaces the host's gather,
+  ``np.cov`` and ``np.linalg.cholesky`` per problem, which the JAX package
+  also runs on the host, ``pybnesian_tpu/learning/scores/likelihood.py``);
 - :func:`whiten_leaves` and :func:`_launch_plan`, the whitening's fixed
   leaves of a program's train rows and the cluster size S that spreads
   them over a thread-block cluster; :func:`_reduce_plan`, the cluster size
@@ -22,14 +29,15 @@ Pallas kernel). What lives here:
 - the ctypes binding of those kernels (built at first use by
   :mod:`.cuda_build`).
 
-Both kernels sum in float64 in an order fixed by the shapes (ntr, nte, K)
-alone, no atomics: the whitening over :func:`whiten_leaves` leaves of
+The kernels sum in float64 in an order fixed by the shapes (ntr, nte, K)
+alone, no atomics: the whitening and the UCV starts over
+:func:`whiten_leaves` leaves of
 fixed row strides per thread, a fixed tree over the block and a balanced
 tree over the leaves, whichever of the S blocks of its cluster sweeps a
 leaf; the fold sums each fold in one block's fixed order and tree and the
 folds in order, whichever of the S blocks of its family's cluster sums a
-fold. So a family's whitened rows and CV score are the same bits alone and
-in any batch, at every S, and, since
+fold. So a family's whitened rows, CV score and UCV starts are the same
+bits alone and in any batch, at every S, and, since
 every sum is a column's or an entry's own, whatever the batch's widest
 family. The torch reductions of the plain version choose their order by
 shape and device.
@@ -53,6 +61,8 @@ __all__ = [
     "ckde_cv_whitened_parts",
     "ckde_cv_fold_reduce",
     "ckde_cv_fold_reduce_reference",
+    "ucv_starts",
+    "ucv_starts_reference",
     "whiten_leaves",
     "MAX_DPAD",
 ]
@@ -423,11 +433,134 @@ def ckde_cv_fold_reduce(out, wte, lndiff, ok, *, split=None):
 ckde_cv_fold_reduce.launches = 0
 
 
+def ucv_starts_reference(data, null_mask, col_idx, tr_idx, tr_mask):
+    """Plain torch version of :func:`ucv_starts`, same arguments and
+    result, on any device and dtype. A row of a fold counts when its mask
+    is 1 and no column of the family is null there; from the n rows that
+    count, in float64: S = Σ (x − mean)(x − mean)ᵀ and the start
+    vech(chol(k·S/(n − 1))), k = (4/(n(d + 2)))^(2/(d + 4)) the normal
+    reference's factor, NaN where ``ok`` is 0."""
+    f64 = torch.float64
+    F, d = col_idx.shape
+    K, ntr = tr_idx.shape
+    fam = data.to(f64)[:, col_idx].permute(1, 0, 2)             # (F, n, d)
+    fvalid = 1.0 - torch.amax(null_mask.to(f64)[:, col_idx], dim=2).T
+    w = tr_mask.to(f64)[None] * fvalid[:, tr_idx]               # (F, K, ntr)
+    x = fam[:, tr_idx]                                          # (F, K, ntr, d)
+    n = torch.sum(w, dim=2)
+    mean = torch.sum(x * w[..., None], dim=2) / n[..., None]
+    xc = (x - mean[:, :, None]) * w[..., None]
+    cov = xc.mT @ xc / (n - 1.0)[..., None, None]
+    k = (4.0 / (n * (d + 2.0))) ** (2.0 / (d + 4.0))
+    L = cholesky_or_nan(k[..., None, None] * cov)
+    ok = (n > d) & ~torch.isnan(L[..., 0, 0])
+    rows = [i for j in range(d) for i in range(j, d)]
+    cols = [j for j in range(d) for _ in range(j, d)]
+    starts = torch.where(ok[..., None], L[..., rows, cols], math.nan)
+    # the rows that count first, each part in fold order
+    keep = w > 0
+    order = torch.argsort((~keep).to(torch.uint8), dim=2, stable=True)
+    kept = torch.take_along_dim(keep, order, dim=2)
+    X = torch.where(kept[..., None],
+                    torch.take_along_dim(x, order[..., None], dim=2), 0.0)
+    G = F * K
+    dtype = data.dtype
+    return (X.reshape(G, ntr, d).to(dtype), kept.reshape(G, ntr).to(dtype),
+            torch.sum(keep, dim=2).reshape(G).to(dtype),
+            starts.reshape(G, len(rows)), ok.reshape(G).to(dtype))
+
+
+def ucv_starts(data, null_mask, col_idx, tr_idx, tr_mask, *, split=None):
+    """The inputs of the UCV bandwidth searches of F families × K folds of
+    one width d, ``(X, valid, Ns, starts, ok)`` for B = F·K problems b = f·K
+    + k: X (B, ntr, d) the fold's train rows that count (mask 1, no column
+    of the family null), in fold order, then zero rows; valid (B, ntr) 1 on
+    those rows, 0 after; Ns (B,) their count; starts (B, d(d + 1)/2)
+    float64, vech of the Cholesky factor of the rows' normal-reference
+    bandwidth (:func:`ucv_starts_reference`); ok (B,) 1 where the problem
+    has more than d rows and that factor exists, else 0 and the start NaN
+    (a search lane from a NaN start ends after its first phase).
+
+    data (n, D) values (nulls zeroed) and null_mask (n, D) 1.0 where null,
+    in one float dtype; col_idx (F, d) int64, each family's columns with
+    the variable FIRST (the search's order); tr_idx (K, ntr) int64 and
+    tr_mask (K, ntr) the folds' train rows; all contiguous and on one
+    device, 1 ≤ d ≤ :data:`MAX_DPAD`.
+
+    CPU tensors and float64 take :func:`ucv_starts_reference`. Float32 CUDA
+    tensors launch the kernel ``ucv_starts_f32``, counted in
+    ``ucv_starts.launches``, or raise; its cluster size is ``split`` (1,
+    2, 4 or 8) when given, else the whitening's :func:`_launch_plan`, and
+    gives the same bits either way. The rows are copies of the data's
+    cells, so X is the same bits by either route."""
+    if not isinstance(col_idx, torch.Tensor) or col_idx.dim() != 2:
+        raise ValueError("col_idx must be an (F, d) torch.Tensor")
+    if not isinstance(tr_idx, torch.Tensor) or tr_idx.dim() != 2:
+        raise ValueError("tr_idx must be a (K, ntr) torch.Tensor")
+    if not isinstance(data, torch.Tensor) or data.dim() != 2:
+        raise ValueError("data must be an (n, D) torch.Tensor")
+    if data.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"data must be float32 or float64, got {data.dtype}")
+    n, D = data.shape
+    F, d = col_idx.shape
+    K, ntr = tr_idx.shape
+    _check({"data": data, "null_mask": null_mask, "col_idx": col_idx,
+            "tr_idx": tr_idx, "tr_mask": tr_mask},
+           {"data": data.dtype, "null_mask": data.dtype,
+            "col_idx": torch.int64, "tr_idx": torch.int64,
+            "tr_mask": data.dtype},
+           {"data": (n, D), "null_mask": (n, D), "col_idx": (F, d),
+            "tr_idx": (K, ntr), "tr_mask": (K, ntr)}, data.device)
+    if not 1 <= d <= MAX_DPAD:
+        raise ValueError(f"d {d} outside 1..{MAX_DPAD}")
+    if split is not None:
+        _check_split(split)
+    if data.device.type == "cpu" or data.dtype == torch.float64:
+        return ucv_starts_reference(data, null_mask, col_idx, tr_idx,
+                                    tr_mask)
+    if data.device.type != "cuda":
+        raise ValueError(f"no ucv_starts kernel for {data.device}")
+    G = F * K
+    device = data.device
+    if split is None:
+        split = _launch_plan(G, ntr, d, _sm_count(device))
+    if G * split >= 2**31:
+        raise ValueError(f"{G} problems of {split} blocks exceed the grid's "
+                         "2**31 - 1")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    outs = (empty(G, ntr, d), empty(G, ntr), empty(G),
+            empty(G, d * (d + 1) // 2, dtype=torch.float64), empty(G))
+    if G == 0:
+        return outs
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _load_library().ucv_starts_f32(
+            data.data_ptr(), null_mask.data_ptr(), col_idx.data_ptr(),
+            tr_idx.data_ptr(), tr_mask.data_ptr(),
+            *(t.data_ptr() for t in outs), n, D, F, K, ntr, d, split, stream)
+    if err != 0:
+        raise RuntimeError(f"ucv_starts kernel launch failed (F {F}, K {K}, "
+                           f"d {d}, split {split}): CUDA error {err}")
+    ucv_starts.launches += 1
+    return outs
+
+
+ucv_starts.launches = 0
+
+
 @functools.cache
 def _load_library():
     lib = cuda_build.load("cv_whiten.cu")
     fn = lib.ckde_cv_whiten_f32
     fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.ucv_starts_f32
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int

@@ -34,7 +34,11 @@ profiler puts annotations on the device's timeline too. By layer:
   returned) and ``ucv.searches``, ``ucv.iterations``,
   ``ucv.lane_evaluations``, ``ucv.lane_pairs.d<width>`` (the UCV
   searches' problems, iterations, evaluations, and pairs of rows those
-  evaluations summed).
+  evaluations summed, of the families the searches gave bandwidths: a
+  family left out for a fold of no start is not counted),
+  ``ucv.device_starts`` and ``ucv.host_starts`` (the
+  problems whose starts and rows ``ucv_starts`` formed by its kernel, or
+  by its plain version).
 - models and factors (``models/base.py``, ``factors/ckde.py``,
   ``kde/kde.py``): ``pb.slogl`` (one ``slogl`` or ``logl``),
   ``pb.slogl.ckde.pack``, ``pb.slogl.ckde`` and inside it
@@ -80,6 +84,7 @@ _LAUNCH_COUNTERS = (
     ("ops.lg_cv_kernel", "lg_cv_stats"),
     ("ops.ucv_kernel", "ucv_pair_sums_cuda"),
     ("ops.ucv_search_kernel", "ucv_search_cuda"),
+    ("ops.cv_whiten_kernel", "ucv_starts"),
 )
 
 

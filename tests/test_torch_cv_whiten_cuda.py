@@ -551,3 +551,266 @@ def test_reduce_wrapper_rejects_a_split_the_kernel_does_not_take(cuda):
     for split in (0, 4, 9):
         with pytest.raises(ValueError, match="split"):
             ckde_cv_fold_reduce(*args, split=split)
+
+
+# ---------------------------------------------------------------- UCV starts
+#
+# ``ucv_starts`` (kernel ``ucv_starts_f32``) against its plain version and
+# against the host route it replaced in the CV score: the starts (float64)
+# within 1e-12 relative of the plain version's (1e-9 of the host's np.cov
+# and np.linalg.cholesky), the rows, mask, counts and ``ok`` exactly.
+
+STARTS = ("X", "valid", "Ns", "starts", "ok")
+
+
+def _starts_inputs(device, F=6, d=3, n=1001, K=3, null=0.1, seed=0):
+    """``ucv_starts``'s arguments: ``_inputs``'s data and folds, F families
+    of d distinct columns each, the variable first."""
+    data, nulls, _c, _m, tr_idx, tr_mask, _ti, _tm = _inputs(
+        device, F=1, djmax=d, n=n, K=K, null=null, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    cols = np.stack([rng.choice(data.shape[1], d, replace=False)
+                     for _ in range(F)])
+    return [data, nulls, torch.as_tensor(cols, device=device), tr_idx,
+            tr_mask]
+
+
+def _starts_check(args, **kw):
+    """Kernel against plain on ``args``; returns the kernel's outputs."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import (
+        ucv_starts, ucv_starts_reference)
+
+    before = ucv_starts.launches
+    got = ucv_starts(*args, **kw)
+    torch.cuda.synchronize()
+    assert ucv_starts.launches == before + 1
+    want = ucv_starts_reference(*args)
+    for name, g, w in zip(STARTS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "starts":
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-15,
+                                       equal_nan=True)
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+        else:
+            assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("null", [0.0, 0.1])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 16])
+def test_ucv_starts_against_the_plain_version(cuda, d, null):
+    got = _starts_check(_starts_inputs(cuda, d=d, null=null,
+                                       seed=200 + d))
+    assert torch.all(got[4] == 1)
+
+
+@pytest.mark.parametrize("ntr", [0, 1, 511, 512, 513, 9000])
+def test_ucv_starts_at_the_leaf_edges_at_every_split(cuda, ntr):
+    """The whitening's leaf edges: every S the same bits as S = 1, and the
+    plain version's outputs (a problem of at most d rows: ok 0, NaN
+    start)."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ucv_starts
+
+    a = _rows_inputs(cuda, ntr, 5, F=4, djmax=2, seed=ntr % 1000)
+    cols = torch.stack([a[2][:, 0], (a[2][:, 0] + 1) % a[0].shape[1]], 1)
+    args = [a[0], a[1], cols.contiguous(), a[4], a[5]]
+    first = _starts_check(args, split=1)
+    for split in SPLITS[1:]:
+        got = ucv_starts(*args, split=split)
+        for name, x, y in zip(STARTS, first, got):
+            assert torch.equal(torch.isnan(x), torch.isnan(y)), (split, name)
+            assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)), (
+                split, name)
+    if ntr <= 2:
+        assert torch.all(first[4] == 0) and torch.isnan(first[3]).all()
+
+
+def _kde5_frame(n=10_000, null=0.0, seed=5):
+    """bench.py's 5-column chain in float32 (x_i = sin(0.8 x_{i-1}) +
+    0.5 x_{i-1} + noise), ``null`` of the cells of x1 and x3 null."""
+    rng = np.random.default_rng(seed)
+    cols = {"x0": rng.normal(0, 1, n) + rng.normal(0, 0.6, n)}
+    for i in range(1, 5):
+        prev = cols[f"x{i - 1}"]
+        cols[f"x{i}"] = (np.sin(0.8 * prev) + 0.5 * prev
+                         + rng.normal(0, 0.6, n))
+    out = {}
+    for k, v in cols.items():
+        v = v.astype(np.float32)
+        if k in ("x1", "x3") and null:
+            v[rng.random(n) < null] = np.nan
+        out[k] = v
+    return out
+
+
+def _kde5_families(shift=1, d=5):
+    names = [f"x{i}" for i in range(d)]
+    fams = []
+    for i, v in enumerate(names):
+        fams += [(v, []), (v, [names[(i + shift) % d]]),
+                 (v, [names[(i + shift) % d], names[(i + shift + 1) % d]])]
+    return fams
+
+
+def _kde5_engine(device, null, k=10, seed=0):
+    """A CV engine over k folds of all rows of the kde5 frame, null rows
+    included, so each family drops its own."""
+    import pybnesian_tpu_torch as pt
+    from pybnesian_tpu_torch.learning.scores.likelihood import _KFoldEngine
+
+    cols = _kde5_frame(null=null)
+    n = len(cols["x0"])
+    rows = np.random.default_rng(seed).permutation(n)
+    folds = [(np.sort(np.setdiff1d(rows, te)), np.sort(te))
+             for te in np.array_split(rows, k)]
+    return _KFoldEngine(pt.DataFrame.wrap(cols), folds, device)
+
+
+def _host_starts(engine, fams):
+    """The host route the CV score took before: per family the folds'
+    train rows (``_fold_trains``) and vech(chol(k·np.cov)) per fold."""
+    from pybnesian_tpu_torch.kde.ucv import vech
+
+    out = []
+    for v, ps in fams:
+        dj = len(ps) + 1
+        trains = [t for _r, t in engine._fold_trains(v, ps)]
+        starts = []
+        for t in trains:
+            knr = (4.0 / (len(t) * (dj + 2.0))) ** (2.0 / (dj + 4.0))
+            starts.append(vech(np.linalg.cholesky(
+                knr * np.cov(t, rowvar=False, ddof=1).reshape(dj, dj))))
+        out.append((trains, np.array(starts)))
+    return out
+
+
+def _host_pack(entries):
+    """The host's float64 padded block of ``_host_starts``'s entries."""
+    rows = [t for trains, _s in entries for t in trains]
+    npad = max(len(t) for t in rows)
+    Xpad = np.zeros((len(rows), npad, rows[0].shape[1]))
+    validm = np.zeros((len(rows), npad))
+    for b, t in enumerate(rows):
+        Xpad[b, : len(t)] = t
+        validm[b, : len(t)] = 1.0
+    x0s = np.concatenate([s for _t, s in entries])
+    return Xpad, validm, np.array([len(t) for t in rows], np.float64), x0s
+
+
+@pytest.mark.parametrize("null", [0.0, 0.05], ids=["full", "nulls"])
+def test_ucv_starts_rows_are_the_host_pack_at_kde5_size(cuda, null):
+    """10,000 rows, 10 folds, the 15 families of a shift: per width the
+    kernel's float32 block is the host's packed block cast to float32, bit
+    for bit (then zeros), its mask and counts the host's, its starts within
+    1e-9 of the host's."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ucv_starts
+
+    engine = _kde5_engine(cuda, null)
+    pos, data, null_mask, tr_idx, tr_mask, _te, _tm = (
+        engine._device_cv_cache())
+    fams = _kde5_families()
+    for d in (1, 2, 3):
+        fs = [f for f in fams if len(f[1]) + 1 == d]
+        cols = torch.tensor([[pos[c] for c in (v, *ps)] for v, ps in fs],
+                            device=cuda)
+        X, valid, Ns, starts, ok = (
+            t.cpu() for t in ucv_starts(data, null_mask, cols, tr_idx,
+                                        tr_mask))
+        Xpad, validm, want_ns, x0s = _host_pack(_host_starts(engine, fs))
+        npad = Xpad.shape[1]
+        assert torch.equal(X[:, :npad], torch.from_numpy(
+            Xpad.astype(np.float32)))
+        assert not X[:, npad:].any() and not valid[:, npad:].any()
+        assert torch.equal(valid[:, :npad],
+                           torch.from_numpy(validm.astype(np.float32)))
+        assert torch.equal(Ns, torch.from_numpy(want_ns.astype(np.float32)))
+        assert torch.all(ok == 1)
+        np.testing.assert_allclose(starts.numpy(), x0s, rtol=1e-9,
+                                   atol=1e-7)
+        # where every family has a column with nulls (x1 or x3), the block
+        # is wider than its widest problem
+        nulled = all({"x1", "x3"} & {v, *ps} for v, ps in fs)
+        assert (npad < X.shape[1]) == (null > 0 and nulled)
+
+
+def test_ucv_starts_a_family_alone_and_in_a_batch_of_15(cuda):
+    """A family's start and rows are the same bits alone and in a batch of
+    15 (the kde5 families of width 2 and 3 padded by repeats), at every
+    S."""
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ucv_starts
+
+    engine = _kde5_engine(cuda, 0.05)
+    pos, data, null_mask, tr_idx, tr_mask, _te, _tm = (
+        engine._device_cv_cache())
+    K = tr_idx.shape[0]
+    for d in (2, 3):
+        fs = [f for f in _kde5_families(1) + _kde5_families(2)
+              if len(f[1]) + 1 == d]
+        fs = (fs * 2)[:15]
+        cols = torch.tensor([[pos[c] for c in (v, *ps)] for v, ps in fs],
+                            device=cuda)
+        batch = ucv_starts(data, null_mask, cols, tr_idx, tr_mask)
+        for f in (0, 6, 14):
+            for split in SPLITS:
+                alone = ucv_starts(data, null_mask, cols[f:f + 1], tr_idx,
+                                   tr_mask, split=split)
+                for name, a, b in zip(STARTS, batch, alone):
+                    assert torch.equal(a[f * K:(f + 1) * K], b), (
+                        d, f, split, name)
+
+
+def _host_start_searches(engine, fams):
+    """The searches as the CV score ran them before its starts moved to the
+    card: ``_host_starts``, the float64 block packed on the host, uploaded
+    by ``ucv_search_batch``, one search per width."""
+    from pybnesian_tpu_torch.kde.ucv import ucv_search_batch
+
+    by_dj = {}
+    for v, ps in fams:
+        by_dj.setdefault(len(ps) + 1, []).append((v, ps))
+    return [ucv_search_batch(*_host_pack(_host_starts(engine, fs)), d,
+                             dtype=np.float32, device=engine.device)
+            for d, fs in by_dj.items()]
+
+
+@pytest.mark.parametrize("null", [0.0, 0.05], ids=["full", "nulls"])
+def test_ucv_bandwidths_search_as_from_host_starts(cuda, null):
+    """``_ucv_bandwidths`` of the 15 kde5 families on 10,000 rows: one
+    ``ucv_starts`` launch and one search a width, its 150 problems counted
+    as ``ucv.device_starts``, and each search's optima, iterations and
+    evaluations the bits of the host-start route's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ucv_starts
+    from pybnesian_tpu_torch.ops.ucv_search_kernel import ucv_search_cuda
+    from pybnesian_tpu_torch.runtime import tracing
+
+    engine = _kde5_engine(cuda, null)
+    fams = _kde5_families()
+    want = _host_start_searches(engine, fams)
+    before = (ucv_starts.launches, ucv_search_cuda.launches)
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        h_maps, got = engine._ucv_bandwidths(
+            [(v, ps, None) for v, ps in fams])
+    counted = tracing.counters()
+    tracing.reset_counters()
+    assert (ucv_starts.launches - before[0],
+            ucv_search_cuda.launches - before[1]) == (3, 3)
+    assert counted["ucv.device_starts"] == 150
+    assert "ucv.host_starts" not in counted
+    assert sorted(h_maps) == list(range(15))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.x, w.x)
+        np.testing.assert_array_equal(g.iterations, w.iterations)
+        np.testing.assert_array_equal(g.lane_evaluations, w.lane_evaluations)
+        assert g.evaluations == w.evaluations
+
+
+def test_ucv_starts_wrapper_rejects_a_split_the_kernel_does_not_take(cuda):
+    from pybnesian_tpu_torch.ops.cv_whiten_kernel import ucv_starts
+
+    args = _starts_inputs(cuda, d=2)
+    for split in (0, 3, 16):
+        with pytest.raises(ValueError, match="split"):
+            ucv_starts(*args, split=split)

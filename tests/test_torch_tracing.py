@@ -250,7 +250,7 @@ def test_counters_read_the_launch_counts_and_reset():
     got = tracing.counters()
     assert got["hc.iterations"] == 3
     assert got["launches.ucv_search_cuda"] == ucv_search_cuda.launches
-    assert len([k for k in got if k.startswith("launches.")]) == 7
+    assert len([k for k in got if k.startswith("launches.")]) == 8
     tracing.reset_counters()
     assert "hc.iterations" not in tracing.counters()
 
