@@ -55,11 +55,11 @@
 //   one coordinate of 4 train rows, which serves 8 pairs, and every step of
 //   a group's distances is 2 * T independent updates.
 // - A fixed reduction tree. A program's train rows fall into P leaves, P a
-//   power of two that depends on ntr alone (reduction_leaves); each leaf is
-//   swept from a fresh (m, s) pair, and the P leaf pairs of a test row are
-//   merged in a balanced binary tree. So the float32 result of a (program,
-//   test row) is a function of its own inputs, ntr and d: not of G, of the
-//   other programs, or of the launch plan.
+//   power of two that depends on ntr alone (leaf_count, common.cuh); each
+//   leaf is swept from a fresh (m, s) pair, and the P leaf pairs of a test
+//   row are merged in a balanced binary tree. So the float32 result of a
+//   (program, test row) is a function of its own inputs, ntr and d: not of
+//   G, of the other programs, or of the launch plan.
 // - The leaves split across a thread-block cluster. When the programs and
 //   test tiles give too few blocks to fill the card, the launch plan
 //   (chosen by the Python wrapper) spreads each program's leaves over S
@@ -83,6 +83,8 @@
 
 #include <math.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -92,7 +94,6 @@ constexpr int kTile = 256;         // train rows per shared-memory tile
 constexpr int kRowsPerThread = 2;  // R: test rows a thread holds
 constexpr int kGroup = 16;         // T: train rows per group
 constexpr int kWideGroup = 32;     // T of the runtime-width KDE kernel
-constexpr int kMaxSplit = 8;       // portable cluster size
 constexpr int kMinBlocks = 3;      // blocks per SM the register budget keeps
 constexpr int kMaxTemplated = 16;  // widest program of the templated kernel
 constexpr int kWideTile = 64;      // train rows per tile, runtime-width KDE
@@ -104,12 +105,6 @@ constexpr float kLn2 = 0.69314718055994531f;
 constexpr float kFar = 1e30f;        // coordinate 0 of an invalid train row
 constexpr float kSumHi = 1048576.0f;  // 2^20: a group sum above moves m up
 constexpr float kSumLo = 1.0f / kSumHi;  // a running sum below moves m down
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Adds a group of T values y = x - m, relative to the running reference m,
 // to the running sum s (the pair stands for s * 2^m). While the group's sum
@@ -287,32 +282,15 @@ __device__ __forceinline__ float finish(const PairsArgs& a, int g, bool marg,
   }
 }
 
-// Leaves of a program's train rows for the templated widths: the largest
-// power of two up to kMaxSplit that leaves each leaf a full tile, 1 below
-// two tiles. Leaf q holds rows [q * size, min(ntr, (q + 1) * size)) for
-// size = ceil(ntr / leaves). A function of ntr alone, so that a test row's
-// reduction tree is the same in every launch.
-__host__ __device__ __forceinline__ int reduction_leaves(int ntr) {
-  int leaves = 1;
-  while (2 * leaves <= kMaxSplit && 2 * leaves * kTile <= ntr) leaves *= 2;
-  return leaves;
-}
-
-// The first leaf of cluster rank q of `split`: rank q sweeps leaves
-// [first_leaf(q), first_leaf(q + 1)), none when split exceeds the leaves.
-__device__ __forceinline__ int first_leaf(int q, int leaves, int split) {
-  return q * leaves / split;
-}
-
 // Merges the P leaf pairs v[0..P) of one test row in a balanced binary
 // tree, into v[0]: ((v0 v1) (v2 v3)) ((v4 v5) (v6 v7)). P is a power of
-// two up to kMaxSplit; the marginal's pairs only when `marg`.
-__device__ __forceinline__ void merge_tree(float4 (&v)[kMaxSplit], int P,
+// two up to kMaxLeaves; the marginal's pairs only when `marg`.
+__device__ __forceinline__ void merge_tree(float4 (&v)[kMaxLeaves], int P,
                                            bool marg) {
 #pragma unroll
-  for (int w = 1; w < kMaxSplit; w *= 2) {
+  for (int w = 1; w < kMaxLeaves; w *= 2) {
 #pragma unroll
-    for (int b = 0; b + w < kMaxSplit; b += 2 * w) {
+    for (int b = 0; b + w < kMaxLeaves; b += 2 * w) {
       if (b + w < P) {
         lse_merge(v[b].x, v[b].y, v[b + w].x, v[b + w].y);
         if (marg) lse_merge(v[b].z, v[b].w, v[b + w].z, v[b + w].w);
@@ -357,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     zte[r] = (kCv && active) ? kScale * a.zte[row] : 0.0f;
   }
 
-  const int leaves = reduction_leaves(a.ntr);
+  const int leaves = leaf_count(a.ntr);
   const int size = (a.ntr + leaves - 1) / leaves;
   const int lo_leaf = first_leaf(rank, leaves, split);
   const int hi_leaf = first_leaf(rank + 1, leaves, split);
@@ -406,11 +384,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int per = (kRows + split - 1) / split;
   const int end = min(kRows, (rank + 1) * per);
   for (int q = rank * per + threadIdx.x; q < end; q += kThreads) {
-    float4 v[kMaxSplit];
+    float4 v[kMaxLeaves];
 #pragma unroll
-    for (int l = 0; l < kMaxSplit; ++l) {
+    for (int l = 0; l < kMaxLeaves; ++l) {
       if (l < leaves) {
-        const int owner = ((l + 1) * split - 1) / leaves;
+        const int owner = leaf_owner(l, leaves, split);
         const float4* base =
             split > 1 ? cluster.map_shared_rank(s_leaf, owner) : s_leaf;
         v[l] = base[(l - first_leaf(owner, leaves, split)) * kRows + q];
@@ -493,7 +471,7 @@ cudaError_t launch_pairs(const PairsArgs& a, int G, cudaStream_t stream) {
   constexpr int kRows = kThreads * R;
   constexpr size_t kStatic = sizeof(float) * (D + (kCv ? 1 : 0)) * kTile;
   const int tiles = (a.nte + kRows - 1) / kRows;
-  const int leaves = reduction_leaves(a.ntr);
+  const int leaves = leaf_count(a.ntr);
   const int slots = (leaves + a.split - 1) / a.split;  // most leaves a block
   const size_t bytes = sizeof(float4) * kRows * slots;
   if (kStatic + bytes > 48 * 1024) {

@@ -59,10 +59,10 @@
 //
 // Design of the whitening:
 //
-// - Fixed leaves. A program's train rows fall into whiten_leaves(ntr)
-//   leaves (a power of two up to kMaxLeaves, each at least kLeafRows rows
-//   when there are two or more): leaf l holds rows [l * size, (l + 1) *
-//   size), size = ceil(ntr / leaves). Within a leaf thread t sums rows
+// - Fixed leaves. A program's train rows fall into leaf_count(ntr) leaves
+//   (common.cuh: a power of two up to kMaxLeaves, each at least kLeafRows
+//   rows when there are two or more): leaf l holds rows [l * size, (l + 1)
+//   * size), size = ceil(ntr / leaves). Within a leaf thread t sums rows
 //   lo + t, lo + t + 256, ... in order in float64 registers, and the
 //   block's 256 partial sums merge in a fixed tree (a warp's shuffles, then
 //   the 8 warps in order); the leaves' sums then merge in a balanced binary
@@ -107,9 +107,10 @@
 // variable-first order) have no place there. It shares the whitening's
 // device functions and structure:
 //
-// - The same fixed leaves, cluster, cp.async gather (walk_rows), block and
-//   leaf sums and warp-0 Cholesky (factor_warp), so a problem's start is
-//   the same bits alone and in any batch, at every S.
+// - The same fixed leaves, cluster, cp.async gather and passes 1 and 2
+//   (train_means, train_cov, which both kernels call) and warp-0 Cholesky
+//   (factor_warp), so a problem's start is the same bits alone and in any
+//   batch, at every S.
 // - Compaction in fold order: pass 1's per-leaf counts of valid rows give
 //   each leaf its first output row; within a leaf, each step's 256 rows
 //   take their places by a block scan (a ballot per warp, the warps'
@@ -141,6 +142,8 @@
 
 #include <math.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -150,9 +153,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 16;                   // widest family (kernel #1's)
 constexpr int kMaxSums = 36;  // values of one block sum: covariance
                               // entries per pass, or dpad + 2 means
-constexpr int kMaxLeaves = 8;    // most leaves of a program's train rows
-constexpr int kLeafRows = 256;   // least rows of a leaf, with two or more
-constexpr int kMaxSplit = 8;     // most blocks of a cluster (portable)
 constexpr int kResidentBytes = 160 * 1024;  // most shared memory a rank's
                                             // staged rows may take
 constexpr int kMaxFolds = 18;  // folds a rank of the fold reduce sums side
@@ -171,72 +171,6 @@ __host__ __device__ constexpr int stages_for(int) { return 2; }
 // that ptxas held four folds at 64 registers by spilling (R 4 at nf 4).
 __host__ __device__ constexpr int reduce_batch(int nf) {
   return 20 / nf - 2 > 1 ? 20 / nf - 2 : 1;
-}
-
-__device__ __forceinline__ double qnan() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
-__device__ __forceinline__ float qnanf() { return __int_as_float(0x7fc00000); }
-
-// One 4-byte cp.async from global to shared memory, and its groups.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The two halves of a cluster barrier (all threads of the cluster).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync(int split) {
-  if (split > 1) {
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Leaves of a program's train rows: the largest power of two up to
-// kMaxLeaves that leaves each leaf kLeafRows rows, 1 below two leaves'
-// worth. Leaf l holds rows [l * size, min(ntr, (l + 1) * size)) for size =
-// ceil(ntr / leaves). A function of ntr alone.
-__host__ __device__ __forceinline__ int whiten_leaves(int ntr) {
-  int leaves = 1;
-  while (2 * leaves <= kMaxLeaves && 2 * leaves * kLeafRows <= ntr) {
-    leaves *= 2;
-  }
-  return leaves;
-}
-
-// Cluster rank q of `split` (a power of two) sweeps leaves [first_leaf(q),
-// first_leaf(q + 1)): leaves / split of them, or one leaf or none when
-// split exceeds the leaves; leaf l's sums live in rank leaf_owner(l)'s
-// shared memory.
-__host__ __device__ __forceinline__ int first_leaf(int q, int leaves,
-                                                   int split) {
-  return q * leaves / split;
-}
-
-__device__ __forceinline__ int leaf_owner(int l, int leaves, int split) {
-  return ((l + 1) * split - 1) / leaves;
 }
 
 struct WhitenArgs {
@@ -293,37 +227,6 @@ __host__ __device__ __forceinline__ size_t stage_bytes(int D, int cap) {
   return 8 * static_cast<size_t>(cap) + 4 * static_cast<size_t>(D) * cap +
          4 * static_cast<size_t>(stages_for(D)) * (D + 1) * kThreads +
          4 * (static_cast<size_t>(kThreads) * D + 4);
-}
-
-// Sums v[0..N) over the block's threads in a fixed tree (each warp's
-// shuffles, then the warps in order) into s_sum[0..N), which every thread
-// may read on return. Called by all threads of the block.
-template <int N>
-__device__ __forceinline__ void block_sum(double (&v)[N],
-                                          double (*s_red)[kMaxSums],
-                                          double* s_sum) {
-  static_assert(N <= kMaxSums, "one block sum holds kMaxSums");
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      v[i] = __dadd_rn(v[i], __shfl_down_sync(0xffffffffu, v[i], off));
-    }
-  }
-  __syncthreads();  // s_red and s_sum are free
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) s_red[warp][i] = v[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    double s = s_red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s = __dadd_rn(s, s_red[w][threadIdx.x]);
-    s_sum[threadIdx.x] = s;
-  }
-  __syncthreads();
 }
 
 // Value e summed over the program's leaves in a balanced binary tree,
@@ -609,21 +512,186 @@ __device__ __forceinline__ void factor_warp(double (*s_L)[D],
   if (lane == 0) *lndiff = good ? -logdet_v - 0.5 * kLog2Pi : qnan();
 }
 
+// Where train_means and train_cov put a program's train-row sums: the
+// kernel's own shared arrays. (One shared struct in their place would lay
+// them out anew, and ptxas then allocates the kernels' registers anew.)
+template <int D>
+struct Sums {
+  static constexpr int P = D * (D + 1) / 2;  // lower-triangle covariance
+                                             // entries
+  static constexpr int M = D + 2;  // mean sums: the columns, n_eff, valid
+                                   // rows
+  static constexpr int T = P > M ? P : M;
+  double (*red)[kMaxSums];  // [kWarps] rows of block_sum's
+  double* sum;              // [kMaxSums] a block sum
+  double* lmean;            // [kMaxLeaves * M] this rank's leaves' sums
+  double* lcov;             // [kMaxLeaves * P]
+  double* tot;              // [T] the program's merged sums
+};
+
+// A program's train rows as train_means sets them: the stage, the fold's
+// rows, the rank's leaves, and the merged weight and count of valid rows.
+template <int D>
+struct TrainRows {
+  Stage<D> st;
+  const long long* idx;  // (ntr,) the fold's rows
+  const float* mask;     // (ntr,)
+  Leaves leaves;         // the rank's leaves
+  int count;             // the program's leaves
+  int split;             // the cluster's blocks
+  int base;              // the first resident row, or -1
+  double n_eff, n_valid;
+};
+
+// Pass 1 over the train rows of fold k by cluster rank `rank` of `split`,
+// shared by whiten_kernel and ucv_starts_kernel once they have set the
+// family in fam and synchronised: lays out the stage in s_stage, gathers
+// the rank's rows and sums per leaf the weighted columns, n_eff and the
+// valid rows, then merges the leaves' sums into sums.tot and the means
+// into fam.mean; t receives the rows' places and totals. merged(leaves,
+// count) runs between the merge and the means, while every rank's leaf
+// sums are readable.
+template <int D, class Merged>
+__device__ __forceinline__ void train_means(const WhitenArgs& a,
+                                            Family<D>& fam,
+                                            const Sums<D> sums,
+                                            unsigned char* s_stage,
+                                            int split, int rank, int k,
+                                            TrainRows<D>& t,
+                                            Merged&& merged) {
+  constexpr int M = Sums<D>::M;
+  constexpr int ST = stages_for(D);
+  Stage<D>& st = t.st;
+  st.cap = a.cap;
+  st.w = reinterpret_cast<double*>(s_stage);
+  st.x = reinterpret_cast<float*>(st.w + a.cap);
+  st.nl = st.x + D * a.cap;
+  st.m = st.nl + ST * D * kThreads;
+  st.out = st.m + ST * kThreads;
+
+  t.idx = a.tr_idx + static_cast<size_t>(k) * a.ntr;
+  t.mask = a.tr_mask + static_cast<size_t>(k) * a.ntr;
+  const int leaves = leaf_count(a.ntr);
+  const int size = (a.ntr + leaves - 1) / leaves;
+  const int l0 = first_leaf(rank, leaves, split);
+  const int l1 = first_leaf(rank + 1, leaves, split);
+  t.leaves = Leaves{0, a.ntr, size, l0, l1};
+  t.count = leaves;
+  t.split = split;
+  t.base = a.resident ? min(a.ntr, l0 * size) : -1;
+
+  double m[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) m[i] = 0.0;
+  walk_rows(a, fam, st, t.idx, t.mask, t.leaves, t.base, true,
+            [&](const Cursor& c, bool active, auto& x, double w) {
+              if (active) {
+#pragma unroll
+                for (int q = 0; q < D; ++q) m[q] = fma(x[q], w, m[q]);
+                m[D] = __dadd_rn(m[D], w);
+                m[D + 1] += w > 0.0 ? 1.0 : 0.0;
+              }
+              if (c.last()) {
+                block_sum<kWarps>(m, sums.red, sums.sum);
+                if (threadIdx.x < M) {
+                  sums.lmean[(c.leaf - l0) * M + threadIdx.x] =
+                      sums.sum[threadIdx.x];
+                }
+#pragma unroll
+                for (int i = 0; i < M; ++i) m[i] = 0.0;
+              }
+            });
+  cluster_sync(split);  // every leaf's sums are in place
+  if (threadIdx.x < M) {
+    sums.tot[threadIdx.x] =
+        merge_leaves(sums.lmean, M, threadIdx.x, leaves, split);
+  }
+  merged(t.leaves, leaves);
+  __syncthreads();
+  t.n_eff = sums.tot[D];
+  t.n_valid = sums.tot[D + 1];
+  if (threadIdx.x < D) {
+    fam.mean[threadIdx.x] = __ddiv_rn(sums.tot[threadIdx.x], t.n_eff);
+  }
+  __syncthreads();
+}
+
+// Pass 2 over the rows of train_means: per leaf the centred covariance, C
+// entries (i, j), j <= i, per sweep of the rank's rows, merged into
+// sums.tot[0 .. P). Every rank then arrives at the cluster barrier after
+// which no rank reads another's sums (the caller waits on it last).
+// kMasked: a centred row is scaled by w * cm (the whitening's masked
+// columns), else by w (every mask 1).
+template <int D, bool kMasked>
+__device__ __forceinline__ void train_cov(const WhitenArgs& a,
+                                          const Family<D>& fam,
+                                          const Sums<D> sums,
+                                          const TrainRows<D>& t) {
+  constexpr int P = Sums<D>::P;
+  constexpr int C = P < kMaxSums ? P : kMaxSums;  // entries per pass
+  const int split = t.split;
+  const int l0 = t.leaves.l0;
+#pragma unroll
+  for (int p0 = 0; p0 < P; p0 += C) {
+    double acc[C];
+#pragma unroll
+    for (int e = 0; e < C; ++e) acc[e] = 0.0;
+    walk_rows(a, fam, t.st, t.idx, t.mask, t.leaves, t.base, !a.resident,
+              [&](const Cursor& c, bool active, auto& x, double w) {
+                if (active) {
+#pragma unroll
+                  for (int q = 0; q < D; ++q) {
+                    if constexpr (kMasked) {
+                      x[q] = __dmul_rn(__dsub_rn(x[q], fam.mean[q]),
+                                       __dmul_rn(w, fam.cm[q]));
+                    } else {
+                      x[q] = __dmul_rn(__dsub_rn(x[q], fam.mean[q]), w);
+                    }
+                  }
+#pragma unroll
+                  for (int i = 0; i < D; ++i) {
+#pragma unroll
+                    for (int j = 0; j <= i; ++j) {
+                      const int p = i * (i + 1) / 2 + j;
+                      if (p >= p0 && p < p0 + C) {
+                        acc[p - p0] = fma(x[i], x[j], acc[p - p0]);
+                      }
+                    }
+                  }
+                }
+                if (c.last()) {
+                  block_sum<kWarps>(acc, sums.red, sums.sum);
+                  if (threadIdx.x < C &&
+                      p0 + static_cast<int>(threadIdx.x) < P) {
+                    sums.lcov[(c.leaf - l0) * P + p0 + threadIdx.x] =
+                        sums.sum[threadIdx.x];
+                  }
+#pragma unroll
+                  for (int e = 0; e < C; ++e) acc[e] = 0.0;
+                }
+              });
+  }
+  cluster_sync(split);  // every leaf's covariance sums are in place
+  if (threadIdx.x < P) {
+    sums.tot[threadIdx.x] =
+        merge_leaves(sums.lcov, P, threadIdx.x, t.count, split);
+  }
+  if (split > 1) cluster_arrive();  // done reading the cluster's sums
+  __syncthreads();
+}
+
 // Grid G * split, clusters of `split` blocks along x: program g =
 // blockIdx.x / split, cluster rank blockIdx.x % split.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     whiten_kernel(const WhitenArgs a) {
-  constexpr int P = D * (D + 1) / 2;  // lower-triangle covariance entries
-  constexpr int C = P < kMaxSums ? P : kMaxSums;  // entries per pass
-  constexpr int M = D + 2;  // mean sums: the columns, n_eff, valid rows
-  constexpr int T = P > M ? P : M;
-  constexpr int ST = stages_for(D);
+  constexpr int P = Sums<D>::P;
   __shared__ double s_red[kWarps][kMaxSums];
   __shared__ double s_sum[kMaxSums];
-  __shared__ double s_lmean[kMaxLeaves * M];  // this rank's leaves' sums
+  __shared__ double s_lmean[kMaxLeaves * Sums<D>::M];
   __shared__ double s_lcov[kMaxLeaves * P];
-  __shared__ double s_tot[T];                 // the program's merged sums
+  __shared__ double s_tot[Sums<D>::T];
+  const Sums<D> sums{s_red, s_sum, s_lmean, s_lcov, s_tot};
   __shared__ double s_L[D][D];     // H, then its Cholesky factor in place
   __shared__ double s_Linv[D][D];
   __shared__ double s_lndiff;
@@ -648,60 +716,9 @@ __global__ void __launch_bounds__(kThreads)
     fam.vsel[c] = (static_cast<double>(c) == d_eff - 1.0 ? 1.0 : 0.0) * cm;
   }
   __syncthreads();
-  Stage<D> st;
-  st.cap = a.cap;
-  st.w = reinterpret_cast<double*>(s_stage);
-  st.x = reinterpret_cast<float*>(st.w + a.cap);
-  st.nl = st.x + D * a.cap;
-  st.m = st.nl + ST * D * kThreads;
-  st.out = st.m + ST * kThreads;
-
-  const long long* tr_idx = a.tr_idx + static_cast<size_t>(k) * a.ntr;
-  const float* tr_mask = a.tr_mask + static_cast<size_t>(k) * a.ntr;
-  const int leaves = whiten_leaves(a.ntr);
-  const int size = (a.ntr + leaves - 1) / leaves;
-  const int l0 = first_leaf(rank, leaves, split);
-  const int l1 = first_leaf(rank + 1, leaves, split);
-  const Leaves train{0, a.ntr, size, l0, l1};
-  const int base = a.resident ? min(a.ntr, l0 * size) : -1;
-
-  // pass 1: per leaf, the weighted column sums, n_eff and the count of
-  // valid rows; the rows are gathered
-  {
-    double m[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) m[i] = 0.0;
-    walk_rows(a, fam, st, tr_idx, tr_mask, train, base, true,
-              [&](const Cursor& c, bool active, auto& x, double w) {
-                if (active) {
-#pragma unroll
-                  for (int q = 0; q < D; ++q) m[q] = fma(x[q], w, m[q]);
-                  m[D] = __dadd_rn(m[D], w);
-                  m[D + 1] += w > 0.0 ? 1.0 : 0.0;
-                }
-                if (c.last()) {
-                  block_sum(m, s_red, s_sum);
-                  if (threadIdx.x < M) {
-                    s_lmean[(c.leaf - l0) * M + threadIdx.x] =
-                        s_sum[threadIdx.x];
-                  }
-#pragma unroll
-                  for (int i = 0; i < M; ++i) m[i] = 0.0;
-                }
-              });
-  }
-  cluster_sync(split);  // every leaf's sums are in place
-  if (threadIdx.x < M) {
-    s_tot[threadIdx.x] = merge_leaves(s_lmean, M, threadIdx.x, leaves, split);
-  }
-  __syncthreads();
-  const double n_eff = s_tot[D];
-  const double n_valid = s_tot[D + 1];
-  if (threadIdx.x < D) {
-    fam.mean[threadIdx.x] = __ddiv_rn(s_tot[threadIdx.x], n_eff);
-  }
-  __syncthreads();
-
+  TrainRows<D> t;
+  train_means(a, fam, sums, s_stage, split, rank, k, t,
+              [](const Leaves&, int) {});
   if (a.rule == 2) {
     if (split > 1) cluster_arrive();  // done reading the cluster's sums
     const float* bw = a.bandwidths + static_cast<size_t>(g) * D * D;
@@ -712,50 +729,7 @@ __global__ void __launch_bounds__(kThreads)
           i == j ? 1.0 - fam.cm[i] : 0.0);
     }
   } else {
-    // pass 2: per leaf, the centred covariance, C entries (i, j), j <= i,
-    // per sweep of the rank's rows
-#pragma unroll
-    for (int p0 = 0; p0 < P; p0 += C) {
-      double acc[C];
-#pragma unroll
-      for (int e = 0; e < C; ++e) acc[e] = 0.0;
-      walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
-                [&](const Cursor& c, bool active, auto& x, double w) {
-                  if (active) {
-#pragma unroll
-                    for (int q = 0; q < D; ++q) {
-                      x[q] = __dmul_rn(__dsub_rn(x[q], fam.mean[q]),
-                                       __dmul_rn(w, fam.cm[q]));
-                    }
-#pragma unroll
-                    for (int i = 0; i < D; ++i) {
-#pragma unroll
-                      for (int j = 0; j <= i; ++j) {
-                        const int p = i * (i + 1) / 2 + j;
-                        if (p >= p0 && p < p0 + C) {
-                          acc[p - p0] = fma(x[i], x[j], acc[p - p0]);
-                        }
-                      }
-                    }
-                  }
-                  if (c.last()) {
-                    block_sum(acc, s_red, s_sum);
-                    if (threadIdx.x < C && p0 + static_cast<int>(threadIdx.x) < P) {
-                      s_lcov[(c.leaf - l0) * P + p0 + threadIdx.x] =
-                          s_sum[threadIdx.x];
-                    }
-#pragma unroll
-                    for (int e = 0; e < C; ++e) acc[e] = 0.0;
-                  }
-                });
-    }
-    cluster_sync(split);  // every leaf's covariance sums are in place
-    if (threadIdx.x < P) {
-      s_tot[threadIdx.x] =
-          merge_leaves(s_lcov, P, threadIdx.x, leaves, split);
-    }
-    if (split > 1) cluster_arrive();  // done reading the cluster's sums
-    __syncthreads();
+    train_cov<D, true>(a, fam, sums, t);
     if (threadIdx.x < P) {
       const int e = threadIdx.x;
       int i = 0;
@@ -763,10 +737,10 @@ __global__ void __launch_bounds__(kThreads)
       const int j = e - i * (i + 1) / 2;
       const double factor =
           a.rule == 0
-              ? pow(4.0 / (n_eff * (d_eff + 2.0)), 2.0 / (d_eff + 4.0))
-              : pow(n_eff, -2.0 / (d_eff + 4.0));
+              ? pow(4.0 / (t.n_eff * (d_eff + 2.0)), 2.0 / (d_eff + 4.0))
+              : pow(t.n_eff, -2.0 / (d_eff + 4.0));
       const double h = __dadd_rn(
-          __dmul_rn(factor, __ddiv_rn(s_tot[e], n_eff - 1.0)),
+          __dmul_rn(factor, __ddiv_rn(sums.tot[e], t.n_eff - 1.0)),
           i == j ? 1.0 - fam.cm[i] : 0.0);
       s_L[i][j] = h;
       s_L[j][i] = h;
@@ -779,9 +753,9 @@ __global__ void __launch_bounds__(kThreads)
 
   // the whitened train rows, their variable coordinate and the row mask
   const size_t tr_base = static_cast<size_t>(g) * a.ntr;
-  walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
+  walk_rows(a, fam, t.st, t.idx, t.mask, t.leaves, t.base, !a.resident,
             [&](const Cursor& c, bool active, auto& x, double w) {
-              whiten_step(st, s_Linv, fam, c, active, x, w, tr_base, a.jtr,
+              whiten_step(t.st, s_Linv, fam, c, active, x, w, tr_base, a.jtr,
                           a.zv_tr, nullptr, a.neg);
             });
   __syncthreads();  // the resident rows are read: test rows take the slots
@@ -793,16 +767,16 @@ __global__ void __launch_bounds__(kThreads)
   const size_t te_base = static_cast<size_t>(g) * a.nte;
   const int per = (a.nte + split - 1) / split;
   const Leaves test{min(a.nte, rank * per), a.nte, per, 0, 1};
-  walk_rows(a, fam, st, te_idx, te_mask, test, -1, true,
+  walk_rows(a, fam, t.st, te_idx, te_mask, test, -1, true,
             [&](const Cursor& c, bool active, auto& x, double w) {
-              whiten_step(st, s_Linv, fam, c, active, x, w, te_base, a.jte,
+              whiten_step(t.st, s_Linv, fam, c, active, x, w, te_base, a.jte,
                           a.zv_te, a.wte, nullptr);
             });
   if (rank == 0 && threadIdx.x == 0) {
     a.no_ev[g] = d_eff <= 1.0 ? 1.0f : 0.0f;
-    a.lm_const[g] = static_cast<float>(log(fmax(n_valid, 1.0)));
+    a.lm_const[g] = static_cast<float>(log(fmax(t.n_valid, 1.0)));
     a.lndiff[g] = s_lndiff;
-    a.ok[g] = n_eff > d_eff ? 1.0f : 0.0f;
+    a.ok[g] = t.n_eff > d_eff ? 1.0f : 0.0f;
   }
   if (split > 1) cluster_wait();  // no block leaves while another reads it
 }
@@ -824,16 +798,14 @@ struct StartsOut {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     ucv_starts_kernel(const WhitenArgs a, const StartsOut o) {
-  constexpr int P = D * (D + 1) / 2;  // lower-triangle covariance entries
-  constexpr int C = P < kMaxSums ? P : kMaxSums;  // entries per pass
-  constexpr int M = D + 2;  // mean sums: the columns, n_eff, valid rows
-  constexpr int T = P > M ? P : M;
-  constexpr int ST = stages_for(D);
+  constexpr int P = Sums<D>::P;
+  constexpr int M = Sums<D>::M;
   __shared__ double s_red[kWarps][kMaxSums];
   __shared__ double s_sum[kMaxSums];
-  __shared__ double s_lmean[kMaxLeaves * M];  // this rank's leaves' sums
+  __shared__ double s_lmean[kMaxLeaves * Sums<D>::M];
   __shared__ double s_lcov[kMaxLeaves * P];
-  __shared__ double s_tot[T];                 // the program's merged sums
+  __shared__ double s_tot[Sums<D>::T];
+  const Sums<D> sums{s_red, s_sum, s_lmean, s_lcov, s_tot};
   __shared__ double s_L[D][D];     // H, then its Cholesky factor in place
   __shared__ double s_Linv[D][D];
   __shared__ double s_lndiff;
@@ -856,120 +828,32 @@ __global__ void __launch_bounds__(kThreads)
     fam.vsel[c] = c == 0 ? 1.0 : 0.0;
   }
   __syncthreads();
-  Stage<D> st;
-  st.cap = a.cap;
-  st.w = reinterpret_cast<double*>(s_stage);
-  st.x = reinterpret_cast<float*>(st.w + a.cap);
-  st.nl = st.x + D * a.cap;
-  st.m = st.nl + ST * D * kThreads;
-  st.out = st.m + ST * kThreads;
-
-  const long long* tr_idx = a.tr_idx + static_cast<size_t>(k) * a.ntr;
-  const float* tr_mask = a.tr_mask + static_cast<size_t>(k) * a.ntr;
-  const int leaves = whiten_leaves(a.ntr);
-  const int size = (a.ntr + leaves - 1) / leaves;
-  const int l0 = first_leaf(rank, leaves, split);
-  const int l1 = first_leaf(rank + 1, leaves, split);
-  const Leaves train{0, a.ntr, size, l0, l1};
-  const int base = a.resident ? min(a.ntr, l0 * size) : -1;
-
-  // pass 1: per leaf, the column sums, n_eff and the count of valid rows;
-  // the rows are gathered
-  {
-    double m[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) m[i] = 0.0;
-    walk_rows(a, fam, st, tr_idx, tr_mask, train, base, true,
-              [&](const Cursor& c, bool active, auto& x, double w) {
-                if (active) {
-#pragma unroll
-                  for (int q = 0; q < D; ++q) m[q] = fma(x[q], w, m[q]);
-                  m[D] = __dadd_rn(m[D], w);
-                  m[D + 1] += w > 0.0 ? 1.0 : 0.0;
-                }
-                if (c.last()) {
-                  block_sum(m, s_red, s_sum);
-                  if (threadIdx.x < M) {
-                    s_lmean[(c.leaf - l0) * M + threadIdx.x] =
-                        s_sum[threadIdx.x];
-                  }
-#pragma unroll
-                  for (int i = 0; i < M; ++i) m[i] = 0.0;
-                }
-              });
-  }
-  cluster_sync(split);  // every leaf's sums are in place
-  if (threadIdx.x < M) {
-    s_tot[threadIdx.x] = merge_leaves(s_lmean, M, threadIdx.x, leaves, split);
-  }
-  if (threadIdx.x == 32) {
-    // the valid rows of the leaves before each of the rank's leaves
-    double before = 0.0;
-    for (int l = 0; l < l1; ++l) {
-      if (l >= l0) s_first[l - l0] = static_cast<int>(before);
-      const int owner = leaf_owner(l, leaves, split);
-      const double* part = s_lmean;
-      if (split > 1) part = cg::this_cluster().map_shared_rank(part, owner);
-      before += part[(l - first_leaf(owner, leaves, split)) * M + D + 1];
-    }
-  }
-  __syncthreads();
-  const double n_eff = s_tot[D];
-  const double n_valid = s_tot[D + 1];
-  if (threadIdx.x < D) {
-    fam.mean[threadIdx.x] = __ddiv_rn(s_tot[threadIdx.x], n_eff);
-  }
-  __syncthreads();
-
-  // pass 2: per leaf, the centred covariance, C entries (i, j), j <= i, per
-  // sweep of the rank's rows
-#pragma unroll
-  for (int p0 = 0; p0 < P; p0 += C) {
-    double acc[C];
-#pragma unroll
-    for (int e = 0; e < C; ++e) acc[e] = 0.0;
-    walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
-              [&](const Cursor& c, bool active, auto& x, double w) {
-                if (active) {
-#pragma unroll
-                  for (int q = 0; q < D; ++q) {
-                    x[q] = __dmul_rn(__dsub_rn(x[q], fam.mean[q]), w);
-                  }
-#pragma unroll
-                  for (int i = 0; i < D; ++i) {
-#pragma unroll
-                    for (int j = 0; j <= i; ++j) {
-                      const int p = i * (i + 1) / 2 + j;
-                      if (p >= p0 && p < p0 + C) {
-                        acc[p - p0] = fma(x[i], x[j], acc[p - p0]);
-                      }
-                    }
-                  }
-                }
-                if (c.last()) {
-                  block_sum(acc, s_red, s_sum);
-                  if (threadIdx.x < C && p0 + static_cast<int>(threadIdx.x) < P) {
-                    s_lcov[(c.leaf - l0) * P + p0 + threadIdx.x] =
-                        s_sum[threadIdx.x];
-                  }
-#pragma unroll
-                  for (int e = 0; e < C; ++e) acc[e] = 0.0;
-                }
-              });
-  }
-  cluster_sync(split);  // every leaf's covariance sums are in place
-  if (threadIdx.x < P) {
-    s_tot[threadIdx.x] = merge_leaves(s_lcov, P, threadIdx.x, leaves, split);
-  }
-  if (split > 1) cluster_arrive();  // done reading the cluster's sums
-  __syncthreads();
+  TrainRows<D> t;
+  train_means(
+      a, fam, sums, s_stage, split, rank, k, t,
+      [&](const Leaves& L, int leaves) {
+        if (threadIdx.x == 32) {
+          // the valid rows of the leaves before each of the rank's leaves
+          double before = 0.0;
+          for (int l = 0; l < L.l1; ++l) {
+            if (l >= L.l0) s_first[l - L.l0] = static_cast<int>(before);
+            const int owner = leaf_owner(l, leaves, split);
+            const double* part = sums.lmean;
+            if (split > 1) {
+              part = cg::this_cluster().map_shared_rank(part, owner);
+            }
+            before += part[(l - first_leaf(owner, leaves, split)) * M + D + 1];
+          }
+        }
+      });
+  train_cov<D, false>(a, fam, sums, t);
   if (threadIdx.x < P) {
     const int e = threadIdx.x;
     int i = 0;
     while ((i + 1) * (i + 2) / 2 <= e) ++i;
     const int j = e - i * (i + 1) / 2;
-    const double factor = pow(4.0 / (n_eff * (D + 2.0)), 2.0 / (D + 4.0));
-    const double h = __dmul_rn(factor, __ddiv_rn(s_tot[e], n_eff - 1.0));
+    const double factor = pow(4.0 / (t.n_eff * (D + 2.0)), 2.0 / (D + 4.0));
+    const double h = __dmul_rn(factor, __ddiv_rn(sums.tot[e], t.n_eff - 1.0));
     s_L[i][j] = h;
     s_L[j][i] = h;
   }
@@ -981,14 +865,14 @@ __global__ void __launch_bounds__(kThreads)
   // output row
   const size_t row0 = static_cast<size_t>(g) * a.ntr;
   int run = 0;  // output rows the leaf's earlier steps took
-  walk_rows(a, fam, st, tr_idx, tr_mask, train, base, !a.resident,
+  walk_rows(a, fam, t.st, t.idx, t.mask, t.leaves, t.base, !a.resident,
             [&](const Cursor& c, bool active, auto& x, double w) {
               const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
               const bool keep = active && w > 0.0;
               const unsigned votes = __ballot_sync(0xffffffffu, keep);
               if (lane == 0) s_warp[warp] = __popc(votes);
               __syncthreads();
-              if (c.j == 0) run = s_first[c.leaf - l0];
+              if (c.j == 0) run = s_first[c.leaf - t.leaves.l0];
               int at = run + __popc(votes & ((1u << lane) - 1u));
               int step = 0;
 #pragma unroll
@@ -1006,7 +890,7 @@ __global__ void __launch_bounds__(kThreads)
             });
 
   // the rank's share of the mask and of the zero rows after the valid ones
-  const int nv = static_cast<int>(n_valid);
+  const int nv = static_cast<int>(t.n_valid);
   const int per = (a.ntr + split - 1) / split;
   const int lo = min(a.ntr, rank * per), hi = min(a.ntr, lo + per);
   for (int r = lo + threadIdx.x; r < hi; r += kThreads) {
@@ -1017,7 +901,7 @@ __global__ void __launch_bounds__(kThreads)
     o.X[e] = 0.0f;
   }
   if (rank == 0) {
-    const bool good = n_eff > D && !isnan(s_lndiff);
+    const bool good = t.n_eff > D && !isnan(s_lndiff);
     if (threadIdx.x < P) {
       // vech: the lower triangle column by column
       int j = 0, e = threadIdx.x;
@@ -1030,7 +914,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (threadIdx.x == 0) {
       o.ok[g] = good ? 1.0f : 0.0f;
-      o.Ns[g] = static_cast<float>(n_valid);
+      o.Ns[g] = static_cast<float>(t.n_valid);
     }
   }
   if (split > 1) cluster_wait();  // no block leaves while another reads it
@@ -1112,7 +996,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    block_sum(s, s_red, s_sum);
+    block_sum<kWarps>(s, s_red, s_sum);
     if (split > 1 && r == 0) cluster_wait();  // every rank has started
     if (term) {
       const double fold = fma(ld, s_sum[2 * t + 1], s_sum[2 * t]);
@@ -1153,7 +1037,7 @@ cudaError_t launch_reduce(const float* rows, const float* wte,
 // kResidentBytes (at most ceil(leaves / split) leaves of `size` rows, and
 // room for the test rows' slots), else the slots alone.
 void plan_stage(WhitenArgs& a, int D) {
-  const int leaves = whiten_leaves(a.ntr);
+  const int leaves = leaf_count(a.ntr);
   const int size = (a.ntr + leaves - 1) / leaves;
   const int rows = (leaves + a.split - 1) / a.split * size;
   const int slots = stages_for(D) * kThreads;

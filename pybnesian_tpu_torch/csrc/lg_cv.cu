@@ -39,20 +39,20 @@
 //   plan takes fewer for a small batch, to have more programs), so a row is
 //   read once for all the chunk's folds: its design columns and validity,
 //   and each fold's mask.
-// - Fixed leaves. The train rows fall into lg_leaves(n_tr) leaves (a power
-//   of two up to kMaxLeaves, each at least kLeafRows rows when there are
-//   two or more): leaf l holds rows [l * size, (l + 1) * size), size =
-//   ceil(n_tr / leaves). Within a leaf thread t sums rows lo + t, lo + t +
-//   256, ... in order in float64 registers, the block's partial sums merge
-//   in a fixed tree (a warp's shuffles, then the 8 warps in order), and
-//   the leaves' sums merge in a balanced binary tree. Each (fold, Gram
-//   entry) is a sum of its own, formed by the same explicit float64
-//   operations (w = mask * validity, w d_i, then one fma with d_j), grouped
-//   36 at a time (one sweep of the rows each) to bound the registers. The
-//   test rows' sums take the same leaves of n_te. No atomics; nothing
-//   depends on G, on the chunk, on the program's place in the grid or on
-//   the launch. The fold sum is a second kernel, one thread per family
-//   adding its K folds in order.
+// - Fixed leaves. The train rows fall into leaf_count(n_tr) leaves
+//   (common.cuh: a power of two up to kMaxLeaves, each at least kLeafRows
+//   rows when there are two or more): leaf l holds rows [l * size, (l + 1)
+//   * size), size = ceil(n_tr / leaves). Within a leaf thread t sums rows
+//   lo + t, lo + t + 256, ... in order in float64 registers, the block's
+//   partial sums merge in a fixed tree (a warp's shuffles, then the 8 warps
+//   in order), and the leaves' sums merge in a balanced binary tree. Each
+//   (fold, Gram entry) is a sum of its own, formed by the same explicit
+//   float64 operations (w = mask * validity, w d_i, then one fma with d_j),
+//   grouped 36 at a time (one sweep of the rows each) to bound the
+//   registers. The test rows' sums take the same leaves of n_te. No
+//   atomics; nothing depends on G, on the chunk, on the program's place in
+//   the grid or on the launch. The fold sum is a second kernel, one thread
+//   per family adding its K folds in order.
 // - A thread-block cluster per program. The wrapper chooses its size S (a
 //   power of two up to the portable 8) from the program count and the SM
 //   count; cluster rank q sweeps leaves [q L / S, (q + 1) L / S), an
@@ -94,6 +94,8 @@
 
 #include <math.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -104,9 +106,6 @@ constexpr int kMaxSums = 36;        // values of one block sum
 constexpr int kMaxTemplated = 18;   // widest W of the templated instances
 constexpr int kMaxW = 64;           // widest W: 62 parents
 constexpr int kFoldThreads = 256;   // threads of the fold-sum kernel
-constexpr int kMaxLeaves = 8;       // most leaves of a program's rows
-constexpr int kLeafRows = 256;      // least rows of a leaf, with two or more
-constexpr int kMaxSplit = 8;        // most blocks of a cluster (portable)
 constexpr int kDepth = 4;           // levels of a rank's subtree merge
 constexpr int kMaxChunk = 16;       // most folds of a program
 constexpr int kMaxPairs = 360;      // most (fold, Gram entry) sums of one
@@ -129,67 +128,6 @@ __host__ __device__ __forceinline__ int fold_chunk(int K, int W) {
   chunk = chunk < kMaxChunk ? chunk : kMaxChunk;
   chunk = chunk < K ? chunk : K;
   return chunk > 1 ? chunk : 1;
-}
-
-__device__ __forceinline__ double qnan() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
-__device__ __forceinline__ float qnanf() { return __int_as_float(0x7fc00000); }
-
-// One 4-byte cp.async from global to shared memory, and its groups.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The two halves of a cluster barrier (all threads of the cluster).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync(int split) {
-  if (split > 1) {
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Leaves of a program's n rows: the largest power of two up to kMaxLeaves
-// that leaves each leaf kLeafRows rows, 1 below two leaves' worth. Leaf l
-// holds rows [l * size, min(n, (l + 1) * size)) for size = ceil(n /
-// leaves). A function of n alone.
-__host__ __device__ __forceinline__ int lg_leaves(int n) {
-  int leaves = 1;
-  while (2 * leaves <= kMaxLeaves && 2 * leaves * kLeafRows <= n) {
-    leaves *= 2;
-  }
-  return leaves;
-}
-
-// Cluster rank q of `split` (a power of two) sweeps leaves [first_leaf(q),
-// first_leaf(q + 1)): leaves / split of them, or one leaf or none when
-// split exceeds the leaves.
-__host__ __device__ __forceinline__ int first_leaf(int q, int leaves,
-                                                   int split) {
-  return q * leaves / split;
 }
 
 struct LgArgs {
@@ -250,38 +188,6 @@ __host__ __device__ __forceinline__ size_t dynamic_bytes(int W, int chunk,
          4 * static_cast<size_t>(stages) * (W - 1) * kThreads;
 }
 
-// Sums v[0..N) over the block's threads in a fixed tree (each warp's
-// shuffles, then the warps in order) into s_sum[0..N), which every thread
-// may read on return; each value by its own operations. Called by all
-// threads of the block.
-template <int N>
-__device__ __forceinline__ void block_sum(double (&v)[N],
-                                          double (*s_red)[kMaxSums],
-                                          double* s_sum) {
-  static_assert(N <= kMaxSums, "one block sum holds kMaxSums");
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      v[i] = __dadd_rn(v[i], __shfl_down_sync(0xffffffffu, v[i], off));
-    }
-  }
-  __syncthreads();  // s_red and s_sum are free
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) s_red[warp][i] = v[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    double s = s_red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s = __dadd_rn(s, s_red[w][threadIdx.x]);
-    s_sum[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
 // Adds the i-th leaf sum v (i counted from the rank's first leaf) of value
 // e to the rank's subtree in the tree's order, a binary counter: leaf sums
 // pair as ((v0 v1) (v2 v3)) .... After all of a rank's leaves (a power of
@@ -299,7 +205,7 @@ __device__ __forceinline__ void push_leaf(double (*stack)[kMaxSums], int i,
 
 // Value e of the program summed over the ranks' subtree sums in the top of
 // the balanced tree: part i (of min(split, leaves)) is part[e] in cluster
-// rank ((i + 1) split - 1) / parts.
+// rank leaf_owner(i, parts, split).
 __device__ __forceinline__ double merge_parts(const double* part, int e,
                                               int leaves, int split) {
   const int parts = split < leaves ? split : leaves;
@@ -308,7 +214,7 @@ __device__ __forceinline__ double merge_parts(const double* part, int e,
   for (int i = 0; i < kMaxLeaves; ++i) {
     v[i] = 0.0;
     if (i < parts) {
-      const int owner = ((i + 1) * split - 1) / parts;
+      const int owner = leaf_owner(i, parts, split);
       const double* base =
           split > 1 ? cg::this_cluster().map_shared_rank(part, owner) : part;
       v[i] = base[e];
@@ -601,7 +507,7 @@ __device__ __forceinline__ void gram_fixed(const LgArgs& a, const Family& fam,
               }
             }
             if (c.last()) {
-              block_sum(acc, s_red, s_sum);
+              block_sum<kWarps>(acc, s_red, s_sum);
               if (threadIdx.x < C) {
                 push_leaf(s_stack, c.leaf - train.l0, threadIdx.x,
                           s_sum[threadIdx.x]);
@@ -666,7 +572,7 @@ __device__ __forceinline__ void gram_runtime(
             }
           }
           if (c.last()) {
-            block_sum(acc, s_red, s_sum);
+            block_sum<kWarps>(acc, s_red, s_sum);
             if (static_cast<int>(threadIdx.x) < C) {
               push_leaf(s_stack, c.leaf - train.l0, threadIdx.x,
                         s_sum[threadIdx.x]);
@@ -739,7 +645,7 @@ __global__ void __launch_bounds__(kThreads) lg_kernel(const LgArgs a) {
 
   // stage 1: the chunk's Grams over the train rows, the rank's leaves, 36
   // (fold, entry) sums per sweep
-  const int leaves = lg_leaves(a.n_tr);
+  const int leaves = leaf_count(a.n_tr);
   const int size = (a.n_tr + leaves - 1) / leaves;
   const Leaves train{a.n_tr, size, first_leaf(rank, leaves, split),
                      first_leaf(rank + 1, leaves, split)};
@@ -782,7 +688,7 @@ __global__ void __launch_bounds__(kThreads) lg_kernel(const LgArgs a) {
     // stage 3: each fold's weighted test log-likelihood, the rank's leaves
     // of the test rows, staged in the slots (the resident train rows are
     // read)
-    const int te_leaves = lg_leaves(a.n_te);
+    const int te_leaves = leaf_count(a.n_te);
     const Leaves test{a.n_te, (a.n_te + te_leaves - 1) / te_leaves,
                       first_leaf(rank, te_leaves, split),
                       first_leaf(rank + 1, te_leaves, split)};
@@ -825,7 +731,7 @@ __global__ void __launch_bounds__(kThreads) lg_kernel(const LgArgs a) {
             }
           }
           if (c.last()) {
-            block_sum(acc, s_red, s_sum);
+            block_sum<kWarps>(acc, s_red, s_sum);
             if (static_cast<int>(threadIdx.x) < kc) {
               push_leaf(s_stack, c.leaf - test.l0, threadIdx.x,
                         s_sum[threadIdx.x]);
@@ -870,7 +776,7 @@ __global__ void __launch_bounds__(kFoldThreads)
 template <int WT>
 void plan_stage(LgArgs& a, int W) {
   constexpr int stages = stages_for(WT);
-  const int leaves = lg_leaves(a.n_tr);
+  const int leaves = leaf_count(a.n_tr);
   const int size = (a.n_tr + leaves - 1) / leaves;
   const int rows = (leaves + a.split - 1) / a.split * size;
   const int slots = stages * kThreads;

@@ -151,6 +151,8 @@
 
 #include <math.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -192,12 +194,6 @@ constexpr int kNoItems = 0, kStartPoints = 1, kReflection = 2,
               kSecondPoint = 3, kShrunk = 4;
 constexpr unsigned kNapMin = 64, kNapMax = 1024;  // ns an idle block sleeps
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------- rows
 // The whitened rows of the pair-sums entry, in device memory.

@@ -20,8 +20,9 @@ What lives here:
 - :func:`_launch_plan`, the launch plan of both kernels of that source
   (this one and ``kde_logl``'s): test rows per thread, train rows per
   group, and the split of the train axis across a thread-block cluster;
-  :func:`reduction_leaves`, the fixed leaves of the train axis that the
-  split spreads over the cluster;
+  :func:`reduction_leaves`, the fixed leaves of the train axis
+  (:func:`~.cuda_build.leaf_count`) that the split spreads over the
+  cluster;
 - the ctypes binding of that kernel (built at first use by
   :mod:`.cuda_build`).
 """
@@ -34,6 +35,7 @@ import functools
 import torch
 
 from . import cuda_build
+from .cuda_build import MAX_SPLIT, check_tensors, cluster_split, leaf_count
 
 __all__ = [
     "ckde_cv_pairs",
@@ -43,7 +45,8 @@ __all__ = [
 
 #: widest family (columns per program) the kernel is instantiated for
 MAX_DPAD = 16
-# The launch plan's limits; each mirrors a constant of csrc/ckde_cv.cu.
+# The launch plan's limits; each mirrors a constant of csrc/ckde_cv.cu (the
+# cluster's, MAX_SPLIT, is csrc/common.cuh's, imported above).
 #: threads per block (kThreads)
 THREADS = 128
 #: R, test rows per thread of the templated widths (kRowsPerThread)
@@ -52,9 +55,7 @@ ROWS_PER_THREAD = 2
 GROUP = 16
 #: T of the KDE kernel's runtime-width variant (kWideGroup)
 WIDE_GROUP = 32
-#: most blocks of one cluster, the portable limit (kMaxSplit)
-MAX_SPLIT = 8
-#: train rows per shared-memory tile (kTile): the least a leaf holds
+#: train rows per shared-memory tile (kTile)
 TILE = 256
 #: blocks per SM that the plan aims for, splitting the train axis to get
 #: them. Measured on the H100 (chip_smoke.py's split sweep, PERF.md): the
@@ -99,20 +100,14 @@ def ckde_cv_pairs_reference(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
 
 def reduction_leaves(ntr, d):
     """P, the leaves of one program's train rows in the kernels of
-    ``csrc/ckde_cv.cu`` (``reduction_leaves`` there): each leaf is swept
-    from a fresh logsumexp pair, and a test row's P leaf pairs merge in a
-    balanced binary tree. Widths up to :data:`MAX_DPAD` take the largest
-    power of two up to :data:`MAX_SPLIT` that leaves each leaf a full
-    :data:`TILE`; wider programs (the KDE kernel's runtime-width variant)
-    one leaf. A function of (ntr, d) alone: the reduction order of a
-    (program, test row), and so its float32 result, does not depend on G,
-    on the other programs of the launch, or on the split."""
-    if d > MAX_DPAD:
-        return 1
-    leaves = 1
-    while 2 * leaves <= MAX_SPLIT and 2 * leaves * TILE <= ntr:
-        leaves *= 2
-    return leaves
+    ``csrc/ckde_cv.cu``: each leaf is swept from a fresh logsumexp pair, and
+    a test row's P leaf pairs merge in a balanced binary tree. Widths up to
+    :data:`MAX_DPAD` take :func:`~.cuda_build.leaf_count` (ntr) leaves;
+    wider programs (the KDE kernel's runtime-width variant) one. A function
+    of (ntr, d) alone: the reduction order of a (program, test row), and so
+    its float32 result, does not depend on G, on the other programs of the
+    launch, or on the split."""
+    return 1 if d > MAX_DPAD else leaf_count(ntr)
 
 
 def _launch_plan(G, ntr, nte, d, sm_count):
@@ -123,20 +118,15 @@ def _launch_plan(G, ntr, nte, d, sm_count):
     :func:`reduction_leaves` (S = 1: no split).
 
     Widths up to :data:`MAX_DPAD` take R = :data:`ROWS_PER_THREAD` and
-    T = :data:`GROUP`; S is the least power of two that gives the grid
-    :data:`TARGET_BLOCKS_PER_SM` blocks per SM, at most the leaves, so that
-    every block sweeps as many leaves as the others. S only decides which
-    block sweeps which leaf: the result is the same at every S. Wider
-    programs (the KDE kernel's runtime-width variant) take one row per
-    thread, T = :data:`WIDE_GROUP` and no split."""
+    T = :data:`GROUP`; S is :func:`~.cuda_build.cluster_split`'s for
+    :data:`TARGET_BLOCKS_PER_SM` blocks per SM. Wider programs (the KDE
+    kernel's runtime-width variant) take one row per thread, T =
+    :data:`WIDE_GROUP` and no split."""
     if d > MAX_DPAD:
         return 1, WIDE_GROUP, 1
     tiles = max(1, G * -(-nte // (THREADS * ROWS_PER_THREAD)))
-    need = -(-TARGET_BLOCKS_PER_SM * sm_count // tiles)
-    leaves = reduction_leaves(ntr, d)
-    split = 1
-    while split < need and split < leaves:
-        split *= 2
+    split = cluster_split(tiles, TARGET_BLOCKS_PER_SM * sm_count,
+                          reduction_leaves(ntr, d))
     return ROWS_PER_THREAD, GROUP, split
 
 
@@ -146,31 +136,18 @@ def _sm_count(device):
 
 
 def _check_args(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const):
-    tensors = {"jtr": jtr, "neg": neg, "zv_tr": zv_tr, "jte": jte,
-               "zv_te": zv_te, "no_ev": no_ev, "lm_const": lm_const}
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != jtr.device:
-            raise ValueError(
-                f"{name} is on {t.device}, jtr on {jtr.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not (isinstance(jtr, torch.Tensor) and isinstance(jte, torch.Tensor)):
+        raise TypeError("jtr and jte must be torch.Tensors")
     if jtr.dim() != 3 or jte.dim() != 3:
         raise ValueError("jtr and jte must be (G, rows, dpad)")
     G, ntr, dpad = jtr.shape
     nte = jte.shape[1]
-    expected = {"neg": (G, ntr), "zv_tr": (G, ntr), "jte": (G, nte, dpad),
-                "zv_te": (G, nte), "no_ev": (G,), "lm_const": (G,)}
-    for name, shape in expected.items():
-        if tuple(tensors[name].shape) != shape:
-            raise ValueError(
-                f"{name} has shape {tuple(tensors[name].shape)}, "
-                f"expected {shape}"
-            )
+    check_tensors(
+        {"jtr": jtr, "neg": neg, "zv_tr": zv_tr, "jte": jte, "zv_te": zv_te,
+         "no_ev": no_ev, "lm_const": lm_const}, torch.float32,
+        {"jtr": (G, ntr, dpad), "neg": (G, ntr), "zv_tr": (G, ntr),
+         "jte": (G, nte, dpad), "zv_te": (G, nte), "no_ev": (G,),
+         "lm_const": (G,)}, jtr.device)
     if not 1 <= dpad <= MAX_DPAD:
         raise ValueError(f"dpad {dpad} outside 1..{MAX_DPAD}")
     return G, ntr, nte, dpad

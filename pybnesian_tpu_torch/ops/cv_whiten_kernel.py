@@ -22,10 +22,11 @@ Pallas kernel). What lives here:
   (``ucv_starts_f32``, in the same source; replaces the host's gather,
   ``np.cov`` and ``np.linalg.cholesky`` per problem, which the JAX package
   also runs on the host, ``pybnesian_tpu/learning/scores/likelihood.py``);
-- :func:`whiten_leaves` and :func:`_launch_plan`, the whitening's fixed
-  leaves of a program's train rows and the cluster size S that spreads
-  them over a thread-block cluster; :func:`_reduce_plan`, the cluster size
-  S that spreads a family's folds over the fold reduce's cluster;
+- :func:`whiten_leaves` (:func:`~.cuda_build.leaf_count`) and
+  :func:`_launch_plan`, the whitening's fixed leaves of a program's train
+  rows and the cluster size S that spreads them over a thread-block
+  cluster; :func:`_reduce_plan`, the cluster size S that spreads a
+  family's folds over the fold reduce's cluster;
 - the ctypes binding of those kernels (built at first use by
   :mod:`.cuda_build`).
 
@@ -53,6 +54,7 @@ import torch
 
 from . import cuda_build
 from .ckde_cv_kernel import _sm_count
+from .cuda_build import MAX_SPLIT, check_tensors, cluster_split, leaf_count
 from .linalg import cholesky_or_nan
 
 __all__ = [
@@ -74,12 +76,6 @@ _RULES = {"nr": 0, "scott": 1}
 # The launch plan's limits; each mirrors a constant of csrc/cv_whiten.cu.
 #: threads per block (kThreads)
 THREADS = 256
-#: most leaves of a program's train rows (kMaxLeaves)
-MAX_LEAVES = 8
-#: least rows of a leaf when there are two or more (kLeafRows)
-LEAF_ROWS = 256
-#: most blocks of one cluster, the portable limit (kMaxSplit)
-MAX_SPLIT = 8
 #: blocks per SM that the plan aims for, splitting each program's leaves
 #: over a cluster to get them, twice as many for families wider than
 #: :data:`WIDE_DPAD`. Measured on the H100 (tools/whiten_lg_ab.py,
@@ -93,37 +89,20 @@ WIDE_DPAD = 8
 MAX_FOLDS = 18
 
 
-def whiten_leaves(ntr):
-    """L, the leaves of one program's ntr train rows in the whitening
-    kernel (``whiten_leaves`` in ``csrc/cv_whiten.cu``): the largest power
-    of two up to :data:`MAX_LEAVES` that leaves each leaf
-    :data:`LEAF_ROWS` rows, 1 below two leaves' worth. Leaf l holds rows
-    [l·size, min(ntr, (l + 1)·size)), size = ceil(ntr / L); its sums run in
-    a fixed order and the L leaves merge in a balanced tree. A function of
-    ntr alone, so a program's float32 outputs do not depend on G, on the
-    other programs or on the cluster size."""
-    leaves = 1
-    while 2 * leaves <= MAX_LEAVES and 2 * leaves * LEAF_ROWS <= ntr:
-        leaves *= 2
-    return leaves
+#: L, the leaves of one program's ntr train rows in the whitening and
+#: UCV-start kernels: the shared rule of csrc/common.cuh
+whiten_leaves = leaf_count
 
 
 @functools.lru_cache(maxsize=1024)
 def _launch_plan(G, ntr, dpad, sm_count):
     """S, the blocks of the thread-block cluster that whitens each of G
     programs of ntr train rows and dpad columns on a card of ``sm_count``
-    SMs: the least power of two that gives the grid
+    SMs: :func:`~.cuda_build.cluster_split`'s for
     :data:`TARGET_BLOCKS_PER_SM` blocks per SM (twice that above
-    :data:`WIDE_DPAD`), at most :func:`whiten_leaves`, so that every block
-    sweeps as many leaves as the others. S only decides which block sweeps
-    which leaf: the result is the same at every S."""
+    :data:`WIDE_DPAD`) over :func:`whiten_leaves`."""
     target = TARGET_BLOCKS_PER_SM * (2 if dpad > WIDE_DPAD else 1)
-    need = -(-target * sm_count // max(G, 1))
-    leaves = whiten_leaves(ntr)
-    split = 1
-    while split < need and split < leaves:
-        split *= 2
-    return split
+    return cluster_split(max(G, 1), target * sm_count, whiten_leaves(ntr))
 
 
 def _reduce_plan(F, K, sm_count):
@@ -264,21 +243,6 @@ def ckde_cv_fold_reduce_reference(out, wte, lndiff, ok):
     return torch.sum(fold_ll, dim=1).to(out.dtype)
 
 
-def _check(tensors, dtypes, shapes, device):
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shapes[name]}")
-
-
 def _check_whiten_args(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
                        te_idx, te_mask, rule, bandwidths):
     if not isinstance(data, torch.Tensor) or data.dim() != 2:
@@ -305,7 +269,7 @@ def _check_whiten_args(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
         raise ValueError(f"unknown bandwidth rule {rule!r}")
     dtypes = {name: torch.int64 if name.endswith("idx") else torch.float32
               for name in tensors}
-    _check(tensors, dtypes, shapes, data.device)
+    check_tensors(tensors, dtypes, shapes, data.device)
     if not 1 <= dpad <= MAX_DPAD:
         raise ValueError(f"dpad {dpad} outside 1..{MAX_DPAD}")
     return n, D, F, K, ntr, nte, dpad
@@ -395,11 +359,11 @@ def ckde_cv_fold_reduce(out, wte, lndiff, ok, *, split=None):
     if not isinstance(out, torch.Tensor) or out.dim() != 3:
         raise ValueError("out must be an (F, K, nte) torch.Tensor")
     F, K, nte = out.shape
-    _check({"out": out, "wte": wte, "lndiff": lndiff, "ok": ok},
-           {"out": torch.float32, "wte": torch.float32,
-            "lndiff": torch.float64, "ok": torch.float32},
-           {"out": (F, K, nte), "wte": (F, K, nte), "lndiff": (F, K),
-            "ok": (F, K)}, out.device)
+    check_tensors({"out": out, "wte": wte, "lndiff": lndiff, "ok": ok},
+                  {"out": torch.float32, "wte": torch.float32,
+                   "lndiff": torch.float64, "ok": torch.float32},
+                  {"out": (F, K, nte), "wte": (F, K, nte), "lndiff": (F, K),
+                   "ok": (F, K)}, out.device)
     if split is not None and split not in range(1, min(K, MAX_SPLIT) + 1):
         raise ValueError(f"split {split!r} is not in 1..min(K {K}, "
                          f"{MAX_SPLIT})")
@@ -504,13 +468,13 @@ def ucv_starts(data, null_mask, col_idx, tr_idx, tr_mask, *, split=None):
     n, D = data.shape
     F, d = col_idx.shape
     K, ntr = tr_idx.shape
-    _check({"data": data, "null_mask": null_mask, "col_idx": col_idx,
-            "tr_idx": tr_idx, "tr_mask": tr_mask},
-           {"data": data.dtype, "null_mask": data.dtype,
-            "col_idx": torch.int64, "tr_idx": torch.int64,
-            "tr_mask": data.dtype},
-           {"data": (n, D), "null_mask": (n, D), "col_idx": (F, d),
-            "tr_idx": (K, ntr), "tr_mask": (K, ntr)}, data.device)
+    check_tensors({"data": data, "null_mask": null_mask, "col_idx": col_idx,
+                   "tr_idx": tr_idx, "tr_mask": tr_mask},
+                  {"data": data.dtype, "null_mask": data.dtype,
+                   "col_idx": torch.int64, "tr_idx": torch.int64,
+                   "tr_mask": data.dtype},
+                  {"data": (n, D), "null_mask": (n, D), "col_idx": (F, d),
+                   "tr_idx": (K, ntr), "tr_mask": (K, ntr)}, data.device)
     if not 1 <= d <= MAX_DPAD:
         raise ValueError(f"d {d} outside 1..{MAX_DPAD}")
     if split is not None:

@@ -31,6 +31,7 @@ import torch
 
 from . import cuda_build
 from .ckde_cv_kernel import _launch_plan, _sm_count
+from .cuda_build import check_tensors
 
 __all__ = ["kde_logl", "kde_logl_reference", "MAX_D"]
 
@@ -65,28 +66,18 @@ def kde_logl_reference(train, valid, test, lognorm):
 
 
 def _check_args(train, valid, test, lognorm):
-    tensors = {"train": train, "valid": valid, "test": test,
-               "lognorm": lognorm}
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != train.device:
-            raise ValueError(f"{name} is on {t.device}, train on {train.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not (isinstance(train, torch.Tensor)
+            and isinstance(test, torch.Tensor)):
+        raise TypeError("train and test must be torch.Tensors")
     if train.dim() != 3 or test.dim() != 3:
         raise ValueError("train and test must be (G, rows, d)")
     G, ntr, d = train.shape
     nte = test.shape[1]
-    expected = {"valid": (G, ntr), "test": (G, nte, d), "lognorm": (G,)}
-    for name, shape in expected.items():
-        if tuple(tensors[name].shape) != shape:
-            raise ValueError(
-                f"{name} has shape {tuple(tensors[name].shape)}, "
-                f"expected {shape}"
-            )
+    check_tensors(
+        {"train": train, "valid": valid, "test": test, "lognorm": lognorm},
+        torch.float32,
+        {"train": (G, ntr, d), "valid": (G, ntr), "test": (G, nte, d),
+         "lognorm": (G,)}, train.device)
     if not 1 <= d <= MAX_D:
         raise ValueError(f"d {d} outside 1..{MAX_D}")
     return G, ntr, nte, d

@@ -12,9 +12,9 @@ package runs as jitted XLA (no Pallas kernel). What lives here:
   with a launch counter ``lg_cv_stats.launches``;
 - :func:`fold_chunk`, the folds of one of the kernel's programs (a family
   and a chunk of its folds, which share every row the program reads),
-  :func:`lg_leaves` and :func:`_launch_plan`, the fixed leaves of a
-  program's rows and the cluster size S that spreads them over a
-  thread-block cluster;
+  :func:`lg_leaves` (:func:`~.cuda_build.leaf_count`) and
+  :func:`_launch_plan`, the fixed leaves of a program's rows and the
+  cluster size S that spreads them over a thread-block cluster;
 - the ctypes binding of that kernel (built at first use by
   :mod:`.cuda_build`).
 
@@ -36,6 +36,7 @@ import torch
 
 from . import cuda_build
 from .ckde_cv_kernel import _sm_count
+from .cuda_build import MAX_SPLIT, check_tensors, cluster_split, leaf_count
 
 __all__ = ["lg_cv_stats", "lg_leaves", "fold_chunk", "MAX_PARENTS"]
 
@@ -44,12 +45,6 @@ MAX_PARENTS = 62
 # The launch plan's limits; each mirrors a constant of csrc/lg_cv.cu.
 #: threads per block (kThreads)
 THREADS = 256
-#: most leaves of a program's rows (kMaxLeaves)
-MAX_LEAVES = 8
-#: least rows of a leaf when there are two or more (kLeafRows)
-LEAF_ROWS = 256
-#: most blocks of one cluster, the portable limit (kMaxSplit)
-MAX_SPLIT = 8
 #: most folds of one program (kMaxChunk)
 MAX_CHUNK = 16
 #: most (fold, Gram entry) sums of one program (kMaxPairs)
@@ -83,17 +78,9 @@ def programs(F, K, chunk):
     return F * -(-K // chunk)
 
 
-def lg_leaves(n):
-    """L, the leaves of one program's n train (or test) rows in the LG
-    kernel (``lg_leaves`` in ``csrc/lg_cv.cu``): the largest power of two up
-    to :data:`MAX_LEAVES` that leaves each leaf :data:`LEAF_ROWS` rows, 1
-    below two leaves' worth. Leaf l holds rows [l·size, min(n, (l +
-    1)·size)), size = ceil(n / L); its sums run in a fixed order and the L
-    leaves merge in a balanced tree. A function of n alone."""
-    leaves = 1
-    while 2 * leaves <= MAX_LEAVES and 2 * leaves * LEAF_ROWS <= n:
-        leaves *= 2
-    return leaves
+#: L, the leaves of one program's n train (or test) rows in the LG kernel:
+#: the shared rule of csrc/common.cuh
+lg_leaves = leaf_count
 
 
 @functools.lru_cache(maxsize=1024)
@@ -103,12 +90,11 @@ def _launch_plan(F, K, W, n_tr, sm_count):
     and the blocks of its thread-block cluster. The chunk is
     :func:`fold_chunk`'s, halved (rounded up) while the programs it gives,
     split to the leaves, still fit one block per SM (a small batch's blocks
-    each pay a fixed cost; past one wave they queue). S is the least power
-    of two that gives the grid :data:`TARGET_BLOCKS_PER_SM` blocks per SM,
-    at most :func:`lg_leaves` (n_tr), so that every block sweeps as many
-    leaves as the others; it stops short where doubling would take the grid
-    past one wave (:data:`WAVE_BLOCKS_PER_SM`) with less than
-    :data:`MIN_BLOCK_WORK` a block. Measured on the H100
+    each pay a fixed cost; past one wave they queue). S is
+    :func:`~.cuda_build.cluster_split`'s for :data:`TARGET_BLOCKS_PER_SM`
+    blocks per SM over :func:`lg_leaves` (n_tr); it stops short where
+    doubling would take the grid past one wave (:data:`WAVE_BLOCKS_PER_SM`)
+    with less than :data:`MIN_BLOCK_WORK` a block. Measured on the H100
     (tools/whiten_lg_ab.py, tools/kernel_sweeps.py chunks, PERF.md).
     Neither decides the order of a sum: the result is the same at every
     plan."""
@@ -118,31 +104,14 @@ def _launch_plan(F, K, W, n_tr, sm_count):
            * min(leaves, MAX_SPLIT) <= sm_count):
         chunk = -(-chunk // 2)
     G = programs(F, K, chunk)
-    need = -(-TARGET_BLOCKS_PER_SM * sm_count // G)
     work = n_tr * chunk * (W * (W + 1) // 2)
-    split = 1
-    while split < need and split < leaves:
-        if (G * 2 * split > WAVE_BLOCKS_PER_SM * sm_count
-                and work < 2 * split * MIN_BLOCK_WORK):
-            break
-        split *= 2
-    return chunk, split
 
+    def grow(split):
+        return not (G * 2 * split > WAVE_BLOCKS_PER_SM * sm_count
+                    and work < 2 * split * MIN_BLOCK_WORK)
 
-def _check(tensors, shapes, device):
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        want = torch.int64 if name.endswith("idx") else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shapes[name]}")
+    return chunk, cluster_split(G, TARGET_BLOCKS_PER_SM * sm_count, leaves,
+                                grow)
 
 
 def lg_cv_stats(tr_values, tr_valid, train_mask, var_idx, parent_idx,
@@ -195,7 +164,9 @@ def lg_cv_stats(tr_values, tr_valid, train_mask, var_idx, parent_idx,
         if test_mask is not None:
             tensors["test_mask"] = test_mask
             shapes["test_mask"] = (K, n_te)
-    _check(tensors, shapes, tr_values.device)
+    dtypes = {name: torch.int64 if name.endswith("idx") else torch.float32
+              for name in tensors}
+    check_tensors(tensors, dtypes, shapes, tr_values.device)
     if tr_values.device.type == "cpu":
         return lg_fold_stats(tr_values, tr_valid, train_mask, var_idx,
                              parent_idx, parent_mask, te_values, te_valid,

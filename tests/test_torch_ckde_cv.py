@@ -407,8 +407,9 @@ def test_reduce_plan(F, K, sms):
 
     from pybnesian_tpu_torch.ops import cv_whiten_kernel as cw
 
-    text = (Path(cw.__file__).resolve().parent.parent / "csrc"
-            / "cv_whiten.cu").read_text()
+    csrc = Path(cw.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / "cv_whiten.cu").read_text() + (
+        csrc / "common.cuh").read_text()  # the source and its header
     constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
     max_folds = int(constants["kMaxFolds"])
     assert max_folds == cw.MAX_FOLDS == int(constants["kMaxSums"]) // 2

@@ -4,11 +4,12 @@ in ``pybnesian_tpu_torch/ops/ckde_cv_kernel.py``), on the CPU.
 The plan is pure Python: (R, T, S) = test rows per thread, train rows per
 group, and blocks of a thread-block cluster that split each program's
 train rows. These tests hold it to what the CUDA entry points accept (the
-limits are read from the source itself) and to the split the kernel makes:
-a program's train rows fall into P = ``reduction_leaves(ntr, d)`` leaves of
-ceil(ntr / P) rows, whose logsumexp pairs merge in a fixed tree, and
-cluster rank q of S sweeps leaves [q P / S, (q + 1) P / S). The leaves, and
-so the float32 result of a (program, test row), do not depend on G.
+limits are read from the source and from the kernels' shared header,
+``csrc/common.cuh``) and to the split the kernel makes: a program's train
+rows fall into P = ``reduction_leaves(ntr, d)`` leaves of ceil(ntr / P)
+rows, whose logsumexp pairs merge in a fixed tree, and cluster rank q of S
+sweeps leaves [q P / S, (q + 1) P / S). The leaves, and so the float32
+result of a (program, test row), do not depend on G.
 """
 
 import re
@@ -17,11 +18,12 @@ from pathlib import Path
 import pytest
 
 from pybnesian_tpu_torch.ops import ckde_cv_kernel as ck
-from pybnesian_tpu_torch.ops import kde_kernel
+from pybnesian_tpu_torch.ops import cuda_build, kde_kernel
 from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
 
 
 SOURCE = (Path(ck.__file__).resolve().parent.parent / "csrc" / "ckde_cv.cu")
+HEADER = SOURCE.parent / "common.cuh"
 H100_SMS = 132
 CV_SHAPE = (150, 9000, 1000, 3)        # bench.py's CV path, main-path inputs
 CONFIG3B_SHAPE = (4, 10_000, 10_000, 2)  # config3b's model.slogl
@@ -43,9 +45,14 @@ SM_COUNTS = [1, 16, 78, 114, H100_SMS]
 
 
 def _constants():
-    text = SOURCE.read_text()
-    return {name: int(value) for name, value in
-            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    """The integer constants of the source and of the header it includes;
+    neither defines one the other does."""
+    source, header = (
+        {name: int(value) for name, value in
+         re.findall(r"constexpr int (k\w+) = (\d+);", path.read_text())}
+        for path in (SOURCE, HEADER))
+    assert not set(source) & set(header)
+    return {**source, **header}
 
 
 def _accepted(d, rows, group, split):
@@ -198,18 +205,23 @@ def test_reduction_layout_is_the_same_at_every_g(ntr, d):
 
 
 def test_reduction_leaves_mirror_the_source():
-    """The source's reduction_leaves doubles the leaves while two more
-    still hold a full tile each and stay within the cluster limit, as the
-    Python mirror does."""
+    """The header's leaf_count doubles the leaves while two more still hold
+    kLeafRows rows each and stay within kMaxLeaves, as the Python mirror
+    does; the source takes its leaves and its ranks' shares from the
+    header, and the templated widths' leaves are the shared rule's."""
+    body = re.search(r"int leaf_count\(int n\) \{(.*?)\n\}",
+                     HEADER.read_text(), re.S).group(1)
+    assert ("while (2 * leaves <= kMaxLeaves && 2 * leaves * kLeafRows <= n)"
+            in body)
     text = SOURCE.read_text()
-    body = re.search(r"int reduction_leaves\(int ntr\) \{(.*?)\n\}", text,
-                     re.S).group(1)
-    assert ("while (2 * leaves <= kMaxSplit && 2 * leaves * kTile <= ntr) "
-            "leaves *= 2;") in body
+    assert '#include "common.cuh"' in text
+    assert text.count("leaf_count(a.ntr)") == 2  # the kernel and its launch
     assert "first_leaf(rank, leaves, split)" in text
+    assert "leaf_owner(l, leaves, split)" in text
     for ntr in (0, 1, 255, 511, 512, 1023, 1024, 2047, 2048, 10**6):
         want = 1
         while 2 * want <= 8 and 2 * want * 256 <= ntr:
             want *= 2
         assert ck.reduction_leaves(ntr, 3) == want
+        assert cuda_build.leaf_count(ntr) == want
     assert ck.reduction_leaves(10**6, ck.MAX_DPAD + 1) == 1

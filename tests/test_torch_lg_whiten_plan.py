@@ -1,16 +1,17 @@
 """The launch plans of the CV whitening kernel (``csrc/cv_whiten.cu``) and
 the linear-Gaussian kernel (``csrc/lg_cv.cu``), on the CPU.
 
-Each kernel splits a program's train rows into L fixed leaves
-(``whiten_leaves(ntr)`` in ``ops/cv_whiten_kernel.py``, ``lg_leaves(n)`` in
-``ops/lg_cv_kernel.py``): leaf l holds rows [l·size, (l + 1)·size), size =
-ceil(n / L), its sums run in a fixed order and the leaves merge in a
-balanced tree. The plan (``_launch_plan``) only chooses S, the blocks of
-the thread-block cluster that share a program's leaves, rank q sweeping
-leaves [q L / S, (q + 1) L / S). These tests hold the leaves to the row
-count alone, the plan to what the entry points accept (the limits read
-from the sources), and the plain versions beside the kernels to the JAX
-package at row counts on the leaves' edges.
+Each kernel splits a program's train rows into L fixed leaves by the rule
+of the kernels' shared header ``csrc/common.cuh`` (``whiten_leaves(ntr)``
+in ``ops/cv_whiten_kernel.py``, ``lg_leaves(n)`` in ``ops/lg_cv_kernel.py``,
+both ``leaf_count`` of ``ops/cuda_build.py``): leaf l holds rows [l·size,
+(l + 1)·size), size = ceil(n / L), its sums run in a fixed order and the
+leaves merge in a balanced tree. The plan (``_launch_plan``) only chooses
+S, the blocks of the thread-block cluster that share a program's leaves,
+rank q sweeping leaves [q L / S, (q + 1) L / S). These tests hold the
+leaves to the row count alone, the plan to what the entry points accept
+(the limits read from the sources and the header), and the plain versions
+beside the kernels to the JAX package at row counts on the leaves' edges.
 """
 
 import re
@@ -23,12 +24,14 @@ import torch
 
 from pybnesian_tpu.ops import kde as jkde
 from pybnesian_tpu.ops.gaussian import batched_lg_cv_loglik as jax_lg_cv
+from pybnesian_tpu_torch.ops import cuda_build as cb
 from pybnesian_tpu_torch.ops import cv_whiten_kernel as wk
 from pybnesian_tpu_torch.ops import lg_cv_kernel as lk
 from pybnesian_tpu_torch.ops.gaussian import family_tensors
 from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
 
 CSRC = Path(wk.__file__).resolve().parent.parent / "csrc"
+HEADER = CSRC / "common.cuh"
 KERNELS = {"whiten": (wk, wk.whiten_leaves, CSRC / "cv_whiten.cu"),
            "lg": (lk, lk.lg_leaves, CSRC / "lg_cv.cu")}
 H100_SMS = 132
@@ -46,8 +49,14 @@ ROUNDED = dict(rtol=2e-6, atol=2e-6)
 
 
 def _constants(path):
-    return {name: int(value) for name, value in
-            re.findall(r"constexpr int (k\w+) = (\d+);", path.read_text())}
+    """The integer constants of a source and of the header it includes;
+    neither defines one the other does."""
+    source, header = (
+        {name: int(value) for name, value in
+         re.findall(r"constexpr int (k\w+) = (\d+);", p.read_text())}
+        for p in (path, HEADER))
+    assert not set(source) & set(header)
+    return {**source, **header}
 
 
 def _leaf_rows(leaves_of, n):
@@ -63,12 +72,19 @@ def _rank_leaves(leaves, split):
 
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_python_limits_mirror_the_source(kernel):
-    module, _, source = KERNELS[kernel]
+    """Each kernel's limits mirror its source, and its leaves are the
+    header's rule: the source includes the header and defines no leaf rule
+    of its own, and the wrapper's leaves are cuda_build's mirror of it."""
+    module, leaves_of, source = KERNELS[kernel]
     c = _constants(source)
+    text = source.read_text()
     assert module.THREADS == c["kThreads"]
-    assert module.MAX_LEAVES == c["kMaxLeaves"]
-    assert module.LEAF_ROWS == c["kLeafRows"]
-    assert module.MAX_SPLIT == c["kMaxSplit"] <= 8  # portable cluster size
+    assert cb.MAX_LEAVES == c["kMaxLeaves"]
+    assert cb.LEAF_ROWS == c["kLeafRows"]
+    assert module.MAX_SPLIT == cb.MAX_SPLIT == c["kMaxSplit"] <= 8
+    assert '#include "common.cuh"' in text and "leaf_count(" in text
+    assert "while (2 * leaves" not in text
+    assert leaves_of is cb.leaf_count
     if kernel == "whiten":
         assert wk.MAX_DPAD == c["kMaxD"]
     else:
@@ -133,11 +149,11 @@ def test_leaves_depend_on_the_row_count_alone(kernel, n):
     module, leaves_of, _ = KERNELS[kernel]
     layout = _leaf_rows(leaves_of, n)
     leaves = len(layout)
-    assert leaves & (leaves - 1) == 0 and leaves <= module.MAX_LEAVES
+    assert leaves & (leaves - 1) == 0 and leaves <= cb.MAX_LEAVES
     assert layout[0][0] == 0 and layout[-1][1] == n
     assert all(a[1] == b[0] for a, b in zip(layout, layout[1:]))
     if leaves > 1:
-        assert min(hi - lo for lo, hi in layout) >= module.LEAF_ROWS
+        assert min(hi - lo for lo, hi in layout) >= cb.LEAF_ROWS
 
 
 

@@ -74,20 +74,22 @@ STAMP_HEAD = ('__device__ unsigned long long g_stamps[1 << 17];\n'
               'extern "C" int read_stamps(void* dst, int n) { return '
               '(int)cudaMemcpyFromSymbol(dst, g_stamps, (size_t)n * 8); }\n')
 # (line, True: stamp after it / False: before it)
+# (stamps 1 and 3 sit in train_means and train_cov, the last in both
+# kernels: the UCV starts' kernel shares them)
 WHITEN_STAMPS = [
-    ("  const int f = g / a.K, k = g % a.K;", True),
+    ("  const int f = g / a.K, k = g % a.K;\n  double d_eff = 0.0;", True),
     ("  cluster_sync(split);  // every leaf's sums are in place", False),
     ("  if (a.rule == 2) {\n    if (split > 1) cluster_arrive();", False),
-    ("    cluster_sync(split);  // every leaf's covariance sums are in "
-     "place", False),
+    ("  cluster_sync(split);  // every leaf's covariance sums are in place",
+     False),
     ("  // the Cholesky factor and L^-1 by warp 0 of every rank", False),
-    ("  if (threadIdx.x < 32) factor_warp(s_L, s_Linv, fam, &s_lndiff);\n"
-     "  __syncthreads();", True),
+    ("  // the whitened train rows, their variable coordinate and the row "
+     "mask", False),
     ("  __syncthreads();  // the resident rows are read: test rows take "
      "the slots", True),
     ("  if (rank == 0 && threadIdx.x == 0) {\n    a.no_ev[g]", False),
     ("  if (split > 1) cluster_wait();  // no block leaves while another "
-     "reads it", True),
+     "reads it", True, 2),
 ]
 LG_STAMPS = [
     ("  const int pairs = kc * E;\n  if (threadIdx.x < W) {", False),
@@ -124,8 +126,9 @@ def variant(source, name, edits, csrc=CSRC):
     with open(src, "w") as f:
         f.write(text)
     lib = os.path.join(OUT, f"lib{name}_{source}.so")
-    proc = subprocess.run([cuda_build.nvcc(), *cuda_build._NVCC_FLAGS, "-o",
-                           lib, src], capture_output=True, text=True)
+    proc = subprocess.run([cuda_build.nvcc(), *cuda_build._NVCC_FLAGS, "-I",
+                           csrc, "-o", lib, src], capture_output=True,
+                          text=True)
     if proc.returncode:
         raise SystemExit(proc.stderr[-3000:])
     return ctypes.CDLL(lib), proc.stderr
@@ -135,9 +138,10 @@ def stamped(source, stamps):
     """The instrumented copy of ``source``: a stamp at each line."""
     edits = [("namespace cg = cooperative_groups;",
               "namespace cg = cooperative_groups;\n" + STAMP_HEAD)]
-    for i, (line, after) in enumerate(stamps):
+    for i, (line, after, *times) in enumerate(stamps):
         stamp = STAMP.format(i=i)
-        edits.append((line, line + "\n" + stamp if after else stamp + line))
+        edits.append((line, line + "\n" + stamp if after else stamp + line,
+                      *times))
     lib, _ = variant(source, "stamped", edits)
     lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
