@@ -10,7 +10,9 @@ device path (see operators / Score.local_score_batch). While a profiler
 records, a learn is the span ``pb.hc.learn``, its first scores
 ``pb.hc.cache``, each iteration ``pb.hc.iteration`` (with ``pb.hc.find_max``,
 ``pb.hc.validate`` and ``pb.hc.update`` inside), and the counter
-``hc.iterations`` adds the iterations it ran.
+``hc.iterations`` adds the iterations it ran. The validation cache takes
+the first scores in one ``vlocal_score_batch`` call and each iteration's
+changed nodes in one more (``LocalScoreCache.update_vlocal_scores``).
 
 Copied from ``pybnesian_tpu/learning/algorithms/hillclimbing.py``.
 """
@@ -29,11 +31,13 @@ __all__ = ["GreedyHillClimbing", "hc"]
 
 
 def _validation_delta_score(model, score, nodes_changed, local_validation):
+    """Σ (new − prev) of the changed nodes' validation scores, in the
+    order of ``nodes_changed``; the new scores in one batch."""
+    prev = [local_validation.local_score(model, n) for n in nodes_changed]
+    local_validation.update_vlocal_scores(model, score, nodes_changed)
     delta = 0.0
-    for n in nodes_changed:
-        prev = local_validation.local_score(model, n)
-        local_validation.update_vlocal_score(model, score, n)
-        delta += local_validation.local_score(model, n) - prev
+    for n, p in zip(nodes_changed, prev):
+        delta += local_validation.local_score(model, n) - p
     return delta
 
 

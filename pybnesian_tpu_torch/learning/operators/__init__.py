@@ -17,7 +17,9 @@ call instead of one ``local_score`` per candidate (the reference's serial
 loop, operators.cpp:114-131).
 
 Copied from ``pybnesian_tpu/learning/operators/__init__.py``; it uses
-numpy only.
+numpy and the port's tracing counters only. The validation cache of
+``hc`` takes every score through ``ValidatedScore.vlocal_score_batch``
+(:meth:`LocalScoreCache.update_vlocal_scores`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 
 from ...factors.base import FactorType
 from ...models.base import ConditionalBayesianNetwork
+from ...runtime.tracing import count
 
 #: Score deltas are quantized at this absolute resolution. Batched device
 #: evaluation pads families to bucketed shapes, so the same family can differ
@@ -246,20 +249,37 @@ class LocalScoreCache:
         self._scores = dict(zip(nodes, values.tolist()))
 
     def cache_vlocal_scores(self, model, score) -> None:
-        """Seeds every node's validation score by the route its updates
-        take (:meth:`update_vlocal_score`: ``score.vlocal_score``), so a
-        validation delta subtracts two values of one route. The JAX
-        package seeds through ``vlocal_score_batch``, another route whose
-        float32 values differ in the last digits (and for a constant
-        variable, −inf against the factor's 0.0)."""
-        self._scores = {n: float(score.vlocal_score(model, n))
-                        for n in model.nodes()}
+        """Seeds every node's validation score by the route ``hc``'s
+        updates take (:meth:`update_vlocal_scores`), so a validation
+        delta subtracts two values of one route."""
+        self._scores = {}
+        self.update_vlocal_scores(model, score, model.nodes())
+
+    def update_vlocal_scores(self, model, score, nodes) -> None:
+        """The validation scores of ``nodes``' families in one
+        ``score.vlocal_score_batch`` call. A family whose batch value is
+        not finite takes the fitted factor's value
+        (``score.vlocal_score``) instead: for a constant variable that is
+        the factor's 0.0 where the batch gives −inf. A family's batch
+        value is the same alone and in any batch, so a family always takes
+        the same route. Counts ``hc.validation_batched`` (families in the
+        batch) and ``hc.validation_refits`` (families refitted)."""
+        fams = [(n, model.parents(n)) for n in nodes]
+        values = score.vlocal_score_batch(model, fams)
+        refits = 0
+        for (n, ps), v in zip(fams, values.tolist()):
+            if not math.isfinite(v):
+                v = float(score.vlocal_score(model, n, ps))
+                refits += 1
+            self._scores[n] = v
+        count("hc.validation_batched", len(fams))
+        count("hc.validation_refits", refits)
 
     def update_local_score(self, model, score, node: str) -> None:
         self._scores[node] = float(score.local_score(model, node))
 
     def update_vlocal_score(self, model, score, node: str) -> None:
-        self._scores[node] = float(score.vlocal_score(model, node))
+        self.update_vlocal_scores(model, score, [node])
 
     def local_score(self, model, node: str) -> float:
         return self._scores[node]

@@ -18,10 +18,14 @@ profiler puts annotations on the device's timeline too. By layer:
 - search (``learning/algorithms/hillclimbing.py``): ``pb.hc.learn`` (one
   ``estimate``), ``pb.hc.cache`` (the first scores), ``pb.hc.iteration``
   and inside it ``pb.hc.find_max``, ``pb.hc.validate``, ``pb.hc.update``;
-  the counter ``hc.iterations``.
+  the counters ``hc.iterations``, ``hc.validation_batched`` (validation
+  families scored by ``vlocal_score_batch``) and ``hc.validation_refits``
+  (those of them refitted for a batch value that was not finite;
+  ``learning/operators``).
 - scores (``learning/scores/likelihood.py``): ``pb.cv.batch`` and
   ``pb.holdout.batch`` (a batch of a channel), ``pb.holdout.refit`` (one
-  family of the hold-out channel, refitted), ``pb.cv.families`` (the
+  family of the hold-out channel, refitted: in ``hc`` only a family whose
+  batch value is not finite), ``pb.cv.families`` (the
   families' node types and selectors), ``pb.cv.lg`` and ``pb.holdout.lg``
   (the LG batches), ``pb.cv.ckde`` (the CV score's CKDE batch),
   ``pb.cv.ckde.pack`` and ``pb.cv.ckde.launch`` (a CKDE batch's columns

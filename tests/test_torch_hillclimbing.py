@@ -15,16 +15,18 @@ sequence in both. Cases:
 - a SemiparametricBN on a 5-node nonlinear chain of 500 rows,
   ``patience=2``;
 - the default scores named as strings (``"cv-lik"``, ``"holdout-lik"``,
-  ``"validated-lik"``: its validation cache seeded by the route its
-  updates take, ``vlocal_score``, where the JAX package seeds it through
-  ``vlocal_score_batch``; in float64 the two routes agree);
+  ``"validated-lik"``: the port seeds and updates its validation cache
+  through ``vlocal_score_batch``, where the JAX package updates it through
+  ``vlocal_score``, a fitted factor; in float64 the two routes agree);
 - a DiscreteBN on 2,000 rows of a 6-node categorical chain, with the
   discrete BIC (the type's default) and ``"bde"``, plain and with a
   blacklist, a whitelist, ``max_indegree=1`` and an ``epsilon``; the
   recorder's callback makes these the Python loop, and
   ``test_native_discrete_hc_learns_the_same_graph`` runs the same cases
   without a callback, through the native loop of both packages;
-- a GaussianNetwork on the README frame with ``"bge"``.
+- a GaussianNetwork on the README frame with ``"bge"``;
+- ``"validated-lik"`` on a chain with a constant column, against the same
+  search whose validation channel refits every family (the port alone).
 
 All of it float64 on the CPU; deltas compared with rtol 1e-9 / atol 1e-7.
 """
@@ -253,3 +255,64 @@ def test_greedy_hill_climbing_estimate_matches_jax():
     tm = pt.GreedyHillClimbing().estimate(
         tops, tscore, pt.SemiparametricBN(["x", "y"]), patience=1)
     assert _graph(tm) == _graph(jm)
+
+
+class RefitRoute(pt.ValidatedLikelihood):
+    """A validation channel that refits a factor for every family:
+    ``ValidatedScore``'s loop over ``vlocal_score_node_type``."""
+
+    def vlocal_score_batch(self, model, families):
+        from pybnesian_tpu_torch.learning.scores.base import ValidatedScore
+
+        return ValidatedScore.vlocal_score_batch(self, model, families)
+
+
+def test_validated_hc_with_a_constant_column(monkeypatch):
+    """The constant column z's hold-out batch value is −inf; ``hc`` takes
+    the fitted factor's value for it, so the search learns what it learns
+    when every validation family is refitted, no validation delta is NaN,
+    and ``hc.validation_refits`` counts z's seed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pybnesian_tpu_torch.learning.algorithms import hillclimbing
+    from pybnesian_tpu_torch.runtime import tracing
+
+    deltas, changed = [], []
+    delta_score = hillclimbing._validation_delta_score
+
+    def recorded(model, score, nodes_changed, cache):
+        changed.extend(nodes_changed)
+        deltas.append(delta_score(model, score, nodes_changed, cache))
+        return deltas[-1]
+
+    monkeypatch.setattr(hillclimbing, "_validation_delta_score", recorded)
+    df = chain_df(d=4).assign(z=0.0)
+    kwargs = dict(bn_type=pt.SemiparametricBNType(), patience=1,
+                  max_iters=6)
+    runs = {}
+    for name, score in (("batch", "validated-lik"),
+                        ("refit", RefitRoute(df, 0.2, 10, 0))):
+        recorder = Recorder()
+        deltas.clear()
+        changed.clear()
+        tracing.reset_counters()
+        with np.errstate(divide="ignore", invalid="ignore"), \
+                profile(activities=[ProfilerActivity.CPU]):
+            model = pt.hc(df, score=score, callback=recorder, **kwargs)
+        runs[name] = (model, recorder.steps, list(deltas), len(changed),
+                      tracing.counters())
+    tracing.reset_counters()
+    model, steps, vdeltas, n_changed, counted = runs["batch"]
+    want, wsteps, wdeltas, _, wcounted = runs["refit"]
+    assert _graph(model) == _graph(want)
+    assert not [a for a in model.arcs() if "z" in a]
+    assert [(i, s and s[:3]) for i, s in steps] == [
+        (i, s and s[:3]) for i, s in wsteps]
+    assert len(vdeltas) == len(wdeltas) >= 3
+    assert not np.any(np.isnan(vdeltas))
+    np.testing.assert_allclose(vdeltas, wdeltas, **TOL)
+    # z's family is seeded once and never changed; refitted in the batch,
+    # it is finite there
+    assert counted["hc.validation_refits"] == 1
+    assert wcounted["hc.validation_refits"] == 0
+    assert counted["hc.validation_batched"] == len(df.columns) + n_changed

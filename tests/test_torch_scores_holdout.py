@@ -155,22 +155,56 @@ def test_holdout_likelihood_alone_matches_jax():
     assert tscore.ToString() == jscore.ToString() == "HoldoutLikelihood"
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.float32],
-                         ids=["f64", "f32"])
+DTYPES = pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                                 ids=["f64", "f32"])
+
+
+@DTYPES
 def test_validation_cache_holds_vlocal_score(dtype):
     """The validation cache that hc seeds (``cache_vlocal_scores``) holds
-    each node's ``vlocal_score`` bit for bit, the route its updates take,
-    in both dtypes; for the constant node z that is the factor's 0.0 (the
-    batch's −inf is the other route's value)."""
+    the hold-out batch's values (``vlocal_score_batch``) bit for bit for
+    the continuous nodes, in both dtypes; for the constant node z, whose
+    batch value is −inf, the fitted factor's 0.0 (``vlocal_score``)."""
     from pybnesian_tpu_torch.learning.operators import LocalScoreCache
 
     cols = {k: v.astype(dtype) for k, v in _columns().items()}
     _, tscore, _, tmodel = _both(cols)
+    nodes = tmodel.nodes()
     cache = LocalScoreCache()
     with np.errstate(divide="ignore", invalid="ignore"):
         cache.cache_vlocal_scores(tmodel, tscore)
-        want = [tscore.vlocal_score(tmodel, n) for n in tmodel.nodes()]
-    got = [cache.local_score(tmodel, n) for n in tmodel.nodes()]
-    assert got == want
-    assert cache.local_score(tmodel, "z") == 0.0
-    assert np.all(np.isfinite(got))
+        batch = tscore.vlocal_score_batch(
+            tmodel, [(n, tmodel.parents(n)) for n in nodes]).tolist()
+        fitted_z = tscore.vlocal_score(tmodel, "z")
+    got = {n: cache.local_score(tmodel, n) for n in nodes}
+    assert {n: v for n, v in got.items() if n != "z"} == {
+        n: v for n, v in zip(nodes, batch) if n != "z"}
+    assert batch[nodes.index("z")] == -np.inf
+    assert got["z"] == fitted_z == 0.0
+    assert np.all(np.isfinite(list(got.values())))
+
+
+@DTYPES
+def test_validation_update_equals_the_seed(dtype):
+    """``update_vlocal_scores`` gives a changed family, in a batch of its
+    own, the bits that seeding a cache on the changed network gives it in
+    the batch of every node; the constant node z keeps the fitted 0.0."""
+    from pybnesian_tpu_torch.learning.operators import LocalScoreCache
+
+    cols = {k: v.astype(dtype) for k, v in _columns().items()}
+    _, tscore, _, tmodel = _both(cols)
+    changed = interop.network("SemiparametricBN", list(cols),
+                              ARCS + [("x2", "x3")],
+                              {"x1": "CKDEFactor", "x3": "CKDEFactor"})
+    updated, seeded = LocalScoreCache(), LocalScoreCache()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        updated.cache_vlocal_scores(tmodel, tscore)
+        before = updated.local_score(tmodel, "x3")
+        tmodel.add_arc("x2", "x3")
+        tmodel.set_node_type("x3", CKDEType())
+        updated.update_vlocal_scores(tmodel, tscore, ["x3", "z"])
+        seeded.cache_vlocal_scores(changed, tscore)
+    assert updated.local_score(tmodel, "x3") != before
+    for n in changed.nodes():
+        assert updated.local_score(tmodel, n) == seeded.local_score(changed, n)
+    assert updated.local_score(tmodel, "z") == 0.0

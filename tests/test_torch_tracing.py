@@ -6,8 +6,9 @@ and an ``slogl`` enter no ``record_function`` and count nothing. Under a
 CPU ``torch.profiler`` the same calls show the port's span tree, every
 span named ``pb.`` and none a name the benchmark's harness keeps for its
 own spans, and the counters agree with what the calls returned: the
-iterations a callback sees, the families scored, the UCV searches'
-evaluations. ``trace`` with a directory writes the Chrome trace and the
+iterations a callback sees, the families scored, the search's validation
+families (all through the hold-out batch, none refitted), the UCV
+searches' evaluations. ``trace`` with a directory writes the Chrome trace and the
 counters it counted.
 """
 
@@ -39,8 +40,8 @@ PARENTS = {
     "pb.hc.validate": {"pb.hc.iteration"},
     "pb.hc.update": {"pb.hc.iteration"},
     "pb.cv.batch": {None, "pb.hc.cache", "pb.hc.update"},
-    "pb.holdout.refit": {"pb.hc.cache", "pb.hc.validate"},
-    "pb.holdout.batch": {None},
+    "pb.holdout.refit": {None},
+    "pb.holdout.batch": {None, "pb.hc.cache", "pb.hc.validate"},
     "pb.holdout.lg": {"pb.holdout.batch"},
     "pb.cv.families": {"pb.cv.batch"},
     "pb.cv.lg": {"pb.cv.batch"},
@@ -108,15 +109,18 @@ def counting_validated_likelihood():
 
 def learn(df):
     """A tiny semiparametric hc with a validation channel, from a network
-    with a CKDE node, then one batch of its validation channel: (the
-    callback, the score)."""
+    with a CKDE node, then one batch of its validation channel and one
+    family of it refitted: (the callback, the score; ``score.searched``
+    holds what the score had returned when the search ended)."""
     score = counting_validated_likelihood()(df, 0.2, 3, 0)
     seen = Iterations()
     start = pt.SemiparametricBN(NODES, [], [("b", pt.CKDEType())])
     learned = pt.hc(df, start=start, score=score, callback=seen, patience=2,
                     max_iters=6)
+    score.searched = dict(score.returned)
     score.vlocal_score_batch(learned, [
         ("b", ["a"], pt.LinearGaussianCPDType()), ("c", [], pt.CKDEType())])
+    score.vlocal_score_node_type(learned, pt.CKDEType(), "c", ["b"])
     return seen, score
 
 
@@ -222,6 +226,75 @@ def test_the_families_counted_are_those_returned(traced):
     # the learn's, and the five of the UCV batch
     assert counted["score.families.cv"] == score.returned["cv"] + 5
     assert counted["score.families.holdout"] == score.returned["holdout"]
+
+
+def port_ancestors(event):
+    names = []
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name.startswith("pb."):
+            names.append(parent.name)
+        parent = parent.cpu_parent
+    return names
+
+
+def test_hc_validates_through_the_holdout_batch(traced):
+    """The search's validation scores come from the hold-out batch, in
+    its first scores and in each iteration; a continuous family is never
+    refitted inside the search (the one refit is the call after it)."""
+    prof, counted, seen, score, _ = traced
+    inside = {}
+    for event in prof.events():
+        if event.name in ("pb.holdout.batch", "pb.holdout.refit"):
+            where = nearest_port_parent(event)
+            inside.setdefault(event.name, set()).add(where)
+            if event.name == "pb.holdout.refit":
+                assert "pb.hc.learn" not in port_ancestors(event)
+    assert inside["pb.holdout.batch"] == {None, "pb.hc.cache",
+                                          "pb.hc.validate"}
+    assert inside["pb.holdout.refit"] == {None}
+    assert counted["hc.validation_batched"] == score.searched["holdout"] > 0
+    assert counted["hc.validation_refits"] == 0
+
+
+def test_a_validated_score_sees_every_validation_family(frame):
+    """A ValidatedLikelihood that overrides ``vlocal_score_batch`` sees
+    every validation family the search used: every node's in the first
+    batch, then each iteration's changed nodes' in one batch each."""
+
+    class Seeing(pt.ValidatedLikelihood):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.batches = []
+
+        def vlocal_score_batch(self, model, families):
+            self.batches.append([(v, tuple(ps)) for v, ps, *_ in families])
+            return super().vlocal_score_batch(model, families)
+
+        def vlocal_score_node_type(self, *args):
+            raise AssertionError("a validation family refitted")
+
+    class Changed:
+        def __init__(self):
+            self.families = []
+
+        def call(self, model, operator, score, iteration):
+            if operator is not None:
+                self.families.append(
+                    [(n, tuple(model.parents(n)))
+                     for n in operator.nodes_changed(model)])
+
+    start = pt.SemiparametricBN(NODES, [], [("b", pt.CKDEType())])
+    changed = Changed()
+    score = Seeing(frame, 0.2, 3, 0)
+    pt.hc(frame, start=start, score=score, callback=changed, patience=2,
+          max_iters=6)
+    batches = score.batches
+    assert batches[0] == [(n, ()) for n in start.nodes()]
+    assert len(changed.families) >= 2
+    # a search ended by its patience validated one more step
+    assert len(batches) - 1 - len(changed.families) in (0, 1)
+    assert batches[1:1 + len(changed.families)] == changed.families
 
 
 def test_the_ucv_counters_sum_the_searches(traced, frame):
