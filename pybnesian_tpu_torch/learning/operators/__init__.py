@@ -17,9 +17,13 @@ call instead of one ``local_score`` per candidate (the reference's serial
 loop, operators.cpp:114-131).
 
 Copied from ``pybnesian_tpu/learning/operators/__init__.py``; it uses
-numpy and the port's tracing counters only. The validation cache of
-``hc`` takes every score through ``ValidatedScore.vlocal_score_batch``
-(:meth:`LocalScoreCache.update_vlocal_scores`).
+numpy and the port's tracing spans and counters only. The validation
+cache of ``hc`` takes every score through
+``ValidatedScore.vlocal_score_batch``
+(:meth:`LocalScoreCache.update_vlocal_scores`). Each rescoring pass of an
+operator set (the arc set's cells, the node-type set's nodes) is the span
+``pb.hc.cells``, its score call nested inside it, and adds the cells or
+nodes it rescored to the counter ``hc.operator_cells``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 
 from ...factors.base import FactorType
 from ...models.base import ConditionalBayesianNetwork
-from ...runtime.tracing import count
+from ...runtime.tracing import count, span
 
 #: Score deltas are quantized at this absolute resolution. Batched device
 #: evaluation pads families to bucketed shapes, so the same family can differ
@@ -376,6 +380,9 @@ class ArcOperatorSet(OperatorSet):
         self._tpos = {n: i for i, n in enumerate(self._targets)}
         ns, nt = len(self._sources), len(self._targets)
         self.delta = np.full((ns, nt), -np.inf)
+        # the cells whose delta is a flip's (the reverse arc present when
+        # the cell was last scored)
+        self._flip = np.zeros((ns, nt), dtype=bool)
         self.valid_op = np.ones((ns, nt), dtype=bool)
         for (s, t) in [*self._whitelist, *self._blacklist]:
             # unknown names are a caller error, not a no-op
@@ -443,6 +450,11 @@ class ArcOperatorSet(OperatorSet):
         lists per target) instead of per-cell name-based model calls: the
         hc inner loop touches thousands of cells per run and the reference
         does this walk in C++ (operators.cpp:100-180)."""
+        count("hc.operator_cells", len(cells))
+        with span("pb.hc.cells"):
+            self._rescore_cells(model, score, cells)
+
+    def _rescore_cells(self, model, score, cells) -> None:
         from ...models.base import BayesianNetworkType
 
         bn_type = model.type()
@@ -506,7 +518,7 @@ class ArcOperatorSet(OperatorSet):
             return
         values = score.local_score_batch(model, families)
         lc = self._local_cache._scores
-        delta = self.delta
+        delta, flip = self.delta, self._flip
         for plan in cell_plans:
             if plan is None:
                 continue
@@ -517,6 +529,7 @@ class ArcOperatorSet(OperatorSet):
             else:
                 d = values[idxs[0]] - cached_t
             delta[si, ti] = _quantize(d)
+            flip[si, ti] = kind == "flip"
 
     # ----------------------------------------------------------- find max
     def find_max(self, model, tabu: OperatorTabuSet | None = None):
@@ -601,13 +614,16 @@ class ArcOperatorSet(OperatorSet):
             for si in range(len(self._sources)):
                 if self.valid_op[si, ti]:
                     cells.append((si, ti))
-            # the flip deltas stored at (n, other) also involve n's column
+            # the flip deltas stored at (n, other) also involve n's column,
+            # and one whose arc other -> n is gone (removed: only n
+            # changed) is an add cell now
             if n in self._spos:
                 si_n = self._spos[n]
                 for other in self._targets:
                     ti_o = self._tpos[other]
                     if self.valid_op[si_n, ti_o] and (
                         model.has_arc(n, other) or model.has_arc(other, n)
+                        or self._flip[si_n, ti_o]
                     ):
                         cells.append((si_n, ti_o))
         cells = list(dict.fromkeys(cells))
@@ -644,6 +660,11 @@ class ChangeNodeTypeSet(OperatorSet):
         return True
 
     def _recompute_nodes(self, model, score, nodes) -> None:
+        count("hc.operator_cells", len(nodes))
+        with span("pb.hc.cells"):
+            self._rescore_nodes(model, score, nodes)
+
+    def _rescore_nodes(self, model, score, nodes) -> None:
         families = []
         plans = []
         for n in nodes:

@@ -7,8 +7,9 @@ CPU ``torch.profiler`` the same calls show the port's span tree, every
 span named ``pb.`` and none a name the benchmark's harness keeps for its
 own spans, and the counters agree with what the calls returned: the
 iterations a callback sees, the families scored, the search's validation
-families (all through the hold-out batch, none refitted), the UCV
-searches' evaluations. ``trace`` with a directory writes the Chrome trace and the
+families (all through the hold-out batch, none refitted), the operator
+sets' rescoring passes and the cells they rescored, the UCV searches'
+evaluations. ``trace`` with a directory writes the Chrome trace and the
 counters it counted.
 """
 
@@ -30,7 +31,7 @@ from torch_cpu import _on_the_cpu  # noqa: F401  (autouse)
 
 NODES = ["a", "b", "c", "d"]
 # the benchmark harness's own span names
-HARNESS = {"pb.score.cv", "pb.score.validation"}
+HARNESS = {"pb.score.cv", "pb.score.validation", "pb.score.keep"}
 # what a span's nearest enclosing span of the port may be
 PARENTS = {
     "pb.hc.learn": {None},
@@ -39,7 +40,8 @@ PARENTS = {
     "pb.hc.find_max": {"pb.hc.iteration"},
     "pb.hc.validate": {"pb.hc.iteration"},
     "pb.hc.update": {"pb.hc.iteration"},
-    "pb.cv.batch": {None, "pb.hc.cache", "pb.hc.update"},
+    "pb.hc.cells": {"pb.hc.cache", "pb.hc.update"},
+    "pb.cv.batch": {None, "pb.hc.cache", "pb.hc.update", "pb.hc.cells"},
     "pb.holdout.refit": {None},
     "pb.holdout.batch": {None, "pb.hc.cache", "pb.hc.validate"},
     "pb.holdout.lg": {"pb.holdout.batch"},
@@ -295,6 +297,32 @@ def test_a_validated_score_sees_every_validation_family(frame):
     # a search ended by its patience validated one more step
     assert len(batches) - 1 - len(changed.families) in (0, 1)
     assert batches[1:1 + len(changed.families)] == changed.families
+
+
+def test_each_rescoring_pass_is_a_span_and_counts_its_cells(frame,
+                                                            monkeypatch):
+    """Every rescoring pass of the arc and node-type operator sets is one
+    ``pb.hc.cells`` span, and ``hc.operator_cells`` adds the cells it was
+    given: at the first scores every arc cell (4 x 3) and every node
+    (4)."""
+    from pybnesian_tpu_torch.learning import operators
+
+    passes = []
+    for cls, name in ((operators.ArcOperatorSet, "_recompute_cells"),
+                      (operators.ChangeNodeTypeSet, "_recompute_nodes")):
+        def seen(self, model, score, cells, _orig=getattr(cls, name)):
+            passes.append(len(cells))
+            return _orig(self, model, score, cells)
+        monkeypatch.setattr(cls, name, seen)
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        learn(frame)
+    counted = tracing.counters()
+    tracing.reset_counters()
+    spans = [e for e in prof.events() if e.name == "pb.hc.cells"]
+    assert sorted(passes[:2]) == [4, 12] and len(passes) > 2
+    assert len(spans) == len(passes)
+    assert counted["hc.operator_cells"] == sum(passes)
 
 
 def test_the_ucv_counters_sum_the_searches(traced, frame):
